@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card: needs an NVIDIA GPU, skips without one.
+"""The port's CUDA kernels on the card: needs an NVIDIA GPU, skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch (the repository's conftest imports JAX, hence
@@ -6,10 +6,11 @@ machine that has only PyTorch (the repository's conftest imports JAX, hence
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The kernel and the plain version run the same algorithm in float32 on the
-same inputs, so they differ only by rounding (the kernel fuses multiply-adds):
-on these well-conditioned matrices the relative Frobenius distance is held to
-1e-5, about 100 float32 ulps.
+Each kernel and its plain version run the same arithmetic in float32 on the
+same inputs, so they differ only by rounding (the kernels fuse multiply-adds,
+and expf and torch.exp may differ in the last ulp): on these well-conditioned
+matrices and O(1) grams the relative Frobenius distance is held to 1e-5,
+about 100 float32 ulps.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 from zigp_tpu_torch.ops import linalg
 from zigp_tpu_torch.ops.cuda import chol_inv as ci
+from zigp_tpu_torch.ops.cuda import rbf_gram as rg
 
 pytestmark = pytest.mark.cuda
 
@@ -67,10 +69,126 @@ def test_kernel_nan_on_non_psd(cuda):
     assert torch.isnan(L[:, 7:, 7:]).any() and torch.isnan(Linv[:, 7:, :]).any()
 
 
-def test_wrapper_raises_on_requires_grad(cuda):
-    K = torch.eye(8, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        ci.chol_inv_cuda(K)
+def _library_chol_inv(K):
+    L = torch.linalg.cholesky(K)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+@pytest.mark.parametrize("n", [10, 100, 200])
+def test_chol_inv_gradient_on_card_launches_the_kernel(cuda, n):
+    """With grad, ``linalg.chol_inv`` runs the kernel (directly, or on the
+    blocked routine's diagonal blocks) and its backward equals autograd of
+    torch.linalg's Cholesky and triangular solve."""
+    rng = np.random.RandomState(n)
+    K = torch.as_tensor(_spd(n, seed=n), device=cuda)
+    dL, dLinv = (torch.as_tensor(rng.randn(2, n, n), dtype=torch.float32, device=cuda) for _ in range(2))
+    grads = []
+    for fn in (linalg.chol_inv, _library_chol_inv):
+        Kr = K.clone().requires_grad_(True)
+        before = ci.chol_inv_cuda.launches
+        L, Linv = fn(Kr)
+        launched = ci.chol_inv_cuda.launches - before
+        (g,) = torch.autograd.grad((L * dL).sum() + (Linv * dLinv).sum(), Kr)
+        grads.append((g, launched))
+    assert grads[0][1] == (1 if n <= ci.MAX_N else len(ci.block_offsets(n)) - 1) and grads[1][1] == 0
+    assert _rel(grads[0][0], grads[1][0]) < 1e-4
+
+
+def _gram_inputs(G, N, M, D, shared, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(G, N, D)
+    Z = rng.randn(M, D) if shared else rng.randn(G, M, D)
+    ell = 0.5 + rng.rand(G, D)
+    var = 1.0 + rng.rand(G)
+    return X, Z, ell, var
+
+
+@pytest.mark.parametrize(
+    "G,N,M,D,shared",
+    [
+        (2, 10, 10, 2, False), (2, 100, 1000, 1, True), (2, 10, 1000, 2, True), (1, 1, 33, 3, False),
+        (3, 67, 45, 3, True), (2, 8, 1000, 4, True), (2, 37, 70, 7, False),  # D > 3: the run-time-D instance
+    ],
+)
+def test_rbf_gram_kernel_matches_plain(cuda, G, N, M, D, shared):
+    args = [torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in _gram_inputs(G, N, M, D, shared)]
+    before = rg.rbf_gram_cuda.launches
+    K = rg.rbf_gram_cuda(*args)
+    Kp = rg.rbf_gram_plain(*args)
+    torch.cuda.synchronize()
+    assert rg.rbf_gram_cuda.launches == before + 1
+    assert K.shape == (G, N, M) and _rel(K, Kp) < 1e-5
+
+
+def test_rbf_gram_backward_on_card_matches_autograd_of_plain(cuda):
+    X, Z, ell, var = _gram_inputs(2, 40, 300, 2, True, seed=5)
+    cot = torch.as_tensor(np.random.RandomState(6).randn(2, 40, 300), dtype=torch.float32, device=cuda)
+    grads = []
+    for fn in (rg.rbf_gram, lambda *a: rg.rbf_gram_plain(*a)):
+        leaves = [torch.as_tensor(a, dtype=torch.float32, device=cuda).requires_grad_(True) for a in (X, ell, var)]
+        Zt = torch.as_tensor(Z, dtype=torch.float32, device=cuda)
+        (fn(leaves[0], Zt, leaves[1], leaves[2]) * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) < 1e-4
+
+
+def test_rbf_gram_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
+    X, Z, ell, var = (torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in _gram_inputs(2, 8, 5, 2, False))
+    with pytest.raises(TypeError):
+        rg.rbf_gram_cuda(X.double(), Z.double(), ell.double(), var.double())
+    with pytest.raises(ValueError):
+        rg.rbf_gram_cuda(X, Z, torch.cat([ell, ell], 1), var)  # ell's D is not X's
+    with pytest.raises(ValueError):
+        rg.rbf_gram_cuda(X.transpose(-1, -2).contiguous().transpose(-1, -2), Z, ell, var)  # column-major rows
+    with pytest.raises(ValueError):
+        rg.rbf_gram_cuda(X[:1], Z, ell, var)  # X's batch is not G
+    with pytest.raises(ValueError):
+        rg.rbf_gram_cuda(X, Z.cpu(), ell, var)
+
+
+def test_use_kernel_model_on_card_launches_both_kernels(cuda):
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+
+    split = synthetic_pptr(8, 24, seed=0)
+    model = build_onoff_pptr(configs.OnOffPptrConfig(grid=configs.KronGridConfig(4, 12)), split, use_kernel=True)
+    X = torch.as_tensor(split.Xtrain[:64], dtype=torch.float32, device=cuda)
+    Y = torch.as_tensor(split.Ytrain[:64], dtype=torch.float32, device=cuda)
+    g0, c0 = rg.rbf_gram_cuda.launches, ci.chol_inv_cuda.launches
+    model.loss(X, Y).backward()
+    torch.cuda.synchronize()
+    assert rg.rbf_gram_cuda.launches - g0 == 4  # (K_mm + K_mn) x 2 factors, the f/g pair in one launch
+    assert ci.chol_inv_cuda.launches - c0 == 2
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.requires_grad)
+
+
+def test_covariate_factor_on_card_launches_the_gram_kernel(cuda):
+    """Inputs with covariate columns add a fourth factor over them (here
+    D = 4); with the flag on its grams take the kernel too."""
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import Split, synthetic_pptr
+
+    split = synthetic_pptr(8, 24, seed=0)
+    rng = np.random.RandomState(1)
+    split = Split(np.hstack([split.Xtrain, rng.randn(len(split.Xtrain), 4)]), split.Ytrain,
+                  np.hstack([split.Xtest, rng.randn(len(split.Xtest), 4)]), split.Ytest)
+    cfg = configs.OnOffPptrConfig(grid=configs.KronGridConfig(4, 12, num_exog=5))
+    model = build_onoff_pptr(cfg, split, use_kernel=True)
+    assert model.f.kernel_flags() == (True, True, True)
+    X = torch.as_tensor(split.Xtrain[:64], dtype=torch.float32, device=cuda)
+    Y = torch.as_tensor(split.Ytrain[:64], dtype=torch.float32, device=cuda)
+    rg.rbf_gram_cuda.launches_by_shape.clear()
+    g0 = rg.rbf_gram_cuda.launches
+    model.loss(X, Y).backward()
+    torch.cuda.synchronize()
+    assert rg.rbf_gram_cuda.launches - g0 == 6  # (K_mm + K_mn) x 3 factors
+    assert rg.rbf_gram_cuda.launches_by_shape[(2, 5, 5, 4)] == 1
+    assert rg.rbf_gram_cuda.launches_by_shape[(2, 5, 64, 4)] == 1
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.requires_grad)
 
 
 def test_wrapper_raises_on_what_the_kernel_cannot_take(cuda):

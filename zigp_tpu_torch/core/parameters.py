@@ -67,3 +67,30 @@ def param(
 
 def positive_param(value, **kw) -> Parameter:
     return param(value, bijectors.positive, **kw)
+
+
+def _label(p: Parameter, default_label: str) -> str:
+    if not p.trainable:
+        return "frozen"
+    return default_label if p.lr is None else f"lr:{p.lr:g}"
+
+
+def lr_labels(model: nn.Module, default_label: str = "default") -> dict[str, str]:
+    """{raw's parameter name: optimizer label}, as ``zigp_tpu``'s ``lr_labels``
+    labels the pytree: "frozen" for a non-trainable Parameter, "lr:<value>"
+    for one with its own lr, ``default_label`` otherwise."""
+    return {
+        f"{name}.raw" if name else "raw": _label(m, default_label)
+        for name, m in model.named_modules()
+        if isinstance(m, Parameter)
+    }
+
+
+def collect_lrs(model: nn.Module, default_lr: float) -> dict[str, float]:
+    """{label: lr} of the trainable groups present in ``model``, always with
+    "default"; the "frozen" label has no lr and is left out."""
+    groups = {"default": default_lr}
+    for m in model.modules():
+        if isinstance(m, Parameter) and m.trainable and m.lr is not None:
+            groups[_label(m, "default")] = m.lr
+    return groups

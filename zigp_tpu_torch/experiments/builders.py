@@ -2,7 +2,9 @@
 
 Counterpart of ``zigp_tpu/experiments/builders.py:54-178`` for the on/off
 model. The port has the RBF kernel only: any other family, or a composite
-"a*b" / "a+b" spec, raises ``NotImplementedError``.
+"a*b" / "a+b" spec, raises ``NotImplementedError``. ``use_kernel=True``
+builds every factor's grams with the ``rbf_gram`` CUDA kernel (the JAX
+``use_pallas``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from .configs import KernelInit, OnOffPptrConfig
 _RBF_NAMES = ("rbf", "se")
 
 
-def make_kernel(init: KernelInit, *, lr=None):
+def make_kernel(init: KernelInit, *, lr=None, use_kernel: bool = False):
     """The kernel named by ``init.family``; ``init.trust`` > 0 rebuilds the
     lengthscales with a Sigmoid interval [init/trust, init·trust]."""
     spec = (init.family or "rbf").strip().lower()
@@ -32,7 +34,7 @@ def make_kernel(init: KernelInit, *, lr=None):
         raise NotImplementedError(
             f"kernel family {spec!r} is not ported yet; zigp_tpu_torch has {list(_RBF_NAMES)}"
         )
-    k = RBF.create(list(init.lengthscales), init.variance, lr=lr)
+    k = RBF.create(list(init.lengthscales), init.variance, lr=lr, use_kernel=use_kernel)
     if init.trust:
         if init.trust <= 1.0:
             raise ValueError(f"trust must be > 1 (got {init.trust})")
@@ -47,13 +49,16 @@ def _axis_spans(X):
     return float(X[:, 0].max() - X[:, 0].min()), float(X[:, 1].max() - X[:, 1].min())
 
 
-def make_factor_kernels(spatial_init, temporal_init, spatial_factors, *, lr=None, axis_spans=None):
+def make_factor_kernels(
+    spatial_init, temporal_init, spatial_factors, *, lr=None, axis_spans=None, use_kernel: bool = False
+):
     """Per-factor kernels: one 2-D spatial kernel and the temporal kernel, or
     with ``spatial_factors`` one 1-D kernel per spatial axis, each axis's
     lengthscale init clamped to span/4 (a 2-D init of 8 on an axis of span
     about 10 makes the factor gram near rank 1)."""
+    kw = dict(lr=lr, use_kernel=use_kernel)
     if spatial_factors is None:
-        return [make_kernel(spatial_init, lr=lr), make_kernel(temporal_init, lr=lr)]
+        return [make_kernel(spatial_init, **kw), make_kernel(temporal_init, **kw)]
 
     def axis_init(d):
         ls = spatial_init.lengthscales
@@ -63,19 +68,19 @@ def make_factor_kernels(spatial_init, temporal_init, spatial_factors, *, lr=None
         return dataclasses.replace(spatial_init, lengthscales=(ls_d,))
 
     return [
-        make_kernel(axis_init(0), lr=lr),
-        make_kernel(axis_init(1), lr=lr),
-        make_kernel(temporal_init, lr=lr),
+        make_kernel(axis_init(0), **kw),
+        make_kernel(axis_init(1), **kw),
+        make_kernel(temporal_init, **kw),
     ]
 
 
-def _exog_kernels(X, *, lr=None):
+def _exog_kernels(X, *, lr=None, use_kernel: bool = False):
     """One RBF factor over the covariate columns when the inputs carry them
     (D > 3), with unit lengthscales and variance."""
     d = np.asarray(X).shape[1] - 3
     if d <= 0:
         return []
-    return [RBF.create([1.0] * d, 1.0, lr=lr)]
+    return [RBF.create([1.0] * d, 1.0, lr=lr, use_kernel=use_kernel)]
 
 
 def build_onoff_pptr(
@@ -84,6 +89,7 @@ def build_onoff_pptr(
     *,
     device=None,
     dtype: torch.dtype = torch.float32,
+    use_kernel: bool = False,
 ) -> KronOnOffSVGP:
     """The on/off model of ``cfg`` for ``split``, on ``device`` in ``dtype``.
     ``device=None`` is the CUDA card, and raises where there is none; pass
@@ -96,12 +102,12 @@ def build_onoff_pptr(
     spans = _axis_spans(split.Xtrain)
     fkerns = make_factor_kernels(
         cfg.fk_spatial, cfg.fk_temporal, cfg.grid.spatial_factors,
-        lr=cfg.kern_lr, axis_spans=spans,
-    ) + _exog_kernels(split.Xtrain, lr=cfg.kern_lr)
+        lr=cfg.kern_lr, axis_spans=spans, use_kernel=use_kernel,
+    ) + _exog_kernels(split.Xtrain, lr=cfg.kern_lr, use_kernel=use_kernel)
     gkerns = make_factor_kernels(
         cfg.gk_spatial, cfg.gk_temporal, cfg.grid.spatial_factors,
-        lr=cfg.kern_lr, axis_spans=spans,
-    ) + _exog_kernels(split.Xtrain, lr=cfg.kern_lr)
+        lr=cfg.kern_lr, axis_spans=spans, use_kernel=use_kernel,
+    ) + _exog_kernels(split.Xtrain, lr=cfg.kern_lr, use_kernel=use_kernel)
     model = KronOnOffSVGP.create(
         fkerns,
         Zs,

@@ -39,20 +39,33 @@ def profile_config(name, cfg, split, batch):
         t0 = time.perf_counter()
         predict_batched(model.predict, X, batch=batch)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [
+    res = {"config": name, "rows": int(X.shape[0]), "batch": batch, **summarize(prof, wall_ms)}
+    print(json.dumps(res))
+    return res
+
+
+def summarize(prof, wall_ms: float) -> dict:
+    """wall_ms, the summed device time and the number of the profiled
+    kernels, the device's idle share (1 − device time / wall time; one
+    stream, so kernels do not overlap), the TOP kernels by device time, and
+    the device time under each user annotation."""
+    on_device = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
     ]
+    # a user annotation (Adam's "Optimizer.step#Adam.step") spans kernels
+    # that are counted on their own: report it apart, never in the sum
+    notes = [e for e in on_device if getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in on_device if e not in notes]
     dev = lambda e: float(e.device_time_total)  # µs
+    row = lambda e: {"name": e.key[:90], "device_ms": dev(e) / 1e3, "calls": e.count}
     device_ms = sum(dev(e) for e in kernels) / 1e3
-    rows_out = sorted(kernels, key=dev, reverse=True)[:TOP]
-    res = {
-        "config": name, "rows": int(X.shape[0]), "batch": batch, "wall_ms": wall_ms,
-        "device_ms": device_ms, "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-        "top": [{"name": e.key[:90], "device_ms": dev(e) / 1e3, "calls": e.count} for e in rows_out],
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms, "kernel_calls": sum(e.count for e in kernels),
+        "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "top": [row(e) for e in sorted(kernels, key=dev, reverse=True)[:TOP]],
+        "annotations": [row(e) for e in notes],
     }
-    print(json.dumps(res))
-    return res
 
 
 def main():

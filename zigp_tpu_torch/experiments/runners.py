@@ -1,6 +1,9 @@
-"""Serving runner: batched prediction over a large input set.
+"""Runners: batched prediction over a large input set, and the on/off
+model's training.
 
-Counterpart of ``zigp_tpu/experiments/runners.py:55-80`` (``predict_batched``).
+Counterpart of ``zigp_tpu/experiments/runners.py``: ``predict_batched``
+(:55-80) and the training half of ``run_onoff`` / ``_fit_auto`` (:83-275) as
+``train_onoff_pptr``.
 """
 
 from __future__ import annotations
@@ -11,6 +14,63 @@ import numpy as np
 import torch
 
 from ..core.config import resolve_device
+from ..io.datasets import Split
+from ..training import DataSet, FitResult, cosine_adam, fit_scanned, make_optimizer
+from .builders import build_onoff_pptr
+from .configs import OnOffPptrConfig
+
+
+def train_onoff_pptr(
+    cfg: OnOffPptrConfig,
+    split: Split,
+    *,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+    use_kernel: bool = False,
+    model=None,
+    log_fn: Callable[[str], None] = print,
+) -> FitResult:
+    """Build the on/off model of ``cfg`` for ``split`` (or take ``model``)
+    and train it for ``cfg.num_iter`` steps in blocks of ``cfg.scan_inner``
+    at ``cfg.batch_size``, by ``cfg.sampler``, with per-lr-group Adam (cosine
+    decay over ``cfg.num_iter`` when ``cfg.lr_schedule == "cosine"``), as the
+    JAX package's scanned path does. ``device=None`` is the CUDA card;
+    ``use_kernel`` builds the factor grams with the ``rbf_gram`` kernel.
+
+    What the port does not have raises ``NotImplementedError``: natural
+    gradients, the block-coordinate schedule (``hyper_every``), meshes, and
+    the per-step loop that the JAX package takes when ``scan_inner`` is 0 or
+    longer than the run."""
+    unported = [
+        what
+        for what, on in (
+            ("optimizer='natgrad'", cfg.optimizer == "natgrad"),
+            ("hyper_every > 0", cfg.hyper_every > 0),
+            ("mesh_data/mesh_model", bool(cfg.mesh_data or cfg.mesh_model)),
+            ("the per-step fit (scan_inner 0 or > num_iter)", not 0 < cfg.scan_inner <= cfg.num_iter),
+        )
+        if on
+    ]
+    if unported:
+        raise NotImplementedError(f"train_onoff_pptr: {unported} not ported to zigp_tpu_torch yet")
+    if cfg.optimizer != "adam":
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    if model is None:
+        model = build_onoff_pptr(cfg, split, device=device, dtype=dtype, use_kernel=use_kernel)
+    schedule = cosine_adam(cfg.num_iter) if cfg.lr_schedule == "cosine" else None
+    optimizer = make_optimizer(model, default_lr=cfg.indp_lr, schedule=schedule)
+    return fit_scanned(
+        model,
+        DataSet(split.Xtrain, split.Ytrain),
+        num_iter=cfg.num_iter,
+        batch_size=cfg.batch_size,
+        num_inner=cfg.scan_inner,
+        optimizer=optimizer,
+        log_every_blocks=max(1, cfg.log_every // cfg.scan_inner) if cfg.log_every else 0,
+        log_fn=log_fn,
+        sampler=cfg.sampler,
+        sampler_seed=cfg.seed,
+    )
 
 
 def predict_batched(

@@ -1,9 +1,10 @@
 """Kronecker-structured sparse variational GPs: ``KronGP`` and the on/off pair.
 
 Counterpart of ``zigp_tpu/models/kron.py`` (``KronGP`` :41-149 and
-``KronOnOffSVGP`` :448-569), the serving half: ``create``, the factor grams
-and their ``chol_inv`` state, ``predict_f`` and ``predict``. The KL and the
-ELBO come with the training port.
+``KronOnOffSVGP`` :448-639): ``create``, the factor grams and their
+``chol_inv`` state, ``prior_kl``, ``predict_f`` and ``predict``, and the
+on/off ``elbo`` and ``loss``. The KL and the conditional of a step share one
+``chol_inv`` per factor, as in the JAX package.
 
 The inducing grid is Z = Z_s × Z_t (e.g. 10 spatial kmeans centres × 100
 temporal knots), never formed: the conditional works factor by factor
@@ -29,7 +30,7 @@ from torch import nn
 from ..core.bijectors import FillLowerTriangular
 from ..core.config import default_jitter
 from ..core.parameters import param, positive_param
-from ..ops import conditionals, linalg
+from ..ops import conditionals, gauss_kl, linalg
 from ..ops.probit import probit_expectations
 from .onoff import OnOffPrediction
 
@@ -127,10 +128,14 @@ class KronGP(nn.Module):
     def masks(self):
         return [getattr(self, f"mask{p}") for p in range(len(self.input_masks))]
 
+    def kernel_flags(self) -> Tuple[bool, ...]:
+        """Per factor, whether its grams come from ``ops.cuda.rbf_gram``."""
+        return tuple(k.use_kernel for k in self.kernels)
+
     def signature(self):
         """What must match for two GPs to run as one stacked pass."""
         shapes = tuple((n, tuple(p.shape)) for n, p in self.named_parameters())
-        return shapes, self.input_masks, self.jitter, self.whiten
+        return shapes, self.input_masks, self.jitter, self.whiten, self.kernel_flags()
 
     def values(self) -> GPValues:
         return GPValues(
@@ -143,11 +148,27 @@ class KronGP(nn.Module):
 
     # The methods below take values with a leading batch dim (see _stack).
     def _gram_factors(self, vals: GPValues):
-        return [linalg.add_jitter(k.K(Z), self.jitter) for k, Z in zip(vals.kernels, vals.Zs)]
+        return [
+            linalg.add_jitter(k.K(Z, use_kernel=f), self.jitter)
+            for k, Z, f in zip(vals.kernels, vals.Zs, self.kernel_flags())
+        ]
 
     def _factor_state(self, vals: GPValues):
         pairs = [linalg.chol_inv(Kp) for Kp in self._gram_factors(vals)]
         return tuple(L for L, _ in pairs), tuple(Li for _, Li in pairs)
+
+    def _prior_kl(self, vals: GPValues, factor_state=None):
+        """KL(q(u) ‖ p(u)) per stacked GP, (G,). The whitened prior needs no
+        factor state; otherwise it is computed here unless given."""
+        if self.whiten:
+            if vals.q_sqrt_factors is not None:
+                return gauss_kl.gauss_kl_kron_full(vals.q_mu, vals.q_sqrt_factors, None)
+            return gauss_kl.gauss_kl(vals.q_mu, vals.q_sqrt, None)
+        if factor_state is None:
+            factor_state = self._factor_state(vals)
+        if vals.q_sqrt_factors is not None:
+            return gauss_kl.gauss_kl_kron_full(vals.q_mu, vals.q_sqrt_factors, factor_state=factor_state)
+        return gauss_kl.gauss_kl_kron(vals.q_mu, vals.q_sqrt, factor_state=factor_state)
 
     def _predict_f(self, vals: GPValues, Xnew, factor_state=None):
         return conditionals.kron_conditional(
@@ -161,6 +182,7 @@ class KronGP(nn.Module):
             whiten=self.whiten,
             q_sqrt_factors=vals.q_sqrt_factors,
             factor_state=factor_state if factor_state is not None else self._factor_state(vals),
+            use_kernel=self.kernel_flags(),
         )
 
     def gram_factors(self):
@@ -170,6 +192,11 @@ class KronGP(nn.Module):
         """(Ls, Linvs) = chol_inv of the jittered factor grams."""
         Ls, Linvs = self._factor_state(_stack([self.values()]))
         return tuple(L[0] for L in Ls), tuple(Li[0] for Li in Linvs)
+
+    def prior_kl(self, factor_state=None) -> torch.Tensor:
+        if factor_state is not None:
+            factor_state = _stack([factor_state])
+        return self._prior_kl(_stack([self.values()]), factor_state)[0]
 
     def predict_f(self, Xnew: torch.Tensor, factor_state=None):
         """Marginal predictive (mean, var), each (B, 1)."""
@@ -266,3 +293,43 @@ class KronOnOffSVGP(nn.Module):
         if self._pairable():
             return self.f._factor_state(_stack([self.f.values(), self.g.values()]))
         return self.f.factor_state(), self.g.factor_state()
+
+    def prior_kl(self) -> torch.Tensor:
+        if self._pairable():
+            return torch.sum(self.f._prior_kl(_stack([self.f.values(), self.g.values()])))
+        return self.f.prior_kl() + self.g.prior_kl()
+
+    def elbo(self, X: torch.Tensor, Y: torch.Tensor, *, num_data=None, factor_state=None) -> torch.Tensor:
+        """The minibatch ELBO: (num_data / B) Σ E_q[log p(y | Φ(g) f)] − KL_f − KL_g.
+
+        ``num_data`` overrides the model's dataset size; ``factor_state``
+        injects a precomputed ``self.factor_state()`` (same layout). Each GP
+        factorizes its grams once (chol_inv) for both its KL and its
+        conditional; paired, f and g run as one stacked pass."""
+
+        def kl_and_predict(gp, vals, st):
+            st = gp._factor_state(vals) if st is None else st
+            return gp._prior_kl(vals, st), gp._predict_f(vals, X, st)
+
+        if self._pairable():
+            kls, (mu, var) = kl_and_predict(self.f, _stack([self.f.values(), self.g.values()]), factor_state)
+            kl = torch.sum(kls)
+            (fmean, fvar), (gmean, gvar) = (mu[0], var[0]), (mu[1], var[1])
+        else:
+            stf, stg = (None, None) if factor_state is None else (_stack([s]) for s in factor_state)
+            klf, (fm, fv) = kl_and_predict(self.f, _stack([self.f.values()]), stf)
+            klg, (gm, gv) = kl_and_predict(self.g, _stack([self.g.values()]), stg)
+            kl = klf[0] + klg[0]
+            fmean, fvar, gmean, gvar = fm[0], fv[0], gm[0], gv[0]
+        if self.mean_const is not None:
+            fmean = fmean + self.mean_const.value
+        gmean = gmean + self.g_mean_shift
+        e_phi, e_phi_sq, var_phi = probit_expectations(gmean, gvar, exact=self.exact_owen_t)
+        var_exp = self.likelihood.variational_expectations(
+            e_phi * fmean, e_phi_sq * fvar, var_phi * torch.square(fmean), Y
+        )
+        n = self.num_data if num_data is None else num_data
+        return torch.sum(var_exp) * (n / X.shape[0]) - kl
+
+    def loss(self, X, Y, *, num_data=None, factor_state=None):
+        return -self.elbo(X, Y, num_data=num_data, factor_state=factor_state)

@@ -36,6 +36,7 @@ def kron_conditional(
     whiten: bool = False,
     q_sqrt_factors: Optional[Sequence[torch.Tensor]] = None,
     factor_state=None,
+    use_kernel: Sequence[bool] = (),
 ):
     """Marginal predictive mean and variance, each (G, B, 1).
 
@@ -44,11 +45,17 @@ def kron_conditional(
     row-major factor order; q_sqrt_factors[p]: (G, M_p, M_p) lower factors of
     S = ⊗ C_p C_pᵀ, or None for the diagonal family; input_masks[p]: the
     columns of Xnew for factor p (index tensor or sequence of ints);
-    factor_state: precomputed (Ls, Linvs) of the jittered factor grams.
-    ``whiten`` reads (q_mu, q_sqrt) as the whitened v with u = (⊗ L_p) v."""
+    factor_state: precomputed (Ls, Linvs) of the jittered factor grams;
+    use_kernel[p]: build factor p's grams with ``ops.cuda.rbf_gram`` (all off
+    when empty). ``whiten`` reads (q_mu, q_sqrt) as the whitened v with
+    u = (⊗ L_p) v."""
     sizes = [Z.shape[-2] for Z in Zs]
+    flags = list(use_kernel) or [False] * len(Zs)
     if factor_state is None:
-        pairs = [linalg.chol_inv(linalg.add_jitter(k.K(Z), jitter)) for k, Z in zip(kernels, Zs)]
+        pairs = [
+            linalg.chol_inv(linalg.add_jitter(k.K(Z, use_kernel=f), jitter))
+            for k, Z, f in zip(kernels, Zs, flags)
+        ]
         Linvs = [Li for _, Li in pairs]
     else:
         Linvs = list(factor_state[1])
@@ -56,11 +63,11 @@ def kron_conditional(
     Knn = None
     Kmn_factors = []
     V_factors = []
-    for k, Z, Li, mask in zip(kernels, Zs, Linvs, input_masks):
+    for k, Z, Li, mask, f in zip(kernels, Zs, Linvs, input_masks, flags):
         xp = Xnew.index_select(-1, torch.as_tensor(mask, device=Xnew.device))
         kd = k.Kdiag(xp)  # (G, B)
         Knn = kd if Knn is None else Knn * kd
-        Kmn_p = k.K(Z, xp)  # (G, M_p, B)
+        Kmn_p = k.K(Z, xp, use_kernel=f)  # (G, M_p, B)
         Kmn_factors.append(Kmn_p)
         V_factors.append(Li @ Kmn_p)
 

@@ -17,10 +17,9 @@ Counterpart of ``zigp_tpu/ops/pallas/chol_inv.py``:
   block forward substitution are float32 matmuls, exact because
   ``core.config`` turns TF32 off at import.
 
-The kernel is forward-only in this package: gradients through ``chol_inv``
-come with training, as a ``torch.autograd.Function`` whose backward is the
-matmul-only rule of ``zigp_tpu/ops/linalg.py:177-211``. Until then the CUDA
-wrapper raises on an input that requires grad, so no wrong gradient flows.
+These are forward functions. Gradients go through ``ops.linalg.chol_inv``, a
+``torch.autograd.Function`` that calls them on a detached input and whose
+backward is the matmul-only rule of ``zigp_tpu/ops/linalg.py:177-211``.
 """
 
 from __future__ import annotations
@@ -78,7 +77,7 @@ def chol_inv_plain(K: torch.Tensor):
 
 def chol_inv_cuda(K: torch.Tensor):
     """(L, L⁻¹) of (..., n, n) SPD ``K``. A CUDA tensor goes to the kernel
-    (float32, contiguous, n ≤ 128, no grad; anything else raises); a CPU
+    (float32, contiguous, n ≤ 128; anything else raises); a CPU
     tensor goes to ``chol_inv_plain``. Each kernel launch adds one to
     ``chol_inv_cuda.launches`` and to ``chol_inv_cuda.launches_by_n[n]``."""
     if K.device.type == "cpu":
@@ -94,11 +93,6 @@ def chol_inv_cuda(K: torch.Tensor):
         raise ValueError(f"chol_inv_cuda: the kernel takes 1 <= n <= {MAX_N}, got n={n}")
     if not K.is_contiguous():
         raise ValueError("chol_inv_cuda: input must be contiguous")
-    if K.requires_grad:
-        raise RuntimeError(
-            "chol_inv_cuda is forward-only: its backward comes with the training "
-            "port; call it under torch.no_grad() or torch.inference_mode()"
-        )
     G = K.numel() // (n * n)
     L = torch.empty_like(K)
     Linv = torch.empty_like(K)

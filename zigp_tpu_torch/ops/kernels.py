@@ -9,6 +9,13 @@ the factor gram indefinite.
 ``RBFValues`` holds constrained hyperparameters with any leading batch
 dimensions, which is how the on/off model evaluates the f and g kernels of a
 pair in one pass (a stacked leading dim of 2 in place of the JAX ``vmap``).
+
+``SquaredExponential.use_kernel`` is the counterpart of the JAX
+``use_pallas`` (default off): the gram then comes from
+``ops.cuda.rbf_gram`` — the CUDA kernel for float32 on the card, its plain
+version on the CPU — while float64 on the card keeps the gram below, as the
+JAX package keeps XLA's for anything but float32. The flag is not one of the
+stacked values; the model passes it to ``RBFValues.K``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from torch import nn
 
 from ..core.parameters import positive_param
+from .cuda.rbf_gram import rbf_gram
 
 _EXPANSION_MIN_DIM = 16
 
@@ -44,7 +52,9 @@ class RBFValues(NamedTuple):
     lengthscales: torch.Tensor
     variance: torch.Tensor
 
-    def K(self, X, X2: Optional[torch.Tensor] = None):
+    def K(self, X, X2: Optional[torch.Tensor] = None, *, use_kernel: bool = False):
+        if use_kernel and (X.device.type == "cpu" or X.dtype == torch.float32):
+            return rbf_gram(X, X if X2 is None else X2, self.lengthscales, self.variance)
         d2 = square_dist(X, X2, self.lengthscales)
         return self.variance[..., None, None] * torch.exp(-0.5 * d2)
 
@@ -56,21 +66,22 @@ class RBFValues(NamedTuple):
 class SquaredExponential(nn.Module):
     """ARD squared-exponential kernel σ² exp(-½ Σ_d (x_d - x'_d)²/ℓ_d²)."""
 
-    def __init__(self, lengthscales, variance):
+    def __init__(self, lengthscales, variance, use_kernel: bool = False):
         super().__init__()
         self.lengthscales = lengthscales
         self.variance = variance
+        self.use_kernel = use_kernel
 
     @classmethod
-    def create(cls, lengthscales, variance, lr=None) -> "SquaredExponential":
+    def create(cls, lengthscales, variance, lr=None, use_kernel: bool = False) -> "SquaredExponential":
         ell = np.atleast_1d(np.asarray(lengthscales, dtype=np.float64))
-        return cls(positive_param(ell, lr=lr), positive_param(variance, lr=lr))
+        return cls(positive_param(ell, lr=lr), positive_param(variance, lr=lr), use_kernel)
 
     def values(self) -> RBFValues:
         return RBFValues(self.lengthscales.value, self.variance.value)
 
     def K(self, X, X2=None):
-        return self.values().K(X, X2)
+        return self.values().K(X, X2, use_kernel=self.use_kernel)
 
     def Kdiag(self, X):
         return self.values().Kdiag(X)

@@ -1,8 +1,9 @@
-"""Dense and Kronecker-factored linear algebra for the serving path.
+"""Dense and Kronecker-factored linear algebra for serving and training.
 
 Counterpart of ``zigp_tpu/ops/linalg.py``: ``add_jitter``, the ``chol_inv``
-dispatch, and the factored Kronecker solves against precomputed triangular
-inverses. The JAX package routes every solve-replacing product through
+dispatch with its matmul-only backward, the factored Kronecker solves against
+precomputed triangular inverses, and the diagonal and log-determinant pieces
+of the KL. The JAX package routes every solve-replacing product through
 ``hdot``/``bdot`` to pin it at exact float32; here those are plain matmuls,
 exact in float32 because ``core.config`` turns TF32 off at import.
 
@@ -49,9 +50,7 @@ def chol_inv_route(n: int, dtype: torch.dtype, device_type: str) -> str:
     return "library"
 
 
-def chol_inv(K: torch.Tensor):
-    """(L, L⁻¹) with L = chol(K), batched over leading dims. Forward only on
-    the card (see ``ops.cuda.chol_inv``)."""
+def _chol_inv_forward(K: torch.Tensor):
     route = chol_inv_route(K.shape[-1], K.dtype, K.device.type)
     if route == "kernel":
         return chol_inv_cuda(K.contiguous())
@@ -60,6 +59,41 @@ def chol_inv(K: torch.Tensor):
     L = torch.linalg.cholesky(K)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def _phi_half_diag(X: torch.Tensor) -> torch.Tensor:
+    """The lower triangle of X with its diagonal halved."""
+    return torch.tril(X) - 0.5 * torch.diag_embed(torch.diagonal(X, dim1=-2, dim2=-1))
+
+
+class _CholInv(torch.autograd.Function):
+    """(L, L⁻¹) = chol_inv(K) with the matmul-only backward of
+    ``zigp_tpu/ops/linalg.py:177-211`` (reverse-mode Cholesky with L⁻¹ in
+    hand, Murray 2016), on every route: the forward's kernel, blocked routine
+    or library call sees a detached K, and the backward needs no solve."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L, Linv = _chol_inv_forward(K.detach())
+        ctx.save_for_backward(L, Linv)
+        return L, Linv
+
+    @staticmethod
+    def backward(ctx, dL, dLinv):
+        L, Linv = ctx.saved_tensors
+        mT = lambda A: A.transpose(-1, -2)
+        dL_tot = torch.zeros_like(L) if dL is None else dL
+        if dLinv is not None:
+            # pullback through L⁻¹ (lower-triangular dof only): −tril(L⁻ᵀ dLinv L⁻ᵀ)
+            dL_tot = dL_tot - torch.tril(mT(Linv) @ dLinv @ mT(Linv))
+        P = _phi_half_diag(mT(L) @ dL_tot)
+        return 0.5 * (mT(Linv) @ (P + mT(P)) @ Linv)
+
+
+def chol_inv(K: torch.Tensor):
+    """(L, L⁻¹) with L = chol(K), batched over leading dims, differentiable
+    in K on every route (``chol_inv_route``)."""
+    return _CholInv.apply(K)
 
 
 def _apply_factor_mats(mats: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -86,3 +120,46 @@ def kron_linv_solve(Linvs: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Ten
     """x = (⊗_p K_p)⁻¹ b = (⊗ L_p⁻ᵀ)(⊗ L_p⁻¹) b given the triangular inverses."""
     half = kron_linv_lower(Linvs, b)
     return _apply_factor_mats([Li.transpose(-1, -2) for Li in Linvs], half)
+
+
+# The KL's pieces (``zigp_tpu/ops/linalg.py:261-397``), batched over leading
+# dims. The JAX package reads diagonals by a masked reduce to avoid a TPU
+# relayout under vmap-of-jvp; ``torch.diagonal`` is a view and has no such
+# cost, so the port reads them directly.
+
+
+def masked_diag(A: torch.Tensor) -> torch.Tensor:
+    """diag(A) over the last two dims."""
+    return torch.diagonal(A, dim1=-2, dim2=-1)
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """log det K = 2 Σ log diag L."""
+    return 2.0 * torch.sum(torch.log(masked_diag(L)), dim=-1)
+
+
+def diag_of_inv_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """diag(K⁻¹) from L = chol(K), by one triangular solve against I."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+    return diag_of_inv_from_linv(torch.linalg.solve_triangular(L, eye, upper=False))
+
+
+def diag_of_inv_from_linv(Linv: torch.Tensor) -> torch.Tensor:
+    """diag(K⁻¹) from L⁻¹: (K⁻¹)_ii = Σ_k (L⁻¹)_ki²."""
+    return torch.sum(torch.square(Linv), dim=-2)
+
+
+def kron_diag(diags: Sequence[torch.Tensor]) -> torch.Tensor:
+    """diag(⊗_p D_p) for diagonal factors given as (..., M_p) vectors."""
+    out = diags[0]
+    for d in diags[1:]:
+        out = (out[..., :, None] * d[..., None, :]).flatten(-2)
+    return out
+
+
+def kron_logdet_from_chols(Ls: Sequence[torch.Tensor]) -> torch.Tensor:
+    """log det(⊗_p K_p) = Σ_p (M / M_p) · log det K_p, from the factors' L_p."""
+    M = 1
+    for L in Ls:
+        M *= L.shape[-1]
+    return sum((M // L.shape[-1]) * logdet_from_chol(L) for L in Ls)
