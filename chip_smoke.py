@@ -3,8 +3,8 @@ check them.
 
     python3 chip_smoke.py
 
-Phases (each raises on failure; nothing is caught, so any failure exits
-non-zero):
+Phases, in the order they run (each raises on failure; nothing is caught,
+so any failure exits non-zero):
 
 1. The card's name and power limit, the torch and CUDA versions; build every
    CUDA source under ``zigp_tpu_torch/ops/cuda/csrc`` (one nvcc each, in
@@ -15,20 +15,9 @@ non-zero):
    n = 200, 250, 512 (two matrices each). The kernel's relative error in L
    and in L⁻¹ must be at most max(3 × the error of torch.linalg.cholesky +
    solve_triangular on the same input, 1e-5), and its distance from the
-   plain version at most the same bound. A non-PSD input must give NaN.
-3. The serving path at full width on a seeded pptr-shaped set (105 stations
-   × 1080 hours): the flagship (10 × 100 grid, diagonal q, unwhitened) and
-   champion (32 × 200, Kronecker-factored q, whitened) configurations, built
-   on the card in float32 with their variational and kernel raws moved off
-   the init by seeded noise, predict 65,536 rows through ``predict_batched``.
-   The outputs must be finite with gfvar ≥ 0, the kernel launch count must
-   be what the grid gives for every chunk, and on the first 4096 rows the
-   card's error against the same model run on the CPU in float64 must be at
-   most max(3 × the CPU float32 run's error, 1e-5).
-4. Times, beside the card's name and power limit: predict_batched points/s
-   (median of 5 passes), and per ``chol_inv`` shape on the path the kernel's
-   ms per call (CUDA events), the plain version's, and torch.linalg's.
-5. The ``rbf_gram`` kernel against a float64 oracle and against its plain
+   plain version at most the same bound plus the plain version's own
+   error. A non-PSD input must give NaN.
+3. The ``rbf_gram`` kernel against a float64 oracle and against its plain
    version on the card, at the training path's shapes: the pptr time column
    (t in [4.368, 5.447], lengthscale 0.005) and a 2-D station set
    (lengthscale 8), as K_mm (2, n, n) and K_mn (2, n, 1000) with the
@@ -38,7 +27,33 @@ non-zero):
    and the gradients of a seeded scalar loss through the kernel's autograd
    Function at most max(3 × those of autograd of the plain version, 1e-5),
    both against float64.
-6. Training, flagship (10 × 100, B = 1000) at full width with the gram
+4. The JAX package's A/B alternatives to ``chol_inv``, each against a float64
+   oracle and its plain version on the card (the rule of phase 2, with
+   torch.linalg.cholesky or the one torch.einsum as the library): the L-only
+   ``chol.cu`` at n = 10, 32, 100, 105, 128, 200, 250 through
+   ``small_cholesky_cuda`` (one matrix), ``batched_small_cholesky_cuda`` (the
+   pair) and ``chol_cuda`` at 2, 4 and 8 columns a step, and NaN on a non-PSD
+   input; ``kron_mv.cu`` at (2; 10, 100), (2; 105, 250) and (2; 6, 9), both
+   orientations; the plain ``tri_inv_dc`` (n = 10, 100, 105, 250) and
+   ``tri_inv_newton`` (n = 10, 100) against float64 within max(3 × the larger
+   of solve_triangular's and their own CPU f32 error, 1e-5), an overflow
+   where the CPU run overflows, and Newton's f32 overflow on the n = 256
+   factor of ``tests/test_pallas.py`` where tri_inv_dc is finite.
+5. The serving path at full width on a seeded pptr-shaped set (105 stations
+   × 1080 hours): the flagship (10 × 100 grid, diagonal q, unwhitened) and
+   champion (32 × 200, Kronecker-factored q, whitened) configurations, built
+   on the card in float32 with their variational and kernel raws moved off
+   the init by seeded noise, predict 65,536 rows through ``predict_batched``.
+   The outputs must be finite with gfvar ≥ 0, the kernel launch count must
+   be what the grid gives for every chunk, and on the first 4096 rows the
+   card's error against the same model run on the CPU in float64 must be at
+   most max(3 × the CPU float32 run's error, 1e-5).
+6. The serving A/B: predict_batched over 65,536 rows at batch 4096 with the
+   unwhitened mean's (⊗K_p⁻¹) q_mu through ``kron_mv_2`` (two launches a
+   chunk, counted exactly), on the flagship and on the 105 × 250 grid (whose
+   production run is checked as phase 5 first); finite, gfvar ≥ 0, and the
+   first 4096 rows within max(3 × the CPU f32 run's error, 1e-5) of CPU f64.
+7. Training, flagship (10 × 100, B = 1000) at full width with the gram
    kernel on: 4 blocks of 50 steps through ``train_onoff_pptr`` with the
    device sampler. Losses finite and falling (last block's mean below the
    first's); rbf_gram launches 4 per step (K_mm and K_mn of both factors,
@@ -48,14 +63,29 @@ non-zero):
    run's error, 1e-5); and 10 steps with both kernels against 10 steps with
    torch.linalg and the plain gram on the same batches, final losses within
    5e-3 relative.
-7. Training, champion (32 × 200, whitened, Kronecker-factored q, B = 4000):
+8. The training A/B: ``chol_inv_stacked`` on the flagship's factor pair
+   equal to per-factor ``chol_inv`` (1e-6) and both plain inverses on those
+   factors (the rule of phase 4); then 10 steps from the same model on the
+   same batches with chol_inv's forward patched to chol+dc (``chol_cuda``
+   at 4 columns a step, ``tri_inv_dc``), chol+newton (``tri_inv_newton``),
+   small_cholesky+solve (``batched_small_cholesky_cuda``, torch.linalg's
+   triangular solve), and that route once more on the unpaired model
+   (``small_cholesky_cuda`` on each GP's factors): final losses within 5e-3
+   relative of production's, chol.cu launched once per factorization (2 a
+   step, 4 unpaired) and chol_inv.cu not at all.
+9. Training, champion (32 × 200, whitened, Kronecker-factored q, B = 4000):
    one block of 50 steps, finite losses and the launch counts.
-8. Times: steps/s of the flagship's scanned step with the gram kernel on and
-   off (median of 3 timed passes of 4 blocks, in turns), of the 105 × 250
-   scale grid at B = 8192 (2 timed blocks of 50), and per ``rbf_gram`` shape
-   on the training paths the kernel's ms, the plain version's and the bound,
-   each shape's kernel output within 1e-5 relative of the plain version's.
-9. A ``kernels`` JSON line, then the card's name and power limit, then as the
+10. Times, beside the card's name and power limit: predict_batched points/s
+   (median of 5 passes); steps/s of the flagship's scanned step with the
+   gram kernel on and off (median of 3 timed passes of 4 blocks, in turns),
+   of the 105 × 250 scale grid at B = 8192 (2 timed blocks of 50), and with
+   each A/B route against production (median of 3 passes of 2 blocks, in
+   turns); chol.cu at n = 100 with 1, 2, 4 and 8 columns a step beside
+   chol_inv.cu, and the plain inverses; and per kernel shape on the paths
+   the kernel's ms per call (CUDA events), the plain version's, the
+   library's and the bound, each rbf_gram shape's output within 1e-5
+   relative of the plain version's.
+11. A ``kernels`` JSON line, then the card's name and power limit, then as the
    last line {"ok": true, "device": {...}}.
 
 The script needs one CUDA device, the repository checkout around it, and
@@ -238,7 +268,7 @@ def phase_serving(ci, name, cfg, split, batch):
         raise AssertionError(f"{name}: negative gfvar")
 
     Xc = X[:CHECK_ROWS]
-    ref = {}
+    ref = {}  # the same model on the CPU, in float64 and float32, on the first rows
     for dt in (torch.float64, torch.float32):
         cpu = copy.deepcopy(model).to(device="cpu", dtype=dt)
         ref[dt] = predict_batched(cpu.predict, Xc, batch=CHECK_ROWS, device="cpu", dtype=dt)
@@ -250,7 +280,7 @@ def phase_serving(ci, name, cfg, split, batch):
             f"card f32 vs cpu f32 {rel(out[k][:CHECK_ROWS], ref[torch.float32][k]):.3e}")
         if not e_card <= tol:
             raise AssertionError(f"{name}: {k} card error {e_card:.3e} > {tol:.3e}")
-    return model, X, by_n
+    return model, X, by_n, ref
 
 
 def time_predict(name, model, X, batch, card):
@@ -288,22 +318,33 @@ GRAM_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/rbf_gram.cu"
 GRAM_REPLACES = "zigp_tpu/ops/pallas/rbf_gram.py:79"
 
 
-def zero_counts() -> None:
+def counted_wrappers() -> dict:
+    """Every kernel wrapper's launch counter, by name."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
+    from zigp_tpu_torch.ops.cuda import cholesky as sc
+    from zigp_tpu_torch.ops.cuda import kron_matvec as km
     from zigp_tpu_torch.ops.cuda import rbf_gram as rg
 
-    rg.rbf_gram_cuda.launches = 0
-    rg.rbf_gram_cuda.launches_by_shape.clear()
-    ci.chol_inv_cuda.launches = 0
-    ci.chol_inv_cuda.launches_by_n.clear()
+    return {"rbf_gram": rg.rbf_gram_cuda, "chol_inv": ci.chol_inv_cuda, "chol": ci.chol_cuda,
+            "small_cholesky": sc.small_cholesky_cuda, "batched_small_cholesky": sc.batched_small_cholesky_cuda,
+            "kron_mv_2": km.kron_mv_2_cuda}
+
+
+def zero_counts() -> None:
+    for fn in counted_wrappers().values():
+        fn.launches = 0
+        getattr(fn, "launches_by_shape", getattr(fn, "launches_by_n", None)).clear()
 
 
 def read_counts() -> dict:
-    from zigp_tpu_torch.ops.cuda import chol_inv as ci
-    from zigp_tpu_torch.ops.cuda import rbf_gram as rg
-
-    return {"rbf_gram": rg.rbf_gram_cuda.launches, "rbf_gram_by_shape": dict(rg.rbf_gram_cuda.launches_by_shape),
-            "chol_inv": ci.chol_inv_cuda.launches, "chol_inv_by_n": dict(ci.chol_inv_cuda.launches_by_n)}
+    """{name: launches, name_by_shape: {shape: launches}} for every wrapper;
+    chol_inv's by-shape key is ``chol_inv_by_n``."""
+    out = {}
+    for name, fn in counted_wrappers().items():
+        out[name] = fn.launches
+        by = getattr(fn, "launches_by_shape", None)
+        out[f"{name}_by_n" if by is None else f"{name}_by_shape"] = dict(by if by is not None else fn.launches_by_n)
+    return out
 
 
 def per_step_launches(model) -> tuple[int, int]:
@@ -581,11 +622,455 @@ def gram_rows(rg, path_counts: dict, card) -> list:
     return rows
 
 
+# --- the JAX package's A/B alternatives: chol.cu, kron_mv.cu, the plain inverses -
+
+CHOL_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/chol.cu"
+KRON_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/kron_mv.cu"
+REPLACES = {
+    "small_cholesky": "zigp_tpu/ops/pallas/cholesky.py:52",
+    "batched_small_cholesky": "zigp_tpu/ops/pallas/cholesky.py:65",
+    "chol": "zigp_tpu/ops/pallas/chol_inv.py:193",
+    "kron_mv_2": "zigp_tpu/ops/pallas/kron_matvec.py:32",
+}
+AB_RANK = 4  # chol_pallas's default columns per step
+AB_STEPS = 10
+
+
+def route_chol_dc(K):
+    """chol_inv's forward as L from chol.cu (4 columns a step) and L⁻¹ by
+    tri_inv_dc: the JAX record's overflow-safe solve-free variant."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+
+    L = ci.chol_cuda(K.contiguous(), rank=AB_RANK)
+    return L, ci.tri_inv_dc(L)
+
+
+def route_chol_newton(K):
+    """L from chol.cu (4 columns a step), L⁻¹ by tri_inv_newton."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+
+    L = ci.chol_cuda(K.contiguous(), rank=AB_RANK)
+    return L, ci.tri_inv_newton(L)
+
+
+def route_small_cholesky_solve(K):
+    """L from the one-column kernel (small_cholesky on a single matrix,
+    batched_small_cholesky on a stack), L⁻¹ by torch.linalg's triangular
+    solve: what the fused kernel superseded."""
+    from zigp_tpu_torch.ops.cuda import cholesky as sc
+
+    n = K.shape[-1]
+    Kc = K.contiguous()
+    if Kc.numel() == n * n:
+        L = sc.small_cholesky_cuda(Kc.reshape(n, n)).reshape(K.shape)
+    else:
+        L = sc.batched_small_cholesky_cuda(Kc.reshape(-1, n, n)).reshape(K.shape)
+    eye = torch.eye(n, dtype=K.dtype, device=K.device).expand_as(L)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+TRAIN_ROUTES = {"chol+dc": route_chol_dc, "chol+newton": route_chol_newton,
+                "small_cholesky+solve": route_small_cholesky_solve}
+
+
+def kron_linv_solve_kron_mv(Linvs, b):
+    """(⊗K_p⁻¹) b of a two-factor grid as two kron_mv_2 launches: (L_a⁻¹ ⊗
+    L_b⁻¹) b, then (L_a⁻ᵀ ⊗ L_b⁻ᵀ) of that, the kernel reading the factors
+    transposed."""
+    from zigp_tpu_torch.ops.cuda.kron_matvec import kron_mv_2_cuda
+
+    if len(Linvs) != 2:
+        raise ValueError(f"kron_mv_2 takes two factors, the grid has {len(Linvs)}")
+    La, Lb = (Li.contiguous() for Li in Linvs)
+    return kron_mv_2_cuda(La, Lb, kron_mv_2_cuda(La, Lb, b.contiguous()), transpose=True)
+
+
+def chol_bound_ms(n: int, G: int) -> tuple[float, str]:
+    """Least time for L of G n×n matrices: K read and L written once
+    (2·G·n²·4 bytes), n³/3 flops each, f32 outside the tensor cores."""
+    t_bytes = 2 * G * n * n * 4 / PEAK_BYTES_PER_S
+    t_ops = G * n**3 / 3 / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kron_bound_ms(G: int, Ma: int, Mb: int) -> tuple[float, str]:
+    """Least time for G products (A ⊗ B) x: A, B, x read and y written once,
+    2·Ma·Mb·(Ma + Mb) flops each."""
+    t_bytes = G * (Ma * Ma + Mb * Mb + 2 * Ma * Mb) * 4 / PEAK_BYTES_PER_S
+    t_ops = 2 * G * Ma * Mb * (Ma + Mb) / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_kernel(what, kern, plain, ref, lib_err) -> None:
+    """The kernel within max(3 × the library's f32 error, 1e-5) of the float64
+    oracle, and within that bound plus the plain version's own error of the
+    plain version (each stays within its own error of the oracle)."""
+    kern, plain = np.asarray(kern.cpu(), np.float64), np.asarray(plain.cpu(), np.float64)
+    err, plain_err, dist = rel(kern, ref), rel(plain, ref), rel(kern, plain)
+    tol = max(3.0 * lib_err, 1e-5)
+    log(f"gate {what}: kernel {err:.3e}  library {lib_err:.3e}  plain {plain_err:.3e}  kernel-vs-plain {dist:.3e}  "
+        f"(tol {tol:.3e}, {tol + plain_err:.3e})")
+    if not (err <= tol and dist <= tol + plain_err):
+        raise AssertionError(f"{what}: kernel {err:.3e} (tol {tol:.3e}), vs plain {dist:.3e} "
+                             f"(tol {tol + plain_err:.3e})")
+
+
+def phase_chol_gate():
+    """chol.cu through its three wrappers (one column a step on one matrix
+    and on the pair, and 2, 4 and 8 columns a step) against a float64 oracle
+    and its plain version on the card, and NaN on a non-PSD input."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+    from zigp_tpu_torch.ops.cuda import cholesky as sc
+
+    log(f"gate chol: the shared-memory instance takes n <= {sc.shared_max_n()}, the in-place global one above")
+    routes = [("small_cholesky", 1, lambda K: sc.small_cholesky_cuda(K[0])[None], True),
+              ("batched_small_cholesky", 1, sc.batched_small_cholesky_cuda, False)]
+    routes += [(f"chol rank {r}", r, lambda K, r=r: ci.chol_cuda(K, rank=r), False) for r in (2, 4, 8)]
+    for n in (10, 32, 100, 105, 128, 200, 250):
+        K32 = spd_grams(n)
+        ref = np.linalg.cholesky(K32.astype(np.float64))
+        for what, rank, fn, single in routes:
+            Kd = torch.as_tensor(K32[:1] if single else K32, device=DEVICE)
+            with torch.inference_mode():
+                L, Lp, Ll = fn(Kd), sc.chol_plain(Kd, rank), torch.linalg.cholesky(Kd)
+            torch.cuda.synchronize()
+            if not torch.all(torch.triu(L, 1) == 0):
+                raise AssertionError(f"{what} n={n}: nonzero upper triangle")
+            r = ref[:1] if single else ref
+            check_kernel(f"{what} n={n:3d}", L, Lp, r, rel(Ll.cpu().numpy(), r))
+
+    K = np.eye(12, dtype=np.float32)[None].repeat(2, 0)
+    K[:, 7, 7] = -1.0
+    for what, rank, fn, single in routes:
+        with torch.inference_mode():
+            L = fn(torch.as_tensor(K[:1] if single else K, device=DEVICE)).cpu()
+        if not torch.isnan(L[:, 7:, 7:]).any():
+            raise AssertionError(f"{what}: a non-PSD input did not give NaN")
+        if not torch.equal(L[:, :7, :7], torch.eye(7).expand(L.shape[0], 7, 7)):
+            raise AssertionError(f"{what}: rows before the failing pivot changed")
+    log("gate chol non-PSD input (K[7,7] = -1), every route: NaN from the failing pivot on, rows before it unchanged")
+
+
+KRON_SPECS = {False: "gia,gjb,gab->gij", True: "gai,gbj,gab->gij"}  # Y = A X Bᵀ, or Aᵀ X B
+
+
+def kron_inputs(G, Ma, Mb):
+    """Seeded non-symmetric factors of different sizes and a vector, float32."""
+    rng = np.random.RandomState(Ma * Mb)
+    return [rng.randn(*shape).astype(np.float32) for shape in ((G, Ma, Ma), (G, Mb, Mb), (G, Ma * Mb))]
+
+
+def phase_kron_gate():
+    """kron_mv.cu against a float64 oracle and its plain version on the card,
+    both orientations, at the serving path's shapes and a non-square grid."""
+    from zigp_tpu_torch.ops.cuda import kron_matvec as km
+
+    for G, Ma, Mb in ((2, 10, 100), (2, 105, 250), (2, 6, 9)):
+        A, B, x = kron_inputs(G, Ma, Mb)
+        Ad, Bd, xd = (torch.as_tensor(a, device=DEVICE) for a in (A, B, x))
+        for trans, spec in KRON_SPECS.items():
+            ref = np.einsum(spec, A.astype(np.float64), B.astype(np.float64),
+                            x.astype(np.float64).reshape(G, Ma, Mb)).reshape(G, -1)
+            with torch.inference_mode():
+                y = km.kron_mv_2_cuda(Ad, Bd, xd, transpose=trans)
+                yp = km.kron_mv_2_plain(Ad, Bd, xd, transpose=trans)
+                yl = torch.einsum(spec, Ad, Bd, xd.reshape(G, Ma, Mb)).reshape(G, -1)
+            torch.cuda.synchronize()
+            check_kernel(f"kron_mv_2 ({G}; {Ma}, {Mb}) {'transposed' if trans else 'plain'}", y, yp, ref,
+                         rel(yl.cpu().numpy(), ref))
+
+
+def gate_inverse(name, fn, what, L32) -> None:
+    """One plain inverse on the card against float64: within max(3 × the
+    larger of solve_triangular's f32 error on the card and the same routine's
+    f32 error on the CPU, 1e-5). Both routines multiply computed
+    sub-inverses, so on dense grams their f32 error is cond-limited and
+    exceeds the solve's by up to 170 × on the CPU too: the CPU run is the
+    routine's own yardstick, and the log shows both. Where the CPU run
+    overflows float32 (Newton's documented limit), the card must too."""
+    ref = np.linalg.inv(L32.astype(np.float64))
+    Ld = torch.as_tensor(L32, device=DEVICE)
+    n = L32.shape[-1]
+    with torch.inference_mode():
+        X = fn(Ld).cpu().numpy()
+        Xl = torch.linalg.solve_triangular(Ld, torch.eye(n, device=DEVICE).expand_as(Ld), upper=False)
+        X_cpu = fn(torch.as_tensor(L32)).numpy()
+    if not np.isfinite(X_cpu).all():
+        log(f"gate {name} {what}: overflows float32 on the CPU (the algorithm's limit); on the card finite "
+            f"{bool(np.isfinite(X).all())} (expected False)")
+        if np.isfinite(X).all():
+            raise AssertionError(f"{name} {what}: finite on the card where the CPU run overflows")
+        return
+    err, cpu_err, lib_err = rel(X, ref), rel(X_cpu, ref), rel(Xl.cpu().numpy(), ref)
+    tol = max(3.0 * max(lib_err, cpu_err), 1e-5)
+    log(f"gate {name} {what}: card {err:.3e}  cpu {cpu_err:.3e}  solve_triangular {lib_err:.3e}  (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"{name} {what}: error {err:.3e} > {tol:.3e}")
+
+
+def phase_tri_inv_gate():
+    """tri_inv_dc at n = 10, 100, 105, 250 and tri_inv_newton at n = 10, 100
+    on the kernel gate's grams (``gate_inverse``), then Newton's documented
+    f32 overflow on the n = 256 factor of ``tests/test_pallas.py``, where
+    tri_inv_dc stays finite and within 1e-3."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+
+    for name, fn, ns in (("tri_inv_dc", ci.tri_inv_dc, (10, 100, 105, 250)),
+                         ("tri_inv_newton", ci.tri_inv_newton, (10, 100))):
+        for n in ns:
+            gate_inverse(name, fn, f"n={n:3d}", np.linalg.cholesky(spd_grams(n).astype(np.float64)).astype(np.float32))
+
+    n = 256
+    t = np.linspace(0, 1, n)[:, None]
+    K = 20.0 * np.exp(-0.5 * (t - t.T) ** 2 / 0.1**2) + (1e-5 + 2e-4 * 20.0) * np.eye(n)
+    L32 = np.linalg.cholesky(K).astype(np.float32)
+    ref = np.linalg.inv(L32.astype(np.float64))
+    Ld = torch.as_tensor(L32, device=DEVICE)
+    with torch.inference_mode():
+        Xn, Xd = ci.tri_inv_newton(Ld).cpu().numpy(), ci.tri_inv_dc(Ld).cpu().numpy()
+    err_d = float(np.abs(Xd - ref).max() / np.abs(ref).max())
+    log(f"gate n=256 dense temporal factor: tri_inv_newton finite {bool(np.isfinite(Xn).all())} "
+        f"(expected False), tri_inv_dc finite {bool(np.isfinite(Xd).all())}, max error {err_d:.3e} (tol 1e-3)")
+    if np.isfinite(Xn).all():
+        raise AssertionError("tri_inv_newton: the n = 256 factor did not overflow float32")
+    if not (np.isfinite(Xd).all() and err_d < 1e-3):
+        raise AssertionError(f"tri_inv_dc: the n = 256 factor gave max error {err_d:.3e}")
+
+
+def phase_train_routes(cfg, split):
+    """chol_inv_stacked on the flagship's factor pair, then 10 steps of the
+    flagship for each of the three L-only routes of chol_inv's forward,
+    against 10 with the production kernels, from the same model on the same
+    batches; and the one-column route once more on the unpaired model, where
+    each GP's factor is a single matrix (small_cholesky). Returns each
+    route's launch counts."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.models.kron import _stack
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.ops.cuda import cholesky as sc
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+    from zigp_tpu_torch.training import DataSet, make_optimizer, make_scan_train_step, stage_batches
+
+    base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
+    with torch.inference_mode():
+        grams = base.f._gram_factors(_stack([base.f.values(), base.g.values()]))
+        for K, (L, Li) in zip(grams, linalg.chol_inv_stacked(grams)):
+            L0, Li0 = linalg.chol_inv(K)
+            e = max(rel(L.cpu(), L0.cpu()), rel(Li.cpu(), Li0.cpu()))
+            log(f"gate chol_inv_stacked {tuple(K.shape)} of the flagship pair vs chol_inv: {e:.3e} (tol 1e-6)")
+            if not e <= 1e-6:
+                raise AssertionError(f"chol_inv_stacked {tuple(K.shape)}: {e:.3e} from chol_inv")
+            L32 = np.linalg.cholesky(K.cpu().double().numpy()).astype(np.float32)
+            for name in ("tri_inv_dc", "tri_inv_newton"):
+                gate_inverse(name, getattr(ci, name), f"flagship factor {tuple(K.shape)}", L32)
+
+    Xs, Ys = stage_batches(DataSet(split.Xtrain, split.Ytrain, seed=3), cfg.batch_size, AB_STEPS,
+                           device=DEVICE, dtype=torch.float32)
+    forward = linalg._chol_inv_forward
+    runs = [("production", None, True), *((n, r, True) for n, r in TRAIN_ROUTES.items()),
+            ("small_cholesky+solve unpaired", route_small_cholesky_solve, False)]
+    out, all_counts = {}, {}
+    for name, route, paired in runs:
+        m = copy.deepcopy(base)
+        m.pair_gps = paired
+        if route is not None:
+            linalg._chol_inv_forward = route
+        try:
+            zero_counts()
+            losses = make_scan_train_step(make_optimizer(m, default_lr=cfg.indp_lr))(m, Xs, Ys).cpu().numpy()
+            counts = read_counts()
+        finally:
+            linalg._chol_inv_forward = forward
+        chol = counts["chol"] + counts["small_cholesky"] + counts["batched_small_cholesky"]
+        per_step = 2 if paired else 4  # one factorization per factor, of the pair or of each GP
+        log(f"train A/B {name}: losses {losses[0]:.6f} .. {losses[-1]:.6f}; launches chol.cu {chol} "
+            f"(chol {counts['chol']}, small_cholesky {counts['small_cholesky']}, batched "
+            f"{counts['batched_small_cholesky']}), chol_inv.cu {counts['chol_inv']}, rbf_gram {counts['rbf_gram']}")
+        expected = (0, AB_STEPS * per_step) if route is None else (AB_STEPS * per_step, 0)
+        if (chol, counts["chol_inv"]) != expected:
+            raise AssertionError(f"train A/B {name}: chol.cu {chol}, chol_inv.cu {counts['chol_inv']} launches, "
+                                 f"expected {expected}")
+        if name == "chol+newton" and not np.isfinite(losses).all():
+            # The documented limit of the algorithm, if the plain version
+            # overflows in f32 on the CPU on the same factors too.
+            plain = [ci.tri_inv_newton(sc.chol_plain(K.cpu(), AB_RANK)) for K in grams]
+            if all(torch.isfinite(X).all() for X in plain):
+                raise AssertionError("train A/B chol+newton: non-finite on the card, finite in the plain version")
+            log("train A/B chol+newton: overflows float32, as its plain version does on the CPU (the algorithm's limit)")
+            all_counts[name] = counts
+            continue
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train A/B {name}: non-finite losses")
+        out[name] = losses
+        all_counts[name] = counts
+        if route is not None:
+            err = abs(losses[-1] - out["production"][-1]) / abs(out["production"][-1])
+            log(f"train A/B {name}: final loss {losses[-1]:.6f} vs production {out['production'][-1]:.6f}: "
+                f"relative {err:.3e} (tol 5e-3)")
+            if not err <= 5e-3:
+                raise AssertionError(f"train A/B {name}: final losses differ by {err:.3e}")
+    return all_counts
+
+
+def phase_serving_kron_mv(name, model, X, batch, ref):
+    """predict_batched with the unwhitened mean's (⊗K_p⁻¹) q_mu through
+    kron_mv_2 (two launches a chunk), against the CPU float64 run on the first
+    rows, and beside the production route on the card."""
+    from zigp_tpu_torch.experiments.runners import predict_batched
+    from zigp_tpu_torch.ops import linalg
+
+    chunks = math.ceil(X.shape[0] / batch)
+    prod = predict_batched(model.predict, X, batch=batch, device=DEVICE)
+    solve = linalg.kron_linv_solve
+    linalg.kron_linv_solve = kron_linv_solve_kron_mv
+    try:
+        zero_counts()
+        out = predict_batched(model.predict, X, batch=batch, device=DEVICE)
+        counts = read_counts()
+    finally:
+        linalg.kron_linv_solve = solve
+    log(f"serving A/B {name}: {X.shape[0]} rows in {chunks} chunks of {batch}: kron_mv_2 launches "
+        f"{counts['kron_mv_2']} (expected {2 * chunks}), by shape {counts['kron_mv_2_by_shape']}")
+    if counts["kron_mv_2"] != 2 * chunks:
+        raise AssertionError(f"serving A/B {name}: {counts['kron_mv_2']} kron_mv_2 launches, expected {2 * chunks}")
+    for k, v in out.items():
+        if v.shape[0] != X.shape[0] or not np.isfinite(v).all():
+            raise AssertionError(f"serving A/B {name}: {k} has shape {v.shape} or non-finite values")
+    if (out["gfvar"] < 0).any():
+        raise AssertionError(f"serving A/B {name}: negative gfvar")
+    for k in ("gfmean", "gfvar", "fmean", "gmean"):
+        e_card = rel(out[k][:CHECK_ROWS], ref[torch.float64][k])
+        e_cpu = rel(ref[torch.float32][k], ref[torch.float64][k])
+        tol = max(3.0 * e_cpu, 1e-5)
+        log(f"serving A/B {name}: {k:6s} card f32 (kron_mv_2) vs cpu f64 {e_card:.3e}, cpu f32 vs cpu f64 "
+            f"{e_cpu:.3e} (tol {tol:.3e}); vs the card's production route {rel(out[k], prod[k]):.3e}")
+        if not e_card <= tol:
+            raise AssertionError(f"serving A/B {name}: {k} card error {e_card:.3e} > {tol:.3e}")
+    return counts
+
+
+def sum_by_shape(counts_list, key) -> dict:
+    total = {}
+    for counts in counts_list:
+        for shape, k in counts[key].items():
+            total[shape] = total.get(shape, 0) + k
+    return total
+
+
+def ab_rows(route_counts: dict, serve_counts: dict, card) -> list:
+    """One kernels-line row per chol.cu and kron_mv.cu shape launched on the
+    A/B paths: ms per call (CUDA events), the plain version's, the library's
+    (torch.linalg.cholesky; the one torch.einsum), the bound, and the largest
+    difference from the plain version."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+    from zigp_tpu_torch.ops.cuda import cholesky as sc
+    from zigp_tpu_torch.ops.cuda import kron_matvec as km
+
+    rows = []
+    chol_wrappers = {
+        "small_cholesky": (lambda shape: (1, shape, 1), lambda K, r: sc.small_cholesky_cuda(K[0])[None]),
+        "batched_small_cholesky": (lambda shape: (*shape, 1), lambda K, r: sc.batched_small_cholesky_cuda(K)),
+        "chol": (lambda shape: shape, lambda K, r: ci.chol_cuda(K, rank=r)),
+    }
+    for wrapper, (unpack, call) in chol_wrappers.items():
+        key = f"{wrapper}_by_shape"
+        for shape, launches in sorted(sum_by_shape(route_counts.values(), key).items()):
+            paths = [name for name, c in route_counts.items() if shape in c[key]]
+            G, n, rank = unpack(shape)
+            K = torch.as_tensor(spd_grams(n)[:G], device=DEVICE)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: call(K, rank), reps=200)
+                plain_ms = cuda_ms(lambda: sc.chol_plain(K, rank), reps=5, warmup=1)
+                lib_ms = cuda_ms(lambda: torch.linalg.cholesky(K), reps=200)
+                err = float((call(K, rank) - sc.chol_plain(K, rank)).abs().max())
+            b_ms, b_by = chol_bound_ms(n, G)
+            kname = f"{wrapper} ({G},{n},{n}) {rank} column{'s' if rank > 1 else ''} a step (train A/B: {', '.join(paths)})"
+            log(f"time {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.cholesky {lib_ms:.4f} ms, "
+                f"bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; {card}")
+            rows.append({"name": kname, "route": "cuda", "source": CHOL_SOURCE, "replaces": REPLACES[wrapper],
+                         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+
+    for (G, Ma, Mb, trans), launches in sorted(sum_by_shape(serve_counts.values(), "kron_mv_2_by_shape").items()):
+        paths = [name for name, c in serve_counts.items() if (G, Ma, Mb, trans) in c["kron_mv_2_by_shape"]]
+        A, B, x = (torch.as_tensor(a, device=DEVICE) for a in kron_inputs(G, Ma, Mb))
+        x = x[..., None]  # (G, N, 1), as the serving path passes q_mu
+        spec = KRON_SPECS[trans]
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: km.kron_mv_2_cuda(A, B, x, transpose=trans), reps=200)
+            plain_ms = cuda_ms(lambda: km.kron_mv_2_plain(A, B, x, transpose=trans), reps=200)
+            lib_ms = cuda_ms(lambda: torch.einsum(spec, A, B, x.reshape(G, Ma, Mb)), reps=200)
+            err = float((km.kron_mv_2_cuda(A, B, x, transpose=trans)
+                         - km.kron_mv_2_plain(A, B, x, transpose=trans)).abs().max())
+        b_ms, b_by = kron_bound_ms(G, Ma, Mb)
+        kname = f"kron_mv_2 ({G}; {Ma}, {Mb}){' transposed' if trans else ''} (serving A/B: {', '.join(paths)})"
+        log(f"time {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.einsum {lib_ms:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; {card}")
+        rows.append({"name": kname, "route": "cuda", "source": KRON_SOURCE, "replaces": REPLACES["kron_mv_2"],
+                     "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
+def time_columns_per_step(card) -> None:
+    """chol.cu at n = 100 (the flagship pair) with 1, 2, 4 and 8 columns a
+    step, beside chol_inv.cu; tri_inv_dc and tri_inv_newton at n = 100."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+
+    K = torch.as_tensor(spd_grams(100), device=DEVICE)
+    with torch.inference_mode():
+        fused = cuda_ms(lambda: ci.chol_inv_cuda(K), reps=200)
+        per_r = {r: cuda_ms(lambda: ci.chol_cuda(K, rank=r), reps=200) for r in (1, 2, 4, 8)}
+        L = ci.chol_cuda(K, rank=AB_RANK)
+        inv = {f.__name__: cuda_ms(lambda: f(L), reps=50) for f in (ci.tri_inv_dc, ci.tri_inv_newton)}
+    log(f"time chol.cu (2,100,100) by columns a step: {json.dumps({r: round(v, 5) for r, v in per_r.items()})} ms; "
+        f"chol_inv.cu (L and L⁻¹) {fused:.5f} ms; {card}")
+    log(f"time plain inverses (2,100,100): {json.dumps({k: round(v, 5) for k, v in inv.items()})} ms; {card}")
+
+
+def time_train_routes(split, card) -> dict:
+    """Flagship steps/s of the scanned step with each route of chol_inv's
+    forward against production: median of 3 passes of 2 blocks of 50, in
+    turns."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+    from zigp_tpu_torch.ops import linalg
+
+    cfg = OnOffPptrConfig()
+    base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
+    forward = linalg._chol_inv_forward
+    runs = {}
+    for name, route in {"production": None, **TRAIN_ROUTES}.items():
+        m = copy.deepcopy(base)
+        runs[name] = (m, device_step(m, split, cfg.batch_size), route, [])
+
+    def run(name, first_block, blocks, inner=50):
+        m, step, route, _ = runs[name]
+        if route is not None:
+            linalg._chol_inv_forward = route
+        try:
+            return timed_blocks(step, m, first_block, blocks, inner)
+        finally:
+            linalg._chol_inv_forward = forward
+
+    for name in runs:
+        run(name, 0, 1, inner=10)  # warm-up
+    order = list(runs)
+    for rep in range(3):
+        for name in order if rep % 2 == 0 else order[::-1]:
+            runs[name][3].append(run(name, 1 + 2 * rep, 2))
+    rate = {name: float(np.median(r[3])) for name, r in runs.items()}
+    log("time flagship training by chol_inv forward route (device sampler, B=1000, median of 3 passes of 100 "
+        "steps, in turns): " + ", ".join(f"{n} {rate[n]:.1f} steps/s {[round(v, 1) for v in runs[n][3]]}" for n in runs)
+        + f"; {card}")
+    return rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig, best_onoff_config
+    from zigp_tpu_torch.experiments.configs import KronGridConfig, OnOffPptrConfig, best_onoff_config
     from zigp_tpu_torch.io.datasets import synthetic_pptr
     from zigp_tpu_torch.ops.cuda import _build
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
@@ -606,6 +1091,9 @@ def main() -> int:
 
     phase_kernel_gate(ci)
     phase_gram_gate(rg)
+    phase_chol_gate()
+    phase_kron_gate()
+    phase_tri_inv_gate()
 
     t0 = time.perf_counter()
     split = synthetic_pptr(105, 1080, seed=0)
@@ -615,18 +1103,29 @@ def main() -> int:
     runs = {}
     for name, cfg, batch in (("flagship", OnOffPptrConfig(), 4096), ("champion", best_onoff_config(), 16384)):
         runs[name] = (*phase_serving(ci, name, cfg, split, batch), batch)
+    # the unwhitened mean's Kronecker solve through kron_mv_2, on the flagship
+    # and on the 105 x 250 grid
+    model, X, _, ref, _ = runs["flagship"]
+    serve_counts = {"flagship": phase_serving_kron_mv("flagship", model, X, 4096, ref)}
+    scale_cfg = OnOffPptrConfig(grid=KronGridConfig(num_spatial=105, num_temporal=250))
+    model, X, _, ref = phase_serving(ci, "scale 105x250", scale_cfg, split, 4096)
+    serve_counts["scale 105x250"] = phase_serving_kron_mv("scale 105x250", model, X, 4096, ref)
+    del model, X, ref
 
     train_cfg = dataclasses.replace(OnOffPptrConfig(), num_iter=200, scan_inner=50, sampler="device", log_every=50)
     train_counts = {"flagship train": phase_train("flagship", train_cfg, split, check=True)[1]}
     phase_ab(train_cfg, split)
+    route_counts = phase_train_routes(train_cfg, split)
     champ_cfg = dataclasses.replace(best_onoff_config(), num_iter=50, scan_inner=50, log_every=50)
     train_counts["champion train"] = phase_train("champion", champ_cfg, split)[1]
 
-    pts = {name: time_predict(name, m, X, batch, card) for name, (m, X, _, batch) in runs.items()}
+    pts = {name: time_predict(name, m, X, batch, card) for name, (m, X, _, _, batch) in runs.items()}
     steps_per_s, train_counts["scale train, 2 timed blocks"] = time_training(split, card)
+    route_rates = time_train_routes(split, card)
+    time_columns_per_step(card)
 
     kernels = []
-    for name, (model, _, by_n, _) in runs.items():
+    for name, (model, _, by_n, _, _) in runs.items():
         for n in (Z.shape[0] for Z in model.f.Zs):
             if n <= ci.MAX_N:
                 launches = by_n.get(n, 0)
@@ -651,9 +1150,10 @@ def main() -> int:
             })
 
     kernels += gram_rows(rg, train_counts, card)
+    kernels += ab_rows(route_counts, serve_counts, card)
 
-    log(f"serving points/s: {json.dumps(pts)}; training steps/s: {json.dumps(steps_per_s)}; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"serving points/s: {json.dumps(pts)}; training steps/s: {json.dumps(steps_per_s)}; by chol_inv forward "
+        f"route: {json.dumps(route_rates)}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -198,3 +198,124 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
         ci.chol_inv_cuda(torch.eye(129, device=cuda))
     with pytest.raises(ValueError):
         ci.chol_inv_cuda(torch.eye(16, device=cuda)[::2, ::2])
+
+
+# --- chol.cu (small_cholesky, batched_small_cholesky, chol_pallas) and kron_mv.cu ---
+
+from zigp_tpu_torch.ops.cuda import cholesky as sc  # noqa: E402
+from zigp_tpu_torch.ops.cuda import kron_matvec as km  # noqa: E402
+
+CHOL_NS = [1, 10, 32, 100, 105, 128, 200, 250]
+
+
+@pytest.mark.parametrize("n", CHOL_NS)
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 8])
+def test_chol_kernel_matches_plain(cuda, n, rank):
+    """Every gated n and rank, 105 being a multiple of none of 2, 4 and 8 (a
+    step of columns taken in the wrong order passes at rank 1 only), and
+    rank 3 through the run-time instance."""
+    K = torch.as_tensor(_spd(n, seed=n), device=cuda)
+    before = ci.chol_cuda.launches
+    with torch.inference_mode():
+        L = ci.chol_cuda(K, rank=rank)
+        Lp = sc.chol_plain(K, rank)
+    torch.cuda.synchronize()
+    assert ci.chol_cuda.launches == before + 1
+    assert ci.chol_cuda.launches_by_shape[(2, n, rank)] >= 1
+    assert _rel(L, Lp) < 1e-5
+    assert torch.all(torch.triu(L, 1) == 0)
+
+
+@pytest.mark.parametrize("n", CHOL_NS)
+def test_small_cholesky_kernels_match_plain(cuda, n):
+    K = torch.as_tensor(_spd(n, seed=n), device=cuda)
+    s0, b0 = sc.small_cholesky_cuda.launches, sc.batched_small_cholesky_cuda.launches
+    with torch.inference_mode():
+        L1 = sc.small_cholesky_cuda(K[0])
+        Lb = sc.batched_small_cholesky_cuda(K)
+        Lp = sc.chol_plain(K)
+    torch.cuda.synchronize()
+    assert (sc.small_cholesky_cuda.launches - s0, sc.batched_small_cholesky_cuda.launches - b0) == (1, 1)
+    assert sc.small_cholesky_cuda.launches_by_shape[n] >= 1 and sc.batched_small_cholesky_cuda.launches_by_shape[(2, n)] >= 1
+    assert _rel(L1, Lp[0]) < 1e-5 and _rel(Lb, Lp) < 1e-5
+
+
+def test_chol_kernel_takes_n_250_in_global_memory(cuda):
+    assert sc.shared_max_n() < 250 <= 2 * sc.shared_max_n()
+    K = torch.as_tensor(_spd(250, seed=3), device=cuda)
+    L = ci.chol_cuda(K, rank=4)
+    np.testing.assert_allclose(L.double().cpu().numpy(), np.linalg.cholesky(K.double().cpu().numpy()), rtol=0,
+                               atol=1e-4 * float(L.abs().max()))
+
+
+@pytest.mark.parametrize("rank", [1, 2, 4, 8])
+def test_chol_kernel_nan_on_non_psd(cuda, rank):
+    K = torch.eye(12, device=cuda)[None].repeat(2, 1, 1)
+    K[:, 7, 7] = -1.0
+    L = ci.chol_cuda(K, rank=rank).cpu()
+    assert torch.isnan(L[:, 7:, 7:]).any()
+    assert torch.equal(L[:, :7, :7], torch.eye(7).expand(2, 7, 7))
+    L1 = sc.small_cholesky_cuda(K[0].contiguous()).cpu()
+    assert torch.isnan(L1[7:, 7:]).any() and torch.equal(L1[:7, :7], torch.eye(7))
+
+
+def test_chol_wrappers_raise_on_what_the_kernel_cannot_take(cuda):
+    K = torch.as_tensor(_spd(8), device=cuda)
+    with pytest.raises(TypeError):
+        ci.chol_cuda(K.double())
+    with pytest.raises(ValueError):
+        ci.chol_cuda(K.transpose(-1, -2))  # not contiguous
+    with pytest.raises(ValueError):
+        ci.chol_cuda(K, rank=0)
+    with pytest.raises(ValueError):
+        sc.small_cholesky_cuda(K)  # (n, n) only
+    with pytest.raises(ValueError):
+        sc.batched_small_cholesky_cuda(K[0])  # (B, n, n) only
+    with pytest.raises(TypeError):
+        sc.batched_small_cholesky_cuda(K.double())
+
+
+def _kron_inputs(G, Ma, Mb, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*s).astype(np.float32) for s in ((G, Ma, Ma), (G, Mb, Mb), (G, Ma * Mb))]
+
+
+@pytest.mark.parametrize("G,Ma,Mb", [(2, 10, 100), (2, 105, 250), (2, 6, 9), (1, 33, 70), (3, 1, 5)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_kron_mv_kernel_matches_plain(cuda, G, Ma, Mb, transpose):
+    A, B, x = (torch.as_tensor(a, device=cuda) for a in _kron_inputs(G, Ma, Mb, seed=Ma + Mb))
+    before = km.kron_mv_2_cuda.launches
+    y = km.kron_mv_2_cuda(A, B, x, transpose=transpose)
+    yp = km.kron_mv_2_plain(A, B, x, transpose=transpose)
+    y1 = km.kron_mv_2_cuda(A, B, x[..., None], transpose=transpose)  # (G, N, 1), as q_mu
+    torch.cuda.synchronize()
+    assert km.kron_mv_2_cuda.launches == before + 2
+    assert km.kron_mv_2_cuda.launches_by_shape[(G, Ma, Mb, transpose)] >= 2
+    assert y.shape == x.shape and y1.shape == (G, Ma * Mb, 1)
+    assert _rel(y, yp) < 1e-5 and torch.equal(y1[..., 0], y)
+
+
+def test_kron_mv_kernel_unbatched_and_global_scratch(cuda):
+    """The JAX function's unbatched shapes, and factors too tall for the
+    slab of T in shared memory (the global-scratch instance)."""
+    A, B, x = (torch.as_tensor(a[0], device=cuda) for a in _kron_inputs(1, 6, 9, seed=1))
+    y = km.kron_mv_2_cuda(A, B, x)
+    want = np.kron(A.double().cpu().numpy(), B.double().cpu().numpy()) @ x.double().cpu().numpy()
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5, atol=1e-5)
+    assert km.kron_mv_2_cuda(A, B, x[:, None]).shape == (54, 1)
+    Ma = 2000
+    assert not km.shared_t(Ma)
+    A, B, x = (torch.as_tensor(a, device=cuda) for a in _kron_inputs(1, Ma, 3, seed=2))
+    assert _rel(km.kron_mv_2_cuda(A, B, x), km.kron_mv_2_plain(A, B, x)) < 1e-5
+
+
+def test_kron_mv_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
+    A, B, x = (torch.as_tensor(a, device=cuda) for a in _kron_inputs(2, 4, 5))
+    with pytest.raises(TypeError):
+        km.kron_mv_2_cuda(A.double(), B.double(), x.double())
+    with pytest.raises(ValueError):
+        km.kron_mv_2_cuda(A.transpose(-1, -2), B, x)  # not contiguous
+    with pytest.raises(ValueError):
+        km.kron_mv_2_cuda(A, B.cpu(), x)
+    with pytest.raises(ValueError):
+        km.kron_mv_2_cuda(A, B, x[:, :-1])

@@ -1,2 +1,33 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), built from ``csrc/`` at
-first use (``_build``) and bound with ctypes."""
+first use (``_build``) and bound with ctypes: ``chol_inv`` (L and L⁻¹),
+``cholesky`` (L only, any number of columns per step), ``rbf_gram`` and
+``kron_matvec`` (the two-factor Kronecker matvec)."""
+
+from .chol_inv import (
+    chol_cuda,
+    chol_inv_blocked,
+    chol_inv_cuda,
+    chol_inv_plain,
+    tri_inv_dc,
+    tri_inv_newton,
+)
+from .cholesky import batched_small_cholesky_cuda, chol_plain, small_cholesky_cuda
+from .kron_matvec import kron_mv_2_cuda, kron_mv_2_plain
+from .rbf_gram import rbf_gram_cuda, rbf_gram_plain  # not the Function: it would hide the module
+
+__all__ = [
+    "chol_inv_cuda",
+    "chol_inv_plain",
+    "chol_inv_blocked",
+    "rbf_gram_cuda",
+    "rbf_gram_plain",
+    # the JAX package's A/B alternatives to chol_inv (ops/pallas/__init__.py)
+    "small_cholesky_cuda",
+    "batched_small_cholesky_cuda",
+    "chol_cuda",
+    "chol_plain",
+    "tri_inv_newton",
+    "tri_inv_dc",
+    "kron_mv_2_cuda",
+    "kron_mv_2_plain",
+]

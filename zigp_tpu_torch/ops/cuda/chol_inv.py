@@ -20,14 +20,26 @@ Counterpart of ``zigp_tpu/ops/pallas/chol_inv.py``:
 These are forward functions. Gradients go through ``ops.linalg.chol_inv``, a
 ``torch.autograd.Function`` that calls them on a detached input and whose
 backward is the matmul-only rule of ``zigp_tpu/ops/linalg.py:177-211``.
+
+The L-only alternatives the JAX package keeps beside ``chol_inv_pallas`` as
+its measured A/B record are here too:
+
+- ``chol_cuda`` replaces ``chol_pallas``: L only, ``rank`` columns per step,
+  from ``csrc/chol.cu`` (``cholesky.py``) on a CUDA float32 tensor, and
+  ``cholesky.chol_plain`` on a CPU tensor.
+- ``tri_inv_newton`` and ``tri_inv_dc``, L⁻¹ of a lower-triangular L by
+  matmuls only, are plain torch, as they are plain jnp in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from collections import Counter
 
 import torch
+
+from .cholesky import chol_plain, launch_chol
 
 MAX_N = 128  # the kernel's limit: A and L⁻¹ of one matrix in shared memory
 BLOCKED_MAX_N = 512
@@ -162,3 +174,77 @@ def chol_inv_blocked(K: torch.Tensor):
             S = sum(L[..., di, blocks[k]] @ Linv[..., blocks[k], dj] for k in range(j, i))
             Linv[..., di, dj] = -(Ld_inv[i] @ S)
     return L, Linv
+
+
+def chol_cuda(K: torch.Tensor, rank: int = 4) -> torch.Tensor:
+    """L = chol(K) of (..., n, n) SPD ``K``, ``rank`` columns per step (any
+    n >= 1 and rank >= 1; no identity-tail padding). A CUDA tensor goes to the
+    kernel (float32, contiguous; anything else raises); a CPU tensor to
+    ``chol_plain``. Each kernel launch adds one to ``chol_cuda.launches`` and
+    to ``chol_cuda.launches_by_shape[(G, n, rank)]``."""
+    if K.device.type == "cpu":
+        return chol_plain(K, rank)
+    L = launch_chol(K, rank, "chol_cuda")
+    n = K.shape[-1]
+    chol_cuda.launches += 1
+    chol_cuda.launches_by_shape[(K.numel() // (n * n), n, rank)] += 1
+    return L
+
+
+chol_cuda.launches = 0
+chol_cuda.launches_by_shape = Counter()
+
+
+def tri_inv_newton(L: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ of (..., n, n) lower-triangular ``L`` by Newton's iteration
+    X ← X(2I − LX) from X₀ = diag(L)⁻¹, as ``zigp_tpu``'s ``tri_inv_newton``:
+    the first level is elementwise (2D⁻¹ − D⁻¹LD⁻¹), then ⌈log₂n⌉ − 1 matmul
+    steps, exact in exact arithmetic. No safeguard: where the strictly lower
+    part of D⁻¹L is large, the truncated-Neumann intermediates overflow
+    float32 (the pptr 250-knot temporal factor does), as in the reference."""
+    n = L.shape[-1]
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    d = 1.0 / torch.diagonal(L, dim1=-2, dim2=-1)
+    X = 2.0 * eye * d[..., :, None] - L * d[..., :, None] * d[..., None, :]
+    I2 = 2.0 * eye
+    for _ in range(max(0, math.ceil(math.log2(max(n, 2))) - 1)):
+        X = X @ (I2 - L @ X)
+    return X
+
+
+def tri_inv_dc(L: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ of (..., n, n) lower-triangular ``L`` by divide-and-conquer block
+    inversion, as ``zigp_tpu``'s ``tri_inv_dc``: pad to the next power of two
+    m with an identity tail, invert the m/2 diagonal 2 × 2 blocks
+    elementwise, then double the block size log₂m − 1 times with
+    inv([[A, 0], [B, C]]) = [[A⁻¹, 0], [−C⁻¹ B A⁻¹, C⁻¹]], every level's
+    blocks as one batched matmul pair. Every intermediate is a final
+    sub-inverse, so nothing overflows where L⁻¹ does not."""
+    n = L.shape[-1]
+    batch = L.shape[:-2]
+    m = 1 << max(0, (n - 1).bit_length())
+    if m != n:
+        P = torch.zeros(*batch, m, m, dtype=L.dtype, device=L.device)
+        P[..., :n, :n] = L
+        idx = torch.arange(n, m, device=L.device)
+        P[..., idx, idx] = 1.0
+        L = P
+    if m == 1:
+        return (1.0 / L)[..., :n, :n]
+
+    def diag_blocks(s):  # (..., m/s, s, s): the diagonal s × s blocks of L
+        Lb = L.reshape(*batch, m // s, s, m // s, s)
+        return torch.diagonal(Lb, dim1=-4, dim2=-2).movedim(-1, -3)
+
+    Ld = diag_blocks(2)
+    a, b, c = Ld[..., 0:1, 0:1], Ld[..., 1:2, 0:1], Ld[..., 1:2, 1:2]
+    zero = torch.zeros_like(a)
+    X = torch.cat([torch.cat([1.0 / a, zero], -1), torch.cat([-b / (a * c), 1.0 / c], -1)], -2)
+    s = 2
+    while s < m:
+        L21 = diag_blocks(2 * s)[..., s:, :s]
+        X11, X22 = X[..., 0::2, :, :], X[..., 1::2, :, :]
+        X21 = -(X22 @ (L21 @ X11))
+        X = torch.cat([torch.cat([X11, torch.zeros_like(X21)], -1), torch.cat([X21, X22], -1)], -2)
+        s *= 2
+    return X[..., 0, :n, :n]

@@ -96,6 +96,30 @@ def chol_inv(K: torch.Tensor):
     return _CholInv.apply(K)
 
 
+def chol_inv_stacked(Ks: Sequence[torch.Tensor]):
+    """One ``chol_inv`` call for several grams of possibly different sizes
+    (``zigp_tpu/ops/linalg.py:217-249``): each (..., n_p, n_p) is padded to
+    n_max with an identity tail (chol and inverse of blockdiag(K, I) are
+    blockdiag(chol K, I), so the tail never touches the real block), the
+    padded grams are stacked on a new leading dim, factored at once and
+    sliced back. Returns ``[(L_p, Linv_p), ...]``; differentiable through
+    ``chol_inv``. The JAX package measured it slower than one call per
+    factor and keeps it as that record."""
+    if len(Ks) == 1:
+        return [chol_inv(Ks[0])]
+    ns = [K.shape[-1] for K in Ks]
+    nmax = max(ns)
+    padded = []
+    for K, n in zip(Ks, ns):
+        if n < nmax:
+            tail = torch.zeros(nmax, dtype=K.dtype, device=K.device)
+            tail[n:] = 1.0
+            K = torch.nn.functional.pad(K, (0, nmax - n, 0, nmax - n)) + torch.diag(tail)
+        padded.append(K)
+    L, Linv = chol_inv(torch.stack(padded))
+    return [(L[p, ..., :n, :n], Linv[p, ..., :n, :n]) for p, n in enumerate(ns)]
+
+
 def _apply_factor_mats(mats: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """(⊗_p mats[p]) x without forming the product: x (..., N, K) with
     N = Π M_p, mats[p] (..., M_p, M_p). Each factor is applied as a matmul
