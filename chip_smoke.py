@@ -10,13 +10,15 @@ so any failure exits non-zero):
    CUDA source under ``zigp_tpu_torch/ops/cuda/csrc`` (one nvcc each, in
    parallel) and report the time.
 2. The ``chol_inv`` kernel against a float64 numpy oracle and against its
-   plain PyTorch version on the card, on RBF grams of time knots at
-   n = 10, 32, 100, 105, 127, 128 and, through the blocked routine, at
-   n = 200, 250, 512 (two matrices each). The kernel's relative error in L
-   and in L⁻¹ must be at most max(3 × the error of torch.linalg.cholesky +
-   solve_triangular on the same input, 1e-5), and its distance from the
-   plain version at most the same bound plus the plain version's own
-   error. A non-PSD input must give NaN.
+   plain PyTorch version (at the kernel's width) on the card, on RBF grams
+   of time knots at n = 1, 10, 31, 32, 33, 100, 105, 127, 128, 200 and
+   ``MAX_N`` (238) and, through the blocked routine, at ``MAX_N`` + 1, 240,
+   250, 512 (two matrices each), where the wrapper must refuse the kernel.
+   The kernel's relative error in L and in L⁻¹ must be at most max(3 × the
+   error of torch.linalg.cholesky + solve_triangular on the same input,
+   1e-5), and its distance from the plain version at most the same bound
+   plus the plain version's own error. A non-PSD input must give NaN from
+   the failing pivot on and leave the rows before it unchanged.
 3. The ``rbf_gram`` kernel against a float64 oracle and against its plain
    version on the card, at the training path's shapes: the pptr time column
    (t in [4.368, 5.447], lengthscale 0.005) and a 2-D station set
@@ -30,9 +32,11 @@ so any failure exits non-zero):
 4. The JAX package's A/B alternatives to ``chol_inv``, each against a float64
    oracle and its plain version on the card (the rule of phase 2, with
    torch.linalg.cholesky or the one torch.einsum as the library): the L-only
-   ``chol.cu`` at n = 10, 32, 100, 105, 128, 200, 250 through
-   ``small_cholesky_cuda`` (one matrix), ``batched_small_cholesky_cuda`` (the
-   pair) and ``chol_cuda`` at 2, 4 and 8 columns a step, and NaN on a non-PSD
+   ``chol.cu`` at n = 1, 10, 31, 32, 33, 100, 105, 128, 200, 240, 250, its
+   shared-memory limit (337) and one past it (the in-place global-memory
+   instance) through ``small_cholesky_cuda`` (one matrix),
+   ``batched_small_cholesky_cuda`` (the pair) and ``chol_cuda`` at 2, 4 and
+   8 columns a step (all at the kernel's own width), and NaN on a non-PSD
    input; ``kron_mv.cu`` at (2; 10, 100), (2; 105, 250) and (2; 6, 9), both
    orientations; the plain ``tri_inv_dc`` (n = 10, 100, 105, 250) and
    ``tri_inv_newton`` (n = 10, 100) against float64 within max(3 × the larger
@@ -67,7 +71,7 @@ so any failure exits non-zero):
    equal to per-factor ``chol_inv`` (1e-6) and both plain inverses on those
    factors (the rule of phase 4); then 10 steps from the same model on the
    same batches with chol_inv's forward patched to chol+dc (``chol_cuda``
-   at 4 columns a step, ``tri_inv_dc``), chol+newton (``tri_inv_newton``),
+   at rank 4, ``tri_inv_dc``), chol+newton (``tri_inv_newton``),
    small_cholesky+solve (``batched_small_cholesky_cuda``, torch.linalg's
    triangular solve), and that route once more on the unpaired model
    (``small_cholesky_cuda`` on each GP's factors): final losses within 5e-3
@@ -80,11 +84,14 @@ so any failure exits non-zero):
    gram kernel on and off (median of 3 timed passes of 4 blocks, in turns),
    of the 105 × 250 scale grid at B = 8192 (2 timed blocks of 50), and with
    each A/B route against production (median of 3 passes of 2 blocks, in
-   turns); chol.cu at n = 100 with 1, 2, 4 and 8 columns a step beside
-   chol_inv.cu, and the plain inverses; and per kernel shape on the paths
-   the kernel's ms per call (CUDA events), the plain version's, the
-   library's and the bound, each rbf_gram shape's output within 1e-5
-   relative of the plain version's.
+   turns); both tiled kernels at every panel width they are built for, at
+   n = 100 and 200, and (L, L⁻¹) at n = 200 by the direct kernel, the
+   blocked routine and torch.linalg (the line ``MAX_N`` rests on), and the
+   plain inverses; and per kernel shape on the paths the kernel's ms per
+   call with the host (CUDA events around 200 calls), its device ms (the
+   200 calls captured once in a CUDA graph, the replay timed with CUDA
+   events), the plain version's, the library's and the bound, each rbf_gram
+   shape's output within 1e-5 relative of the plain version's.
 11. A ``kernels`` JSON line, then the card's name and power limit, then as the
    last line {"ok": true, "device": {...}}.
 
@@ -153,6 +160,8 @@ def library_chol_inv(K: torch.Tensor):
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """ms per call of ``reps`` calls issued back to back, CUDA events around
+    them: the device's time or the host's, whichever is longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -165,6 +174,32 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int = 200) -> float:
+    """Device ms per call without the host: ``reps`` calls captured once in a
+    CUDA graph after a warm-up on a side stream, and one replay of the graph
+    (after a first, untimed one) timed with CUDA events. The launch of each
+    graph node, about a microsecond, is still inside."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    del graph
+    return start.elapsed_time(stop) / reps
+
+
 def bound_ms(n: int, G: int) -> tuple[float, str]:
     """Least time for (L, L⁻¹) of G n×n matrices: K read once, L and L⁻¹
     written once (3·G·n²·4 bytes), and n³/3 + n³/3 flops each for the
@@ -174,17 +209,51 @@ def bound_ms(n: int, G: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def nan_check(what, L, Linv, p) -> None:
+    """NaN from the failing pivot p on, the rows before it unchanged."""
+    L = L.cpu()
+    bad = not torch.isnan(L[..., p:, p:]).any() or (Linv is not None and not torch.isnan(Linv.cpu()[..., p:, :]).any())
+    if bad:
+        raise AssertionError(f"{what}: a non-PSD input did not give NaN")
+    eye = torch.eye(p).expand(*L.shape[:-2], p, p)
+    if not (torch.equal(L[..., :p, :p], eye) and (Linv is None or torch.equal(Linv.cpu()[..., :p, :p], eye))):
+        raise AssertionError(f"{what}: rows before the failing pivot changed")
+
+
+def non_psd(n: int, p: int) -> np.ndarray:
+    K = np.eye(n, dtype=np.float32)[None].repeat(2, 0)
+    K[:, p, p] = -1.0
+    return K
+
+
+NON_PSD = ((12, 7), (40, 37))  # (n, failing pivot): in the first or second block, and in a later one
+
+
 def phase_kernel_gate(ci):
-    """Kernel (direct and blocked) vs the float64 oracle, vs torch.linalg, and
-    vs the plain version, all on the card."""
-    for n in (10, 32, 100, 105, 127, 128, 200, 250, 512):
+    """Kernel (direct to MAX_N, the blocked routine above) vs the float64
+    oracle, vs torch.linalg, and vs the plain version, all on the card; the
+    wrapper refuses MAX_N + 1; NaN on non-PSD input."""
+    max_n = ci.kernel_max_n()
+    log(f"gate chol_inv: the kernel takes n <= {max_n} on this device, the package routes n <= {ci.MAX_N} to it "
+        f"at {ci.NB} columns a step, the blocked routine above")
+    if ci.MAX_N > max_n:
+        raise AssertionError(f"chol_inv: MAX_N {ci.MAX_N} above the device's {max_n}")
+    for n in (1, 10, 31, 32, 33, 100, 105, 127, 128, 200, ci.MAX_N, ci.MAX_N + 1, 240, 250, 512):
         K32 = spd_grams(n)
         Kd = torch.as_tensor(K32, device=DEVICE)
+        direct = n <= ci.MAX_N
         with torch.inference_mode():
-            L, Linv = ci.chol_inv_cuda(Kd) if n <= ci.MAX_N else ci.chol_inv_blocked(Kd)
-            Lp, Linvp = ci.chol_inv_plain(Kd)
+            L, Linv = ci.chol_inv_cuda(Kd) if direct else ci.chol_inv_blocked(Kd)
+            Lp, Linvp = ci.chol_inv_plain(Kd, ci.NB if direct else 1)
             Ll, Linvl = library_chol_inv(Kd)
         torch.cuda.synchronize()
+        if not direct:
+            try:
+                ci.chol_inv_cuda(Kd)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"chol_inv_cuda took n={n} > MAX_N")
         L_ref = np.linalg.cholesky(K32.astype(np.float64))
         Linv_ref = np.linalg.inv(L_ref)
         if not (torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(Linv, 1) == 0)):
@@ -200,22 +269,18 @@ def phase_kernel_gate(ci):
             # kernel and plain version each stay within their own error of
             # the oracle, so their distance is held to the sum of the bounds
             tol_plain = tol + plain_err
-            log(f"gate chol_inv n={n:3d} {part:4s}: kernel {err:.3e}  library {lib:.3e}  plain {plain_err:.3e}  "
-                f"kernel-vs-plain {dist:.3e}  (tol {tol:.3e}, {tol_plain:.3e})")
+            log(f"gate chol_inv{'' if direct else '_blocked'} n={n:3d} {part:4s}: kernel {err:.3e}  library "
+                f"{lib:.3e}  plain {plain_err:.3e}  kernel-vs-plain {dist:.3e}  (tol {tol:.3e}, {tol_plain:.3e})")
             if not (err <= tol and dist <= tol_plain):
                 raise AssertionError(f"chol_inv n={n} {part}: kernel {err:.3e} (tol {tol:.3e}), "
                                      f"vs plain {dist:.3e} (tol {tol_plain:.3e})")
 
-    K = np.eye(12, dtype=np.float32)[None].repeat(2, 0)
-    K[:, 7, 7] = -1.0
-    with torch.inference_mode():
-        L, Linv = ci.chol_inv_cuda(torch.as_tensor(K, device=DEVICE))
-    L, Linv = L.cpu(), Linv.cpu()
-    if not (torch.isnan(L[:, 7:, 7:]).any() and torch.isnan(Linv[:, 7:, :]).any()):
-        raise AssertionError("chol_inv kernel: a non-PSD input did not give NaN")
-    if not torch.equal(L[:, :7, :7], torch.eye(7).expand(2, 7, 7)):
-        raise AssertionError("chol_inv kernel: rows before the failing pivot changed")
-    log("gate chol_inv non-PSD input (K[7,7] = -1): NaN from the failing pivot on")
+    for n, p in NON_PSD:
+        with torch.inference_mode():
+            L, Linv = ci.chol_inv_cuda(torch.as_tensor(non_psd(n, p), device=DEVICE))
+        nan_check(f"chol_inv kernel n={n}", L, Linv, p)
+    log(f"gate chol_inv non-PSD input (n, K[p,p] = -1) {NON_PSD}: NaN from the failing pivot on, rows before it "
+        f"unchanged")
 
 
 def perturbed(model, seed: int):
@@ -299,17 +364,22 @@ def time_predict(name, model, X, batch, card):
 
 
 def time_chol_inv(ci, n, G=2):
-    """ms per call of the kernel path, the plain version and torch.linalg at
-    one shape, and the kernel's largest difference from the plain version."""
+    """ms per call of the kernel path (host included), its device ms (CUDA
+    graph), the plain version's and torch.linalg's ms at one shape, and the
+    kernel's largest difference from the plain version (at the kernel's
+    width for the direct kernel)."""
     K = torch.as_tensor(spd_grams(n)[:G], device=DEVICE)
-    kern = ci.chol_inv_cuda if n <= ci.MAX_N else ci.chol_inv_blocked
+    direct = n <= ci.MAX_N
+    kern = ci.chol_inv_cuda if direct else ci.chol_inv_blocked
+    plain = lambda: ci.chol_inv_plain(K, ci.NB if direct else 1)
     with torch.inference_mode():
         ms = cuda_ms(lambda: kern(K), reps=200)
-        plain_ms = cuda_ms(lambda: ci.chol_inv_plain(K), reps=5, warmup=1)
+        device_ms = graph_ms(lambda: kern(K))
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
         lib_ms = cuda_ms(lambda: library_chol_inv(K), reps=200)
-        (L, Li), (Lp, Lip) = kern(K), ci.chol_inv_plain(K)
+        (L, Li), (Lp, Lip) = kern(K), plain()
         err = max(float((L - Lp).abs().max()), float((Li - Lip).abs().max()))
-    return ms, plain_ms, lib_ms, err
+    return ms, device_ms, plain_ms, lib_ms, err
 
 
 # --- the rbf_gram kernel and the training path ---------------------------------
@@ -588,8 +658,9 @@ GRAM_VS_PLAIN_TOL = 1e-5  # relative Frobenius distance, as tests/test_torch_cud
 
 def gram_rows(rg, path_counts: dict, card) -> list:
     """One kernels-line row per rbf_gram shape launched on each training
-    path: the kernel's ms per call (CUDA events), the plain version's, the
-    bound, and the kernel's largest difference from the plain version. The
+    path: the kernel's ms per call (CUDA events, host included), its device
+    ms (CUDA graph), the plain version's ms, the bound, and the kernel's
+    largest difference from the plain version. The
     kernel's output must be within GRAM_VS_PLAIN_TOL relative of the plain
     version's at every shape."""
     rows = []
@@ -603,21 +674,23 @@ def gram_rows(rg, path_counts: dict, card) -> list:
             var = torch.tensor([20.0, 10.0][:G], device=DEVICE)
             with torch.inference_mode():
                 ms = cuda_ms(lambda: rg.rbf_gram_cuda(X, Z, ell, var), reps=200)
+                device_ms = graph_ms(lambda: rg.rbf_gram_cuda(X, Z, ell, var))
                 plain_ms = cuda_ms(lambda: rg.rbf_gram_plain(X, Z, ell, var), reps=50)
                 K, Kp = rg.rbf_gram_cuda(X, Z, ell, var), rg.rbf_gram_plain(X, Z, ell, var)
                 err = float((K - Kp).abs().max())
                 dist = rel(K.cpu().numpy(), Kp.cpu().numpy())
             b_ms, b_by = gram_bound_ms(G, N, M, D, shared)
             kname = f"rbf_gram ({G},{N},{M}) D={D} {'K_mn' if shared else 'K_mm'} ({path})"
-            log(f"time {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.6f} ms ({b_by}), "
                 f"launches {launches}, max |kernel - plain| {err:.3e}, relative {dist:.3e} "
                 f"(tol {GRAM_VS_PLAIN_TOL:.0e}); {card}")
             if not dist <= GRAM_VS_PLAIN_TOL:
                 raise AssertionError(f"{kname}: kernel vs plain {dist:.3e} > {GRAM_VS_PLAIN_TOL:.0e}")
             rows.append({
                 "name": kname, "route": "cuda", "source": GRAM_SOURCE, "replaces": GRAM_REPLACES,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             })
     return rows
 
@@ -637,7 +710,7 @@ AB_STEPS = 10
 
 
 def route_chol_dc(K):
-    """chol_inv's forward as L from chol.cu (4 columns a step) and L⁻¹ by
+    """chol_inv's forward as L from chol.cu (chol_cuda at rank 4) and L⁻¹ by
     tri_inv_dc: the JAX record's overflow-safe solve-free variant."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
 
@@ -646,7 +719,7 @@ def route_chol_dc(K):
 
 
 def route_chol_newton(K):
-    """L from chol.cu (4 columns a step), L⁻¹ by tri_inv_newton."""
+    """L from chol.cu (chol_cuda at rank 4), L⁻¹ by tri_inv_newton."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
 
     L = ci.chol_cuda(K.contiguous(), rank=AB_RANK)
@@ -716,39 +789,41 @@ def check_kernel(what, kern, plain, ref, lib_err) -> None:
 
 
 def phase_chol_gate():
-    """chol.cu through its three wrappers (one column a step on one matrix
-    and on the pair, and 2, 4 and 8 columns a step) against a float64 oracle
-    and its plain version on the card, and NaN on a non-PSD input."""
+    """chol.cu through its three wrappers (one matrix, the pair, and
+    chol_cuda at 2, 4 and 8 columns a step, all of which run the kernel at
+    its own width) against a float64 oracle and its plain version on the
+    card, up to and past the shared-memory limit, and NaN on a non-PSD
+    input."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
     from zigp_tpu_torch.ops.cuda import cholesky as sc
 
-    log(f"gate chol: the shared-memory instance takes n <= {sc.shared_max_n()}, the in-place global one above")
+    limit = sc.shared_max_n()
+    log(f"gate chol: {sc.NB} columns a step; the shared-memory instance takes n <= {limit}, the in-place global "
+        f"one above")
     routes = [("small_cholesky", 1, lambda K: sc.small_cholesky_cuda(K[0])[None], True),
               ("batched_small_cholesky", 1, sc.batched_small_cholesky_cuda, False)]
     routes += [(f"chol rank {r}", r, lambda K, r=r: ci.chol_cuda(K, rank=r), False) for r in (2, 4, 8)]
-    for n in (10, 32, 100, 105, 128, 200, 250):
+    for n in (1, 10, 31, 32, 33, 100, 105, 128, 200, 240, 250, limit, limit + 1):
         K32 = spd_grams(n)
         ref = np.linalg.cholesky(K32.astype(np.float64))
         for what, rank, fn, single in routes:
             Kd = torch.as_tensor(K32[:1] if single else K32, device=DEVICE)
             with torch.inference_mode():
-                L, Lp, Ll = fn(Kd), sc.chol_plain(Kd, rank), torch.linalg.cholesky(Kd)
+                L, Lp, Ll = fn(Kd), sc.chol_plain(Kd, sc.NB), torch.linalg.cholesky(Kd)
             torch.cuda.synchronize()
             if not torch.all(torch.triu(L, 1) == 0):
                 raise AssertionError(f"{what} n={n}: nonzero upper triangle")
             r = ref[:1] if single else ref
             check_kernel(f"{what} n={n:3d}", L, Lp, r, rel(Ll.cpu().numpy(), r))
 
-    K = np.eye(12, dtype=np.float32)[None].repeat(2, 0)
-    K[:, 7, 7] = -1.0
-    for what, rank, fn, single in routes:
-        with torch.inference_mode():
-            L = fn(torch.as_tensor(K[:1] if single else K, device=DEVICE)).cpu()
-        if not torch.isnan(L[:, 7:, 7:]).any():
-            raise AssertionError(f"{what}: a non-PSD input did not give NaN")
-        if not torch.equal(L[:, :7, :7], torch.eye(7).expand(L.shape[0], 7, 7)):
-            raise AssertionError(f"{what}: rows before the failing pivot changed")
-    log("gate chol non-PSD input (K[7,7] = -1), every route: NaN from the failing pivot on, rows before it unchanged")
+    for n, p in NON_PSD:
+        K = non_psd(n, p)
+        for what, rank, fn, single in routes:
+            with torch.inference_mode():
+                L = fn(torch.as_tensor(K[:1] if single else K, device=DEVICE))
+            nan_check(f"{what} n={n}", L, None, p)
+    log(f"gate chol non-PSD input (n, K[p,p] = -1) {NON_PSD}, every route: NaN from the failing pivot on, rows "
+        f"before it unchanged")
 
 
 KRON_SPECS = {False: "gia,gjb,gab->gij", True: "gai,gbj,gab->gij"}  # Y = A X Bᵀ, or Aᵀ X B
@@ -959,9 +1034,10 @@ def sum_by_shape(counts_list, key) -> dict:
 
 def ab_rows(route_counts: dict, serve_counts: dict, card) -> list:
     """One kernels-line row per chol.cu and kron_mv.cu shape launched on the
-    A/B paths: ms per call (CUDA events), the plain version's, the library's
-    (torch.linalg.cholesky; the one torch.einsum), the bound, and the largest
-    difference from the plain version."""
+    A/B paths: ms per call (CUDA events, host included), device ms (CUDA
+    graph), the plain version's ms (chol_plain at the kernel's width), the
+    library's (torch.linalg.cholesky; the one torch.einsum), the bound, and
+    the largest difference from the plain version."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
     from zigp_tpu_torch.ops.cuda import cholesky as sc
     from zigp_tpu_torch.ops.cuda import kron_matvec as km
@@ -980,16 +1056,19 @@ def ab_rows(route_counts: dict, serve_counts: dict, card) -> list:
             K = torch.as_tensor(spd_grams(n)[:G], device=DEVICE)
             with torch.inference_mode():
                 ms = cuda_ms(lambda: call(K, rank), reps=200)
-                plain_ms = cuda_ms(lambda: sc.chol_plain(K, rank), reps=5, warmup=1)
+                device_ms = graph_ms(lambda: call(K, rank))
+                plain_ms = cuda_ms(lambda: sc.chol_plain(K, sc.NB), reps=5, warmup=1)
                 lib_ms = cuda_ms(lambda: torch.linalg.cholesky(K), reps=200)
-                err = float((call(K, rank) - sc.chol_plain(K, rank)).abs().max())
+                err = float((call(K, rank) - sc.chol_plain(K, sc.NB)).abs().max())
             b_ms, b_by = chol_bound_ms(n, G)
-            kname = f"{wrapper} ({G},{n},{n}) {rank} column{'s' if rank > 1 else ''} a step (train A/B: {', '.join(paths)})"
-            log(f"time {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.cholesky {lib_ms:.4f} ms, "
+            kname = (f"{wrapper} ({G},{n},{n}){f' rank {rank}' if wrapper == 'chol' else ''}, kernel at {sc.NB} "
+                     f"columns a step (train A/B: {', '.join(paths)})")
+            log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.linalg.cholesky {lib_ms:.4f} ms, "
                 f"bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; {card}")
             rows.append({"name": kname, "route": "cuda", "source": CHOL_SOURCE, "replaces": REPLACES[wrapper],
-                         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                         "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
 
     for (G, Ma, Mb, trans), launches in sorted(sum_by_shape(serve_counts.values(), "kron_mv_2_by_shape").items()):
         paths = [name for name, c in serve_counts.items() if (G, Ma, Mb, trans) in c["kron_mv_2_by_shape"]]
@@ -998,33 +1077,56 @@ def ab_rows(route_counts: dict, serve_counts: dict, card) -> list:
         spec = KRON_SPECS[trans]
         with torch.inference_mode():
             ms = cuda_ms(lambda: km.kron_mv_2_cuda(A, B, x, transpose=trans), reps=200)
+            device_ms = graph_ms(lambda: km.kron_mv_2_cuda(A, B, x, transpose=trans))
             plain_ms = cuda_ms(lambda: km.kron_mv_2_plain(A, B, x, transpose=trans), reps=200)
             lib_ms = cuda_ms(lambda: torch.einsum(spec, A, B, x.reshape(G, Ma, Mb)), reps=200)
             err = float((km.kron_mv_2_cuda(A, B, x, transpose=trans)
                          - km.kron_mv_2_plain(A, B, x, transpose=trans)).abs().max())
         b_ms, b_by = kron_bound_ms(G, Ma, Mb)
         kname = f"kron_mv_2 ({G}; {Ma}, {Mb}){' transposed' if trans else ''} (serving A/B: {', '.join(paths)})"
-        log(f"time {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.einsum {lib_ms:.4f} ms, "
+        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.einsum {lib_ms:.4f} ms, "
             f"bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; {card}")
         rows.append({"name": kname, "route": "cuda", "source": KRON_SOURCE, "replaces": REPLACES["kron_mv_2"],
-                     "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                     "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
     return rows
 
 
-def time_columns_per_step(card) -> None:
-    """chol.cu at n = 100 (the flagship pair) with 1, 2, 4 and 8 columns a
-    step, beside chol_inv.cu; tri_inv_dc and tri_inv_newton at n = 100."""
+def time_panel_widths(card) -> None:
+    """Both tiled kernels at every panel width they are built for, on the
+    pair at n = 100 and 200 (chol.cu also on one matrix at n = 100): ms per
+    call with the host, and device ms (CUDA graph); then the line MAX_N rests
+    on, (L, L⁻¹) at n = 200 by the direct kernel, by chol_inv_blocked and by
+    torch.linalg; then the plain inverses at n = 100."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
+    from zigp_tpu_torch.ops.cuda import cholesky as sc
+
+    for G, n in ((2, 100), (2, 200), (1, 100)):
+        K = torch.as_tensor(spd_grams(n)[:G], device=DEVICE)
+        out = {}
+        with torch.inference_mode():
+            for nb in sc.NBS:
+                calls = {"chol.cu": lambda: sc.launch_chol(K, "sweep", nb)}
+                if G == 2:
+                    calls["chol_inv.cu"] = lambda: ci.launch_chol_inv(K, "sweep", nb)
+                for name, fn in calls.items():
+                    out.setdefault(name, {})[nb] = (round(cuda_ms(fn, reps=200), 5), round(graph_ms(fn), 5))
+        log(f"time panel widths ({G},{n},{n}), nb: (ms, device ms): {json.dumps(out)}; {card}")
+
+    K = torch.as_tensor(spd_grams(200), device=DEVICE)
+    with torch.inference_mode():
+        direct = lambda: ci.launch_chol_inv(K, "sweep")
+        line = {"direct chol_inv.cu": (cuda_ms(direct, reps=200), graph_ms(direct)),
+                "chol_inv_blocked": (cuda_ms(lambda: ci.chol_inv_blocked(K), reps=200),
+                                     graph_ms(lambda: ci.chol_inv_blocked(K))),
+                "torch.linalg": (cuda_ms(lambda: library_chol_inv(K), reps=200), None)}
+    log(f"time (L, L⁻¹) (2,200,200), (ms, device ms): {json.dumps(line)}; MAX_N {ci.MAX_N}; {card}")
 
     K = torch.as_tensor(spd_grams(100), device=DEVICE)
     with torch.inference_mode():
-        fused = cuda_ms(lambda: ci.chol_inv_cuda(K), reps=200)
-        per_r = {r: cuda_ms(lambda: ci.chol_cuda(K, rank=r), reps=200) for r in (1, 2, 4, 8)}
-        L = ci.chol_cuda(K, rank=AB_RANK)
+        L = sc.launch_chol(K, "sweep")
         inv = {f.__name__: cuda_ms(lambda: f(L), reps=50) for f in (ci.tri_inv_dc, ci.tri_inv_newton)}
-    log(f"time chol.cu (2,100,100) by columns a step: {json.dumps({r: round(v, 5) for r, v in per_r.items()})} ms; "
-        f"chol_inv.cu (L and L⁻¹) {fused:.5f} ms; {card}")
     log(f"time plain inverses (2,100,100): {json.dumps({k: round(v, 5) for k, v in inv.items()})} ms; {card}")
 
 
@@ -1108,8 +1210,9 @@ def main() -> int:
     model, X, _, ref, _ = runs["flagship"]
     serve_counts = {"flagship": phase_serving_kron_mv("flagship", model, X, 4096, ref)}
     scale_cfg = OnOffPptrConfig(grid=KronGridConfig(num_spatial=105, num_temporal=250))
-    model, X, _, ref = phase_serving(ci, "scale 105x250", scale_cfg, split, 4096)
+    model, X, scale_by_n, ref = phase_serving(ci, "scale 105x250", scale_cfg, split, 4096)
     serve_counts["scale 105x250"] = phase_serving_kron_mv("scale 105x250", model, X, 4096, ref)
+    scale_sizes = [Z.shape[0] for Z in model.f.Zs]
     del model, X, ref
 
     train_cfg = dataclasses.replace(OnOffPptrConfig(), num_iter=200, scan_inner=50, sampler="device", log_every=50)
@@ -1122,11 +1225,13 @@ def main() -> int:
     pts = {name: time_predict(name, m, X, batch, card) for name, (m, X, _, _, batch) in runs.items()}
     steps_per_s, train_counts["scale train, 2 timed blocks"] = time_training(split, card)
     route_rates = time_train_routes(split, card)
-    time_columns_per_step(card)
+    time_panel_widths(card)
 
     kernels = []
-    for name, (model, _, by_n, _, _) in runs.items():
-        for n in (Z.shape[0] for Z in model.f.Zs):
+    serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
+    serving["scale 105x250"] = (scale_sizes, scale_by_n)
+    for name, (sizes, by_n) in serving.items():
+        for n in sizes:
             if n <= ci.MAX_N:
                 launches = by_n.get(n, 0)
                 kname = f"chol_inv n={n} G=2 ({name})"
@@ -1139,14 +1244,15 @@ def main() -> int:
                 replaces, source = "zigp_tpu/ops/pallas/chol_inv.py:387", "zigp_tpu_torch/ops/cuda/chol_inv.py"
             if launches == 0:
                 raise AssertionError(f"{kname}: not launched on the main path")
-            ms, plain_ms, lib_ms, err = time_chol_inv(ci, n)
+            ms, device_ms, plain_ms, lib_ms, err = time_chol_inv(ci, n)
             b_ms, b_by = bound_ms(n, 2)
-            log(f"time {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg {lib_ms:.4f} ms, "
-                f"bound {b_ms:.6f} ms ({b_by}), max |kernel - plain| {err:.3e}; {card}")
+            log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.linalg {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, "
+                f"max |kernel - plain| {err:.3e}; {card}")
             kernels.append({
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
 
     kernels += gram_rows(rg, train_counts, card)

@@ -20,6 +20,7 @@ from zigp_tpu.ops.pallas.chol_inv import chol_inv_blocked as jax_chol_inv_blocke
 from zigp_tpu.ops.pallas.chol_inv import chol_inv_pallas
 from zigp_tpu_torch.ops import linalg
 from zigp_tpu_torch.ops.cuda import chol_inv as ci
+from zigp_tpu_torch.ops.cuda import cholesky as sc
 
 
 def _spd(rng, shape):
@@ -87,7 +88,10 @@ def test_nan_on_non_psd():
     [
         (10, torch.float32, "cuda", "kernel"),
         (128, torch.float32, "cuda", "kernel"),
-        (129, torch.float32, "cuda", "blocked"),
+        (129, torch.float32, "cuda", "kernel"),  # past the JAX kernel's 128: the whole matrix fits the card's
+        (200, torch.float32, "cuda", "kernel"),  # the champion's temporal factor, in one launch
+        (238, torch.float32, "cuda", "kernel"),  # MAX_N
+        (239, torch.float32, "cuda", "blocked"),
         (512, torch.float32, "cuda", "blocked"),
         (513, torch.float32, "cuda", "library"),
         (100, torch.float64, "cuda", "library"),
@@ -111,3 +115,59 @@ def test_cpu_wrapper_counts_no_launch():
     before = ci.chol_inv_cuda.launches
     ci.chol_inv_cuda(torch.eye(4)[None])
     assert ci.chol_inv_cuda.launches == before
+
+
+# chol_inv_plain at the kernel's block widths (cholesky.NBS) and one wider:
+# each step factors nb columns, forward-substitutes nb rows of L⁻¹ and
+# updates the rest, in the kernel's order. Any width is the same
+# factorization, so each is held to the Pallas kernel and to numpy.
+WIDTHS = (4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("n", [1, 10, 33, 100, 105])
+@pytest.mark.parametrize("nb", WIDTHS)
+def test_plain_at_width_matches_pallas_f32(n, nb):
+    K = _spd(np.random.RandomState(n + nb), (2, n, n)).astype(np.float32)
+    L, Linv = ci.chol_inv_plain(torch.as_tensor(K), nb)
+    Lp, Linvp = chol_inv_pallas(jnp.asarray(K), interpret=True)
+    np.testing.assert_allclose(L.numpy(), np.asarray(Lp), rtol=2e-4, atol=1e-4)
+    np.testing.assert_allclose(Linv.numpy(), np.asarray(Linvp), rtol=2e-4, atol=1e-4)
+    assert np.all(np.triu(L.numpy(), 1) == 0) and np.all(np.triu(Linv.numpy(), 1) == 0)
+
+
+@pytest.mark.parametrize("n", [200, 240])
+@pytest.mark.parametrize("nb", WIDTHS)
+def test_plain_at_width_matches_numpy_f64(n, nb):
+    K = _spd(np.random.RandomState(n + nb), (2, n, n))
+    L, Linv = ci.chol_inv_plain(torch.as_tensor(K), nb)
+    L0 = np.linalg.cholesky(K)
+    np.testing.assert_allclose(L.numpy(), L0, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(Linv.numpy(), np.linalg.inv(L0), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("n, p", [(12, 7), (40, 37)])
+@pytest.mark.parametrize("nb", (1,) + WIDTHS)
+def test_plain_at_width_nan_on_non_psd(n, p, nb):
+    K = np.eye(n, dtype=np.float32)[None].repeat(2, 0)
+    K[:, p, p] = -1.0
+    L, Linv = ci.chol_inv_plain(torch.as_tensor(K), nb)
+    assert torch.isnan(L[:, p:, p:]).any() and torch.isnan(Linv[:, p:, :]).any()
+    eye = torch.eye(p).expand(2, p, p)
+    assert torch.equal(L[:, :p, :p], eye) and torch.equal(Linv[:, :p, :p], eye)
+
+
+@pytest.mark.parametrize("nb", [0, -4, 2.0, True, None])
+def test_plain_rejects_a_bad_width(nb):
+    with pytest.raises(ValueError):
+        ci.chol_inv_plain(torch.eye(4), nb)
+
+
+def test_launch_refuses_a_cpu_tensor():
+    """Only the wrappers choose the plain version for a CPU tensor; the
+    launcher itself never runs anything but the kernel."""
+    with pytest.raises(ValueError):
+        ci.launch_chol_inv(torch.eye(4)[None])
+
+
+def test_tuned_widths_are_built_widths():
+    assert sc.NB in sc.NBS and ci.NB == sc.NB and 200 <= ci.MAX_N < ci.BLOCKED_MAX_N

@@ -97,3 +97,39 @@ def test_wrappers_check_shape_and_rank():
     for rank in (0, -1, 2.0, True):
         with pytest.raises(ValueError):
             ci.chol_cuda(K, rank=rank)
+
+
+@pytest.mark.parametrize("n", [10, 33, 100])
+@pytest.mark.parametrize("nb", sc.NBS)
+def test_chol_plain_at_kernel_width_matches_chol_pallas_f32(n, nb):
+    """chol_plain at a width the kernel is built for is the kernel's order
+    of operations; chol_pallas at the same rank is the TPU kernel's."""
+    K = _spd(np.random.RandomState(n * nb), (2, n, n)).astype(np.float32)
+    L = sc.chol_plain(torch.as_tensor(K), nb)
+    Lp = chol_pallas(jnp.asarray(K), interpret=True, rank=nb)
+    np.testing.assert_allclose(L.numpy(), np.asarray(Lp), rtol=2e-4, atol=1e-4)
+    assert np.all(np.triu(L.numpy(), 1) == 0)
+
+
+@pytest.mark.parametrize("n", [240, 338])
+@pytest.mark.parametrize("nb", sc.NBS)
+def test_chol_plain_at_kernel_width_matches_numpy_f64(n, nb):
+    """Past chol_inv.cu's limit and past chol.cu's shared-memory limit."""
+    K = _spd(np.random.RandomState(n + nb), (1, n, n))
+    np.testing.assert_allclose(sc.chol_plain(torch.as_tensor(K), nb).numpy(), np.linalg.cholesky(K), rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("nb", sc.NBS)
+def test_chol_plain_at_kernel_width_nan_on_non_psd(nb):
+    K = np.eye(40, dtype=np.float32)[None].repeat(2, 0)
+    K[:, 37, 37] = -1.0
+    L = sc.chol_plain(torch.as_tensor(K), nb)
+    assert torch.isnan(L[:, 37:, 37:]).any() and torch.equal(L[:, :37, :37], torch.eye(37).expand(2, 37, 37))
+
+
+def test_launch_refuses_a_cpu_tensor_and_an_unbuilt_width():
+    with pytest.raises(ValueError):
+        sc.launch_chol(torch.eye(4)[None], "test")
+    with pytest.raises(ValueError):
+        sc.launch_chol(torch.eye(4)[None], "test", nb=32)

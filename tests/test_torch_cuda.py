@@ -40,21 +40,25 @@ def _rel(a, b):
     return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
 
 
-@pytest.mark.parametrize("n", [1, 5, 10, 32, 100, 127, 128])
+@pytest.mark.parametrize("n", [1, 5, 10, 31, 32, 33, 100, 127, 128, 200, 238])
 def test_kernel_matches_plain(cuda, n):
+    """Around the panel widths (31, 32, 33), ragged last blocks, and up to
+    MAX_N (238); the plain version at the kernel's width takes its operations in
+    the kernel's order."""
     K = torch.as_tensor(_spd(n, seed=n), device=cuda)
     before = ci.chol_inv_cuda.launches
     with torch.inference_mode():
         L, Linv = ci.chol_inv_cuda(K)
-        Lp, Linvp = ci.chol_inv_plain(K)
+        Lp, Linvp = ci.chol_inv_plain(K, ci.NB)
     torch.cuda.synchronize()
     assert ci.chol_inv_cuda.launches == before + 1
     assert _rel(L, Lp) < 1e-5 and _rel(Linv, Linvp) < 1e-5
     assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(Linv, 1) == 0)
 
 
-@pytest.mark.parametrize("n", [200, 250])
+@pytest.mark.parametrize("n", [239, 250])
 def test_blocked_on_card_matches_plain(cuda, n):
+    assert linalg.chol_inv_route(n, torch.float32, "cuda") == "blocked"
     K = torch.as_tensor(_spd(n, seed=n), device=cuda)
     with torch.inference_mode():
         L, Linv = linalg.chol_inv(K)
@@ -62,11 +66,41 @@ def test_blocked_on_card_matches_plain(cuda, n):
     assert _rel(L, Lp) < 1e-5 and _rel(Linv, Linvp) < 1e-5
 
 
-def test_kernel_nan_on_non_psd(cuda):
-    K = torch.eye(12, device=cuda)[None].repeat(2, 1, 1)
-    K[:, 7, 7] = -1.0
+@pytest.mark.parametrize("n", [33, 100, 200])
+@pytest.mark.parametrize("nb", [4, 8, 16])
+def test_kernel_every_width_matches_plain(cuda, n, nb):
+    K = torch.as_tensor(_spd(n, seed=n + nb), device=cuda)
+    with torch.inference_mode():
+        L, Linv = ci.launch_chol_inv(K, nb=nb)
+        Lp, Linvp = ci.chol_inv_plain(K, nb)
+        Lc = sc.launch_chol(K, "test", nb)
+    torch.cuda.synchronize()
+    assert _rel(L, Lp) < 1e-5 and _rel(Linv, Linvp) < 1e-5 and _rel(Lc, Lp) < 1e-5
+
+
+def test_kernel_at_the_shared_memory_limit(cuda):
+    """The largest n whose two triangles fit the device's shared memory runs;
+    one more is refused at launch (RuntimeError), and the wrapper refuses
+    anything above MAX_N before launching (ValueError)."""
+    n = ci.kernel_max_n()
+    assert ci.MAX_N <= n
+    K = torch.as_tensor(_spd(n, seed=1), device=cuda)
+    with torch.inference_mode():
+        L, Linv = ci.launch_chol_inv(K)
+        Lp, Linvp = ci.chol_inv_plain(K, ci.NB)
+    assert _rel(L, Lp) < 1e-5 and _rel(Linv, Linvp) < 1e-5
+    with pytest.raises(RuntimeError):
+        ci.launch_chol_inv(torch.eye(n + 1, device=cuda)[None])
+
+
+@pytest.mark.parametrize("n, p", [(12, 7), (40, 37)])
+def test_kernel_nan_on_non_psd(cuda, n, p):
+    K = torch.eye(n, device=cuda)[None].repeat(2, 1, 1)
+    K[:, p, p] = -1.0
     L, Linv = ci.chol_inv_cuda(K)
-    assert torch.isnan(L[:, 7:, 7:]).any() and torch.isnan(Linv[:, 7:, :]).any()
+    assert torch.isnan(L[:, p:, p:]).any() and torch.isnan(Linv[:, p:, :]).any()
+    eye = torch.eye(p, device=cuda).expand(2, p, p)
+    assert torch.equal(L[:, :p, :p], eye) and torch.equal(Linv[:, :p, :p], eye)
 
 
 def _library_chol_inv(K):
@@ -75,7 +109,7 @@ def _library_chol_inv(K):
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
-@pytest.mark.parametrize("n", [10, 100, 200])
+@pytest.mark.parametrize("n", [10, 100, 200, 250])
 def test_chol_inv_gradient_on_card_launches_the_kernel(cuda, n):
     """With grad, ``linalg.chol_inv`` runs the kernel (directly, or on the
     blocked routine's diagonal blocks) and its backward equals autograd of
@@ -195,9 +229,19 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
     with pytest.raises(TypeError):
         ci.chol_inv_cuda(torch.eye(8, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
-        ci.chol_inv_cuda(torch.eye(129, device=cuda))
+        ci.chol_inv_cuda(torch.eye(ci.MAX_N + 1, device=cuda))
     with pytest.raises(ValueError):
         ci.chol_inv_cuda(torch.eye(16, device=cuda)[::2, ::2])
+    with pytest.raises(ValueError):
+        ci.launch_chol_inv(torch.eye(16, device=cuda), nb=12)  # not a built width
+
+
+def test_wrapper_raises_above_max_n(cuda):
+    before = ci.chol_inv_cuda.launches
+    for n in (ci.MAX_N + 1, 512):
+        with pytest.raises(ValueError):
+            ci.chol_inv_cuda(torch.eye(n, device=cuda)[None])
+    assert ci.chol_inv_cuda.launches == before
 
 
 # --- chol.cu (small_cholesky, batched_small_cholesky, chol_pallas) and kron_mv.cu ---
@@ -205,15 +249,15 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
 from zigp_tpu_torch.ops.cuda import cholesky as sc  # noqa: E402
 from zigp_tpu_torch.ops.cuda import kron_matvec as km  # noqa: E402
 
-CHOL_NS = [1, 10, 32, 100, 105, 128, 200, 250]
+CHOL_NS = [1, 10, 31, 32, 33, 100, 105, 128, 200, 240, 250]
 
 
 @pytest.mark.parametrize("n", CHOL_NS)
 @pytest.mark.parametrize("rank", [1, 2, 3, 4, 8])
 def test_chol_kernel_matches_plain(cuda, n, rank):
-    """Every gated n and rank, 105 being a multiple of none of 2, 4 and 8 (a
-    step of columns taken in the wrong order passes at rank 1 only), and
-    rank 3 through the run-time instance."""
+    """Every gated n and rank: the kernel runs at its own width whatever the
+    rank, and every rank of the plain version takes each entry's updates in
+    the same order, so all agree to rounding."""
     K = torch.as_tensor(_spd(n, seed=n), device=cuda)
     before = ci.chol_cuda.launches
     with torch.inference_mode():
@@ -240,23 +284,31 @@ def test_small_cholesky_kernels_match_plain(cuda, n):
     assert _rel(L1, Lp[0]) < 1e-5 and _rel(Lb, Lp) < 1e-5
 
 
-def test_chol_kernel_takes_n_250_in_global_memory(cuda):
-    assert sc.shared_max_n() < 250 <= 2 * sc.shared_max_n()
-    K = torch.as_tensor(_spd(250, seed=3), device=cuda)
-    L = ci.chol_cuda(K, rank=4)
+@pytest.mark.parametrize("past_limit", [0, 1])
+def test_chol_kernel_at_the_shared_memory_limit(cuda, past_limit):
+    """The largest n the packed triangle holds in shared memory, and one more,
+    which the same tiled code factors in place in global memory."""
+    n = sc.shared_max_n() + past_limit
+    assert n > 250
+    K = torch.as_tensor(_spd(n, G=1, seed=3), device=cuda)
+    with torch.inference_mode():
+        L = sc.batched_small_cholesky_cuda(K)
+        Lp = sc.chol_plain(K, sc.NB)
+    assert _rel(L, Lp) < 1e-5 and torch.all(torch.triu(L, 1) == 0)
     np.testing.assert_allclose(L.double().cpu().numpy(), np.linalg.cholesky(K.double().cpu().numpy()), rtol=0,
                                atol=1e-4 * float(L.abs().max()))
 
 
+@pytest.mark.parametrize("n, p", [(12, 7), (40, 37)])
 @pytest.mark.parametrize("rank", [1, 2, 4, 8])
-def test_chol_kernel_nan_on_non_psd(cuda, rank):
-    K = torch.eye(12, device=cuda)[None].repeat(2, 1, 1)
-    K[:, 7, 7] = -1.0
+def test_chol_kernel_nan_on_non_psd(cuda, rank, n, p):
+    K = torch.eye(n, device=cuda)[None].repeat(2, 1, 1)
+    K[:, p, p] = -1.0
     L = ci.chol_cuda(K, rank=rank).cpu()
-    assert torch.isnan(L[:, 7:, 7:]).any()
-    assert torch.equal(L[:, :7, :7], torch.eye(7).expand(2, 7, 7))
+    assert torch.isnan(L[:, p:, p:]).any()
+    assert torch.equal(L[:, :p, :p], torch.eye(p).expand(2, p, p))
     L1 = sc.small_cholesky_cuda(K[0].contiguous()).cpu()
-    assert torch.isnan(L1[7:, 7:]).any() and torch.equal(L1[:7, :7], torch.eye(7))
+    assert torch.isnan(L1[p:, p:]).any() and torch.equal(L1[:p, :p], torch.eye(p))
 
 
 def test_chol_wrappers_raise_on_what_the_kernel_cannot_take(cuda):
@@ -273,6 +325,8 @@ def test_chol_wrappers_raise_on_what_the_kernel_cannot_take(cuda):
         sc.batched_small_cholesky_cuda(K[0])  # (B, n, n) only
     with pytest.raises(TypeError):
         sc.batched_small_cholesky_cuda(K.double())
+    with pytest.raises(ValueError):
+        sc.launch_chol(K, "test", nb=12)  # not a built width
 
 
 def _kron_inputs(G, Ma, Mb, seed=0):

@@ -38,10 +38,11 @@ def add_jitter(K: torch.Tensor, jitter: float, *, relative_f32: float = 2.0e-4) 
 
 def chol_inv_route(n: int, dtype: torch.dtype, device_type: str) -> str:
     """Which implementation ``chol_inv`` takes (``zigp_tpu/ops/linalg.py:
-    138-151``): float32 on the card goes to the CUDA kernel for n ≤ 128 and
-    to the blocked routine for n ≤ 512; anything else, the CPU included, to
-    the library Cholesky and triangular solve, where the JAX package leaves
-    it to XLA."""
+    138-151``): float32 on the card goes to the CUDA kernel for n ≤ ``MAX_N``
+    (238: the kernel holds the whole matrix, where the JAX package's kernel
+    stops at 128) and to the blocked routine for n ≤ 512; anything else, the
+    CPU included, to the library Cholesky and triangular solve, where the JAX
+    package leaves it to XLA."""
     if dtype == torch.float32 and device_type == "cuda":
         if n <= MAX_N:
             return "kernel"
