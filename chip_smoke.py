@@ -37,8 +37,12 @@ so any failure exits non-zero):
    instance) through ``small_cholesky_cuda`` (one matrix),
    ``batched_small_cholesky_cuda`` (the pair) and ``chol_cuda`` at 2, 4 and
    8 columns a step (all at the kernel's own width), and NaN on a non-PSD
-   input; ``kron_mv.cu`` at (2; 10, 100), (2; 105, 250) and (2; 6, 9), both
-   orientations; the plain ``tri_inv_dc`` (n = 10, 100, 105, 250) and
+   input; ``kron_mv.cu`` at (2; 10, 100), (2; 105, 250), (2; 6, 9), the
+   ragged (1; 1, 1), (3; 1, 5) and (1; 33, 70), the cluster's reach (2; 128,
+   40) and one row past it (2; 129, 40, the global instance), both
+   orientations, in the plan's instance and, within the cluster's reach,
+   in the global instance too; the
+   plain ``tri_inv_dc`` (n = 10, 100, 105, 250) and
    ``tri_inv_newton`` (n = 10, 100) against float64 within max(3 × the larger
    of solve_triangular's and their own CPU f32 error, 1e-5), an overflow
    where the CPU run overflows, and Newton's f32 overflow on the n = 256
@@ -84,16 +88,21 @@ so any failure exits non-zero):
    gram kernel on and off (median of 3 timed passes of 4 blocks, in turns),
    of the 105 × 250 scale grid at B = 8192 (2 timed blocks of 50), and with
    each A/B route against production (median of 3 passes of 2 blocks, in
-   turns); both tiled kernels at every panel width they are built for, at
-   n = 100 and 200, and (L, L⁻¹) at n = 200 by the direct kernel, the
-   blocked routine and torch.linalg (the line ``MAX_N`` rests on), and the
-   plain inverses; and per kernel shape on the paths the kernel's ms per
-   call with the host (CUDA events around 200 calls), its device ms (the
-   200 calls captured once in a CUDA graph, the replay timed with CUDA
-   events), the plain version's, the library's and the bound, each rbf_gram
-   shape's output within 1e-5 relative of the plain version's.
-11. A ``kernels`` JSON line, then the card's name and power limit, then as the
-   last line {"ok": true, "device": {...}}.
+   turns); the 105 × 250 serving pass with the production Kronecker solve
+   and with the kron_mv_2 route (median of 5, in turns); both tiled
+   Cholesky kernels at every panel width they are built for, at n = 100 and
+   200, and (L, L⁻¹) at n = 200 by the direct kernel, the blocked routine
+   and torch.linalg (the line ``MAX_N`` rests on), and the plain inverses;
+   ``kron_mv.cu`` in both its instances (cluster, global) at (2; 105, 250)
+   and (2; 10, 100); and per kernel shape on the paths the kernel's ms per call
+   with the host (CUDA events around 200 calls), its device ms (the 200
+   calls captured once in a CUDA graph, the replay timed with CUDA events),
+   the plain version's (for kron_mv_2 also its device ms), the library's
+   and the bound, each rbf_gram shape's output within 1e-5 relative of the
+   plain version's.
+11. A ``kernels`` JSON line (the kron_mv_2 rows with the serving path's
+   launches by the instance the library ran), then the card's name and power limit,
+   then as the last line {"ok": true, "device": {...}}.
 
 The script needs one CUDA device, the repository checkout around it, and
 nvcc (``$CUDA_HOME/bin`` or ``PATH``).
@@ -404,16 +413,21 @@ def zero_counts() -> None:
     for fn in counted_wrappers().values():
         fn.launches = 0
         getattr(fn, "launches_by_shape", getattr(fn, "launches_by_n", None)).clear()
+        if hasattr(fn, "launches_by_instance"):
+            fn.launches_by_instance.clear()
 
 
 def read_counts() -> dict:
     """{name: launches, name_by_shape: {shape: launches}} for every wrapper;
-    chol_inv's by-shape key is ``chol_inv_by_n``."""
+    chol_inv's by-shape key is ``chol_inv_by_n``, and kron_mv_2 also has
+    ``kron_mv_2_by_instance`` ({(G, Ma, Mb, transpose, instance): launches})."""
     out = {}
     for name, fn in counted_wrappers().items():
         out[name] = fn.launches
         by = getattr(fn, "launches_by_shape", None)
         out[f"{name}_by_n" if by is None else f"{name}_by_shape"] = dict(by if by is not None else fn.launches_by_n)
+        if hasattr(fn, "launches_by_instance"):
+            out[f"{name}_by_instance"] = dict(fn.launches_by_instance)
     return out
 
 
@@ -837,22 +851,31 @@ def kron_inputs(G, Ma, Mb):
 
 def phase_kron_gate():
     """kron_mv.cu against a float64 oracle and its plain version on the card,
-    both orientations, at the serving path's shapes and a non-square grid."""
+    both orientations: at the serving route's shapes, a non-square grid, the
+    ragged edges (Ma = 1, Mb below a tile), the cluster's reach (Ma = 8 TM)
+    and one row past it, in the plan's instance (the global one past the
+    reach) and, within the reach, in the global instance too."""
     from zigp_tpu_torch.ops.cuda import kron_matvec as km
 
-    for G, Ma, Mb in ((2, 10, 100), (2, 105, 250), (2, 6, 9)):
+    edge = km.MAX_CLUSTER * km.TM
+    for G, Ma, Mb in ((2, 10, 100), (2, 105, 250), (2, 6, 9), (1, 1, 1), (3, 1, 5), (1, 33, 70), (2, edge, 40),
+                      (2, edge + 1, 40)):
         A, B, x = kron_inputs(G, Ma, Mb)
         Ad, Bd, xd = (torch.as_tensor(a, device=DEVICE) for a in (A, B, x))
+        instances = [None] + (["global"] if km.plan(G, Ma, Mb).instance == "cluster" else [])
         for trans, spec in KRON_SPECS.items():
             ref = np.einsum(spec, A.astype(np.float64), B.astype(np.float64),
                             x.astype(np.float64).reshape(G, Ma, Mb)).reshape(G, -1)
             with torch.inference_mode():
-                y = km.kron_mv_2_cuda(Ad, Bd, xd, transpose=trans)
                 yp = km.kron_mv_2_plain(Ad, Bd, xd, transpose=trans)
                 yl = torch.einsum(spec, Ad, Bd, xd.reshape(G, Ma, Mb)).reshape(G, -1)
-            torch.cuda.synchronize()
-            check_kernel(f"kron_mv_2 ({G}; {Ma}, {Mb}) {'transposed' if trans else 'plain'}", y, yp, ref,
-                         rel(yl.cpu().numpy(), ref))
+            for instance in instances:
+                p = km.plan(G, Ma, Mb, instance)
+                with torch.inference_mode():
+                    y = km.launch_kron_mv(Ad, Bd, xd, trans, instance)
+                torch.cuda.synchronize()
+                check_kernel(f"kron_mv_2 ({G}; {Ma}, {Mb}) {'transposed' if trans else 'plain'}, {p.name}, grid "
+                             f"{p.grid}", y, yp, ref, rel(yl.cpu().numpy(), ref))
 
 
 def gate_inverse(name, fn, what, L32) -> None:
@@ -1072,25 +1095,86 @@ def ab_rows(route_counts: dict, serve_counts: dict, card) -> list:
 
     for (G, Ma, Mb, trans), launches in sorted(sum_by_shape(serve_counts.values(), "kron_mv_2_by_shape").items()):
         paths = [name for name, c in serve_counts.items() if (G, Ma, Mb, trans) in c["kron_mv_2_by_shape"]]
+        by_instance = {}  # this shape's launches on its paths, by the instance the library ran
+        for (*shape, instance), k in sum_by_shape(serve_counts.values(), "kron_mv_2_by_instance").items():
+            if tuple(shape) == (G, Ma, Mb, trans):
+                by_instance[instance] = by_instance.get(instance, 0) + k
+        if by_instance != {km.plan(G, Ma, Mb).name: launches}:
+            raise AssertionError(f"kron_mv_2 ({G}; {Ma}, {Mb}): {launches} launches, by instance {by_instance} "
+                                 f"(expected all {km.plan(G, Ma, Mb).name})")
         A, B, x = (torch.as_tensor(a, device=DEVICE) for a in kron_inputs(G, Ma, Mb))
         x = x[..., None]  # (G, N, 1), as the serving path passes q_mu
         spec = KRON_SPECS[trans]
+        plain = lambda: km.kron_mv_2_plain(A, B, x, transpose=trans)
         with torch.inference_mode():
             ms = cuda_ms(lambda: km.kron_mv_2_cuda(A, B, x, transpose=trans), reps=200)
             device_ms = graph_ms(lambda: km.kron_mv_2_cuda(A, B, x, transpose=trans))
-            plain_ms = cuda_ms(lambda: km.kron_mv_2_plain(A, B, x, transpose=trans), reps=200)
+            plain_ms = cuda_ms(plain, reps=200)
+            plain_device_ms = graph_ms(plain)
             lib_ms = cuda_ms(lambda: torch.einsum(spec, A, B, x.reshape(G, Ma, Mb)), reps=200)
-            err = float((km.kron_mv_2_cuda(A, B, x, transpose=trans)
-                         - km.kron_mv_2_plain(A, B, x, transpose=trans)).abs().max())
+            err = float((km.kron_mv_2_cuda(A, B, x, transpose=trans) - plain()).abs().max())
         b_ms, b_by = kron_bound_ms(G, Ma, Mb)
         kname = f"kron_mv_2 ({G}; {Ma}, {Mb}){' transposed' if trans else ''} (serving A/B: {', '.join(paths)})"
-        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.einsum {lib_ms:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; {card}")
+        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, plain device "
+            f"{plain_device_ms:.4f} ms, torch.einsum {lib_ms:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}), launches {launches} {by_instance}, max |kernel - plain| {err:.3e}; {card}")
         rows.append({"name": kname, "route": "cuda", "source": KRON_SOURCE, "replaces": REPLACES["kron_mv_2"],
-                     "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                     "launches": launches, "launches_by_instance": by_instance, "max_abs_err": err, "ms": ms,
+                     "device_ms": device_ms, "plain_ms": plain_ms, "plain_device_ms": plain_device_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
     return rows
+
+
+def time_kron_instances(card) -> None:
+    """kron_mv.cu in both instances the library builds (the 16 × 16 tile,
+    the cluster and the global instance), both orientations, at the serving
+    route's shapes: ms per call with the host and device ms (CUDA graph).
+    Runs after every count has been read; the other tiles are swept by
+    ``experiments/kron_phases.py``."""
+    from zigp_tpu_torch.ops.cuda import kron_matvec as km
+
+    for G, Ma, Mb in ((2, 105, 250), (2, 10, 100)):
+        A, B, x = (torch.as_tensor(a, device=DEVICE) for a in kron_inputs(G, Ma, Mb))
+        out = {}
+        with torch.inference_mode():
+            for instance in ("cluster", "global"):
+                for trans in (False, True):
+                    fn = lambda: km.launch_kron_mv(A, B, x, trans, instance)
+                    name = f"{km.plan(G, Ma, Mb, instance).name}{' T' if trans else ''}"
+                    out[name] = (round(cuda_ms(fn, reps=200), 5), round(graph_ms(fn), 5))
+        log(f"time kron_mv instances ({G}; {Ma}, {Mb}), (ms, device ms): {json.dumps(out)}; {card}")
+
+
+def time_serving_kron_mv(model, X, batch, card) -> dict:
+    """predict_batched points/s on one model with the production Kronecker
+    solve and with the kron_mv_2 route: median of 5 passes each, in turns
+    (production, route, route, production, ...)."""
+    from zigp_tpu_torch.experiments.runners import predict_batched
+    from zigp_tpu_torch.ops import linalg
+
+    solve = linalg.kron_linv_solve
+    routes = {"production": solve, "kron_mv_2": kron_linv_solve_kron_mv}
+    times = {name: [] for name in routes}
+
+    def run(name):
+        linalg.kron_linv_solve = routes[name]
+        try:
+            t0 = time.perf_counter()
+            predict_batched(model.predict, X, batch=batch, device=DEVICE)  # ends in a host copy: synchronised
+            return time.perf_counter() - t0
+        finally:
+            linalg.kron_linv_solve = solve
+
+    for name in routes:
+        run(name)  # warm-up
+    for rep in range(5):
+        for name in (routes if rep % 2 == 0 else list(routes)[::-1]):
+            times[name].append(run(name))
+    pts = {name: X.shape[0] / float(np.median(t)) for name, t in times.items()}
+    log(f"time serving 105x250, predict_batched {X.shape[0]} rows at batch {batch}, the mean's Kronecker solve: "
+        + ", ".join(f"{n} {pts[n]:.1f} points/s {[round(X.shape[0] / t) for t in times[n]]}" for n in routes)
+        + f" (median of 5, in turns; {card})")
+    return pts
 
 
 def time_panel_widths(card) -> None:
@@ -1210,10 +1294,10 @@ def main() -> int:
     model, X, _, ref, _ = runs["flagship"]
     serve_counts = {"flagship": phase_serving_kron_mv("flagship", model, X, 4096, ref)}
     scale_cfg = OnOffPptrConfig(grid=KronGridConfig(num_spatial=105, num_temporal=250))
-    model, X, scale_by_n, ref = phase_serving(ci, "scale 105x250", scale_cfg, split, 4096)
-    serve_counts["scale 105x250"] = phase_serving_kron_mv("scale 105x250", model, X, 4096, ref)
-    scale_sizes = [Z.shape[0] for Z in model.f.Zs]
-    del model, X, ref
+    scale_model, scale_X, scale_by_n, ref = phase_serving(ci, "scale 105x250", scale_cfg, split, 4096)
+    serve_counts["scale 105x250"] = phase_serving_kron_mv("scale 105x250", scale_model, scale_X, 4096, ref)
+    scale_sizes = [Z.shape[0] for Z in scale_model.f.Zs]
+    del ref
 
     train_cfg = dataclasses.replace(OnOffPptrConfig(), num_iter=200, scan_inner=50, sampler="device", log_every=50)
     train_counts = {"flagship train": phase_train("flagship", train_cfg, split, check=True)[1]}
@@ -1223,9 +1307,12 @@ def main() -> int:
     train_counts["champion train"] = phase_train("champion", champ_cfg, split)[1]
 
     pts = {name: time_predict(name, m, X, batch, card) for name, (m, X, _, _, batch) in runs.items()}
+    pts["scale 105x250 by solve route"] = time_serving_kron_mv(scale_model, scale_X, 4096, card)
+    del scale_model, scale_X
     steps_per_s, train_counts["scale train, 2 timed blocks"] = time_training(split, card)
     route_rates = time_train_routes(split, card)
     time_panel_widths(card)
+    time_kron_instances(card)
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}

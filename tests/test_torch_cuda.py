@@ -334,33 +334,73 @@ def _kron_inputs(G, Ma, Mb, seed=0):
     return [rng.randn(*s).astype(np.float32) for s in ((G, Ma, Ma), (G, Mb, Mb), (G, Ma * Mb))]
 
 
-@pytest.mark.parametrize("G,Ma,Mb", [(2, 10, 100), (2, 105, 250), (2, 6, 9), (1, 33, 70), (3, 1, 5)])
+KRON_EDGE = 8 * km.TM  # the cluster's reach: one row more takes the global instance
+
+
+@pytest.mark.parametrize("G,Ma,Mb", [(2, 10, 100), (2, 105, 250), (2, 6, 9), (1, 33, 70), (3, 1, 5), (1, 1, 1),
+                                     (1, KRON_EDGE, 40), (1, KRON_EDGE + 1, 40)])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_kron_mv_kernel_matches_plain(cuda, G, Ma, Mb, transpose):
     A, B, x = (torch.as_tensor(a, device=cuda) for a in _kron_inputs(G, Ma, Mb, seed=Ma + Mb))
     before = km.kron_mv_2_cuda.launches
+    name = "cluster 16x16" if Ma <= KRON_EDGE else "global 16x16"
+    key = (G, Ma, Mb, transpose, name)
+    by_instance = km.kron_mv_2_cuda.launches_by_instance[key]
     y = km.kron_mv_2_cuda(A, B, x, transpose=transpose)
     yp = km.kron_mv_2_plain(A, B, x, transpose=transpose)
     y1 = km.kron_mv_2_cuda(A, B, x[..., None], transpose=transpose)  # (G, N, 1), as q_mu
     torch.cuda.synchronize()
     assert km.kron_mv_2_cuda.launches == before + 2
     assert km.kron_mv_2_cuda.launches_by_shape[(G, Ma, Mb, transpose)] >= 2
+    assert km.kron_mv_2_cuda.launches_by_instance[key] == by_instance + 2
     assert y.shape == x.shape and y1.shape == (G, Ma * Mb, 1)
     assert _rel(y, yp) < 1e-5 and torch.equal(y1[..., 0], y)
 
 
 def test_kron_mv_kernel_unbatched_and_global_scratch(cuda):
-    """The JAX function's unbatched shapes, and factors too tall for the
-    slab of T in shared memory (the global-scratch instance)."""
+    """The JAX function's unbatched shapes, and factors far past the
+    cluster's reach (the global instance, T in scratch)."""
     A, B, x = (torch.as_tensor(a[0], device=cuda) for a in _kron_inputs(1, 6, 9, seed=1))
     y = km.kron_mv_2_cuda(A, B, x)
     want = np.kron(A.double().cpu().numpy(), B.double().cpu().numpy()) @ x.double().cpu().numpy()
     np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5, atol=1e-5)
     assert km.kron_mv_2_cuda(A, B, x[:, None]).shape == (54, 1)
     Ma = 2000
-    assert not km.shared_t(Ma)
     A, B, x = (torch.as_tensor(a, device=cuda) for a in _kron_inputs(1, Ma, 3, seed=2))
+    key = (1, Ma, 3, False, "global 16x16")
+    before = km.kron_mv_2_cuda.launches_by_instance[key]
     assert _rel(km.kron_mv_2_cuda(A, B, x), km.kron_mv_2_plain(A, B, x)) < 1e-5
+    assert km.kron_mv_2_cuda.launches_by_instance[key] == before + 1
+
+
+@pytest.mark.parametrize("instance", ["cluster", "global"])
+@pytest.mark.parametrize("G,Ma,Mb", [(2, 105, 250), (2, 10, 100), (1, 1, 1), (3, 1, 5), (1, 33, 70),
+                                     (1, KRON_EDGE, 40)])
+def test_kron_mv_both_instances_match_plain(cuda, instance, G, Ma, Mb):
+    """Both instances at every shape within the cluster's reach, both
+    orientations, against the plain version, each launch counted under the
+    instance asked for."""
+    A, B, x = (torch.as_tensor(a, device=cuda) for a in _kron_inputs(G, Ma, Mb, seed=Ma))
+    for transpose in (False, True):
+        key = (G, Ma, Mb, transpose, f"{instance} 16x16")
+        before = km.kron_mv_2_cuda.launches_by_instance[key]
+        y = km.launch_kron_mv(A, B, x, transpose, instance)
+        assert km.kron_mv_2_cuda.launches_by_instance[key] == before + 1
+        assert _rel(y, km.kron_mv_2_plain(A, B, x, transpose=transpose)) < 1e-5
+
+
+def test_kron_mv_library_refuses_the_cluster_past_its_reach(cuda):
+    """The library launches the cluster instance only where a cluster of at
+    most 8 CTAs holds the rows: one row past the reach, a null scratch is
+    refused, and the wrapper's plan refuses it first."""
+    Ma, Mb = KRON_EDGE + 1, 40
+    A, B, x = (torch.as_tensor(a, device=cuda) for a in _kron_inputs(1, Ma, Mb))
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = km._lib()(A.data_ptr(), B.data_ptr(), x.data_ptr(), y.data_ptr(), None, Ma, Mb, 1, 0, stream)
+    assert err != 0
+    with pytest.raises(ValueError):
+        km.launch_kron_mv(A, B, x, False, "cluster")
 
 
 def test_kron_mv_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
