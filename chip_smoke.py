@@ -9,16 +9,21 @@ so any failure exits non-zero):
 1. The card's name and power limit, the torch and CUDA versions; build every
    CUDA source under ``zigp_tpu_torch/ops/cuda/csrc`` (one nvcc each, in
    parallel) and report the time.
-2. The ``chol_inv`` kernel against a float64 numpy oracle and against its
-   plain PyTorch version (at the kernel's width) on the card, on RBF grams
-   of time knots at n = 1, 10, 31, 32, 33, 100, 105, 127, 128, 200 and
-   ``MAX_N`` (238) and, through the blocked routine, at ``MAX_N`` + 1, 240,
-   250, 512 (two matrices each), where the wrapper must refuse the kernel.
+2. The ``chol_inv`` kernels against a float64 numpy oracle and against
+   their plain PyTorch version at the kernels' width on the card, on RBF
+   grams of time knots: ``chol_inv.cu`` at n = 1, 10, 31, 32, 33, 100, 105,
+   127, 128, 200 and ``MAX_N`` (238); the thread-block-cluster kernel
+   ``chol_inv_cluster.cu`` (through ``chol_inv_blocked``: its pair instance
+   to n = 320, its row instance above) at ``MAX_N`` + 1, 240, 250, 300, 512
+   and on both sides of the change of instance (two matrices each), where
+   the direct wrapper must refuse.
    The kernel's relative error in L and in L⁻¹ must be at most max(3 × the
    error of torch.linalg.cholesky + solve_triangular on the same input,
    1e-5), and its distance from the plain version at most the same bound
    plus the plain version's own error. A non-PSD input must give NaN from
-   the failing pivot on and leave the rows before it unchanged.
+   the failing pivot on and leave the rows before it unchanged (for the
+   cluster kernel with the failing pivot in the first, a middle and the
+   last CTA's rows of the row instance's plan).
 3. The ``rbf_gram`` kernel against a float64 oracle and against its plain
    version on the card, at the training path's shapes: the pptr time column
    (t in [4.368, 5.447], lengthscale 0.005) and a 2-D station set
@@ -52,8 +57,9 @@ so any failure exits non-zero):
    champion (32 × 200, Kronecker-factored q, whitened) configurations, built
    on the card in float32 with their variational and kernel raws moved off
    the init by seeded noise, predict 65,536 rows through ``predict_batched``.
-   The outputs must be finite with gfvar ≥ 0, the kernel launch count must
-   be what the grid gives for every chunk, and on the first 4096 rows the
+   The outputs must be finite with gfvar ≥ 0, the kernel launch counts must
+   be one launch per factor and chunk (``chol_inv.cu`` to n = 238, the
+   cluster kernel above), and on the first 4096 rows the
    card's error against the same model run on the CPU in float64 must be at
    most max(3 × the CPU float32 run's error, 1e-5).
 6. The serving A/B: predict_batched over 65,536 rows at batch 4096 with the
@@ -70,7 +76,10 @@ so any failure exits non-zero):
    the same model on the CPU in float64, each within max(3 × the CPU float32
    run's error, 1e-5); and 10 steps with both kernels against 10 steps with
    torch.linalg and the plain gram on the same batches, final losses within
-   5e-3 relative.
+   5e-3 relative; the same A/B on the 105 × 250 grid at B = 8192 (the
+   cluster kernel once a step), launches counted exactly, and there 10
+   steps with the row instance forced against 10 with the package's pair
+   instance (5e-3).
 8. The training A/B: ``chol_inv_stacked`` on the flagship's factor pair
    equal to per-factor ``chol_inv`` (1e-6) and both plain inverses on those
    factors (the rule of phase 4); then 10 steps from the same model on the
@@ -127,6 +136,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
 DEVICE = "cuda"
+AB_STEPS = 10  # steps of each training A/B
 ROWS = 65_536
 CHECK_ROWS = 4096
 T_SPAN = (4.368, 5.447)  # the pptr time column, hours ÷ 1000
@@ -238,22 +248,41 @@ def non_psd(n: int, p: int) -> np.ndarray:
 NON_PSD = ((12, 7), (40, 37))  # (n, failing pivot): in the first or second block, and in a later one
 
 
+def cluster_gate_sizes(ci) -> list[int]:
+    """The n chol_inv_blocked is gated at: MAX_N + 1, 240, 250, 300, 512,
+    and both sides of each n where its route or ``plan``'s cluster size
+    changes."""
+    key = lambda n: ci.blocked_route(n)
+    edges = [n for a in range(ci.MAX_N + 1, ci.BLOCKED_MAX_N) if key(a) != key(a + 1) for n in (a, a + 1)]
+    return sorted({ci.MAX_N + 1, 240, 250, 300, ci.BLOCKED_MAX_N, *edges})
+
+
+NON_PSD_CLUSTER = (250, 400, 512)  # one n per cluster size: 2, 4, 8
+
+
+def route_name(ci, n) -> str:
+    """chol_inv_blocked's route at n, as the logs name it."""
+    return "pair" if ci.blocked_route(n) == "pair" else f"rows C={ci.plan(n).C}"
+
+
 def phase_kernel_gate(ci):
-    """Kernel (direct to MAX_N, the blocked routine above) vs the float64
-    oracle, vs torch.linalg, and vs the plain version, all on the card; the
-    wrapper refuses MAX_N + 1; NaN on non-PSD input."""
+    """Both chol_inv kernels (chol_inv.cu to MAX_N, the cluster kernel
+    above) vs the float64 oracle, vs torch.linalg, and vs the plain version
+    at their width, all on the card; the direct wrapper refuses MAX_N + 1;
+    NaN on non-PSD input."""
     max_n = ci.kernel_max_n()
-    log(f"gate chol_inv: the kernel takes n <= {max_n} on this device, the package routes n <= {ci.MAX_N} to it "
-        f"at {ci.NB} columns a step, the blocked routine above")
+    log(f"gate chol_inv: chol_inv.cu takes n <= {max_n} on this device, the package routes n <= {ci.MAX_N} to it "
+        f"at {ci.NB} columns a step, chol_inv_blocked above (routes "
+        f"{ {n: route_name(ci, n) for n in cluster_gate_sizes(ci)} })")
     if ci.MAX_N > max_n:
         raise AssertionError(f"chol_inv: MAX_N {ci.MAX_N} above the device's {max_n}")
-    for n in (1, 10, 31, 32, 33, 100, 105, 127, 128, 200, ci.MAX_N, ci.MAX_N + 1, 240, 250, 512):
+    for n in (1, 10, 31, 32, 33, 100, 105, 127, 128, 200, ci.MAX_N, *cluster_gate_sizes(ci)):
         K32 = spd_grams(n)
         Kd = torch.as_tensor(K32, device=DEVICE)
         direct = n <= ci.MAX_N
         with torch.inference_mode():
             L, Linv = ci.chol_inv_cuda(Kd) if direct else ci.chol_inv_blocked(Kd)
-            Lp, Linvp = ci.chol_inv_plain(Kd, ci.NB if direct else 1)
+            Lp, Linvp = ci.chol_inv_plain(Kd, ci.NB)
             Ll, Linvl = library_chol_inv(Kd)
         torch.cuda.synchronize()
         if not direct:
@@ -278,10 +307,11 @@ def phase_kernel_gate(ci):
             # kernel and plain version each stay within their own error of
             # the oracle, so their distance is held to the sum of the bounds
             tol_plain = tol + plain_err
-            log(f"gate chol_inv{'' if direct else '_blocked'} n={n:3d} {part:4s}: kernel {err:.3e}  library "
+            what = "chol_inv" if direct else f"chol_inv_blocked {route_name(ci, n)}"
+            log(f"gate {what} n={n:3d} {part:4s}: kernel {err:.3e}  library "
                 f"{lib:.3e}  plain {plain_err:.3e}  kernel-vs-plain {dist:.3e}  (tol {tol:.3e}, {tol_plain:.3e})")
             if not (err <= tol and dist <= tol_plain):
-                raise AssertionError(f"chol_inv n={n} {part}: kernel {err:.3e} (tol {tol:.3e}), "
+                raise AssertionError(f"{what} n={n} {part}: kernel {err:.3e} (tol {tol:.3e}), "
                                      f"vs plain {dist:.3e} (tol {tol_plain:.3e})")
 
     for n, p in NON_PSD:
@@ -290,6 +320,18 @@ def phase_kernel_gate(ci):
         nan_check(f"chol_inv kernel n={n}", L, Linv, p)
     log(f"gate chol_inv non-PSD input (n, K[p,p] = -1) {NON_PSD}: NaN from the failing pivot on, rows before it "
         f"unchanged")
+    pivots = []
+    for n in NON_PSD_CLUSTER:
+        plan = ci.plan(n)
+        for rank in (0, plan.C // 2, plan.C - 1):  # the first, a middle and the last CTA
+            rows = plan.rows(rank)
+            p = rows[len(rows) // 2]
+            with torch.inference_mode():
+                L, Linv = ci.chol_inv_blocked(torch.as_tensor(non_psd(n, p), device=DEVICE))
+            nan_check(f"chol_inv_blocked n={n} {route_name(ci, n)}, pivot {p} in rank {rank} of C={plan.C}", L, Linv, p)
+            pivots.append((n, plan.C, rank, p))
+    log(f"gate chol_inv_blocked non-PSD input (n, C, rank, p) {pivots}, routes "
+        f"{ {n: route_name(ci, n) for n in NON_PSD_CLUSTER} }: NaN from the failing pivot on, rows before it unchanged")
 
 
 def perturbed(model, seed: int):
@@ -324,17 +366,20 @@ def phase_serving(ci, name, cfg, split, batch):
     X = np.asarray(split.Xtrain[:ROWS])
     chunks = math.ceil(X.shape[0] / batch)
     sizes = [Z.shape[0] for Z in model.f.Zs]
-    per_chunk = sum(1 if n <= ci.MAX_N else len(ci.block_offsets(n)) - 1 for n in sizes)
+    per_chunk = {"chol_inv": sum(n <= ci.MAX_N for n in sizes),
+                 "chol_inv_blocked": sum(n > ci.MAX_N for n in sizes)}
 
-    ci.chol_inv_cuda.launches = 0
-    ci.chol_inv_cuda.launches_by_n.clear()
+    zero_counts()
     out = predict_batched(model.predict, X, batch=batch, device=DEVICE)
-    launches = ci.chol_inv_cuda.launches
-    by_n = dict(ci.chol_inv_cuda.launches_by_n)
-    log(f"{name}: {X.shape[0]} rows in {chunks} chunks of {batch}: chol_inv launches {launches} "
-        f"(expected {chunks} x {per_chunk}), by n {by_n}")
-    if launches != chunks * per_chunk or launches == 0:
-        raise AssertionError(f"{name}: {launches} chol_inv launches, expected {chunks * per_chunk}")
+    counts = read_counts()
+    by_n = {**counts["chol_inv_by_n"], **counts["chol_inv_blocked_by_n"]}
+    log(f"{name}: {X.shape[0]} rows in {chunks} chunks of {batch}: chol_inv.cu launches {counts['chol_inv']}, "
+        f"chol_inv_cluster.cu launches {counts['chol_inv_blocked']} (expected {chunks} x {per_chunk}), by n {by_n}")
+    for key, k in per_chunk.items():
+        if counts[key] != chunks * k:
+            raise AssertionError(f"{name}: {counts[key]} {key} launches, expected {chunks * k}")
+    if sum(counts[key] for key in per_chunk) == 0:
+        raise AssertionError(f"{name}: no chol_inv kernel launched")
     for k, v in out.items():
         if v.shape[0] != X.shape[0] or not np.isfinite(v).all():
             raise AssertionError(f"{name}: {k} has shape {v.shape} or non-finite values")
@@ -375,12 +420,11 @@ def time_predict(name, model, X, batch, card):
 def time_chol_inv(ci, n, G=2):
     """ms per call of the kernel path (host included), its device ms (CUDA
     graph), the plain version's and torch.linalg's ms at one shape, and the
-    kernel's largest difference from the plain version (at the kernel's
-    width for the direct kernel)."""
+    kernel's largest difference from the plain version at the kernel's
+    width (chol_inv.cu, n <= MAX_N)."""
     K = torch.as_tensor(spd_grams(n)[:G], device=DEVICE)
-    direct = n <= ci.MAX_N
-    kern = ci.chol_inv_cuda if direct else ci.chol_inv_blocked
-    plain = lambda: ci.chol_inv_plain(K, ci.NB if direct else 1)
+    kern = ci.chol_inv_cuda
+    plain = lambda: ci.chol_inv_plain(K, ci.NB)
     with torch.inference_mode():
         ms = cuda_ms(lambda: kern(K), reps=200)
         device_ms = graph_ms(lambda: kern(K))
@@ -389,6 +433,10 @@ def time_chol_inv(ci, n, G=2):
         (L, Li), (Lp, Lip) = kern(K), plain()
         err = max(float((L - Lp).abs().max()), float((Li - Lip).abs().max()))
     return ms, device_ms, plain_ms, lib_ms, err
+
+
+CLUSTER_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/chol_inv_cluster.cu"
+CLUSTER_REPLACES = "zigp_tpu/ops/pallas/chol_inv.py:387"
 
 
 # --- the rbf_gram kernel and the training path ---------------------------------
@@ -404,7 +452,8 @@ def counted_wrappers() -> dict:
     from zigp_tpu_torch.ops.cuda import kron_matvec as km
     from zigp_tpu_torch.ops.cuda import rbf_gram as rg
 
-    return {"rbf_gram": rg.rbf_gram_cuda, "chol_inv": ci.chol_inv_cuda, "chol": ci.chol_cuda,
+    return {"rbf_gram": rg.rbf_gram_cuda, "chol_inv": ci.chol_inv_cuda, "chol_inv_blocked": ci.chol_inv_blocked,
+            "chol": ci.chol_cuda,
             "small_cholesky": sc.small_cholesky_cuda, "batched_small_cholesky": sc.batched_small_cholesky_cuda,
             "kron_mv_2": km.kron_mv_2_cuda}
 
@@ -419,7 +468,8 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     """{name: launches, name_by_shape: {shape: launches}} for every wrapper;
-    chol_inv's by-shape key is ``chol_inv_by_n``, and kron_mv_2 also has
+    the chol_inv wrappers' by-shape keys are ``chol_inv_by_n`` and
+    ``chol_inv_blocked_by_n`` (the cluster kernel), and kron_mv_2 also has
     ``kron_mv_2_by_instance`` ({(G, Ma, Mb, transpose, instance): launches})."""
     out = {}
     for name, fn in counted_wrappers().items():
@@ -431,15 +481,25 @@ def read_counts() -> dict:
     return out
 
 
-def per_step_launches(model) -> tuple[int, int]:
-    """(rbf_gram, chol_inv) kernel launches of one training step of the
-    stacked f/g pair: K_mm and K_mn per factor; one chol_inv per factor, or
-    one per diagonal block of the blocked routine."""
+def per_step_launches(model) -> tuple[int, int, int]:
+    """(rbf_gram, chol_inv.cu, chol_inv_cluster.cu) launches of one training
+    step of the stacked f/g pair: K_mm and K_mn per factor; one chol_inv
+    launch per factor, chol_inv.cu to MAX_N and the cluster kernel above."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
 
     sizes = [Z.shape[0] for Z in model.f.Zs]
-    chol = sum(1 if n <= ci.MAX_N else len(ci.block_offsets(n)) - 1 for n in sizes)
-    return 2 * len(sizes), chol
+    return 2 * len(sizes), sum(n <= ci.MAX_N for n in sizes), sum(n > ci.MAX_N for n in sizes)
+
+
+LAUNCH_KEYS = ("rbf_gram", "chol_inv", "chol_inv_blocked")  # per_step_launches' order
+
+
+def check_launches(name, counts, steps, per_step) -> None:
+    """Exactly ``steps`` × ``per_step`` launches of each kernel of the step."""
+    got = tuple(counts[k] for k in LAUNCH_KEYS)
+    want = tuple(steps * k for k in per_step)
+    if got != want:
+        raise AssertionError(f"{name}: launches {dict(zip(LAUNCH_KEYS, got))}, expected {dict(zip(LAUNCH_KEYS, want))}")
 
 
 def gram_cases():
@@ -546,14 +606,12 @@ def phase_train(name, cfg, split, *, check=False):
     steps = res.step_losses.numel()
     blocks = res.step_losses.double().reshape(-1, cfg.scan_inner).mean(1).tolist()
     log(f"{name} train: {steps} steps at B={cfg.batch_size} in {wall:.1f} s (build of the kernels excluded); "
-        f"block mean losses {[f'{b:.6g}' for b in blocks]}; launches rbf_gram {counts['rbf_gram']} "
-        f"(expected {steps} x {per_step[0]}), chol_inv {counts['chol_inv']} (expected {steps} x {per_step[1]}); "
-        f"by shape {counts['rbf_gram_by_shape']}, by n {counts['chol_inv_by_n']}")
+        f"block mean losses {[f'{b:.6g}' for b in blocks]}; launches rbf_gram {counts['rbf_gram']}, chol_inv.cu "
+        f"{counts['chol_inv']}, chol_inv_cluster.cu {counts['chol_inv_blocked']} (expected {steps} x {per_step}); "
+        f"by shape {counts['rbf_gram_by_shape']}, by n {counts['chol_inv_by_n']} {counts['chol_inv_blocked_by_n']}")
     if not torch.isfinite(res.step_losses).all():
         raise AssertionError(f"{name}: non-finite training loss")
-    if (counts["rbf_gram"], counts["chol_inv"]) != (steps * per_step[0], steps * per_step[1]):
-        raise AssertionError(f"{name}: launches {counts['rbf_gram']}, {counts['chol_inv']}, expected "
-                             f"{steps * per_step[0]}, {steps * per_step[1]}")
+    check_launches(name, counts, steps, per_step)
     if check:
         if not blocks[-1] < blocks[0]:
             raise AssertionError(f"{name}: the last block's mean loss {blocks[-1]} is not below the first's {blocks[0]}")
@@ -567,16 +625,18 @@ def set_gram_kernel(model, on: bool) -> None:
             k.use_kernel = on
 
 
-def phase_ab(cfg, split):
+def phase_ab(cfg, split, name="flagship"):
     """10 steps with both kernels against 10 steps with torch.linalg's
     Cholesky and triangular solve and the plain gram (the JAX selfcheck's
-    Pallas-vs-XLA A/B), from the same model on the same batches."""
+    Pallas-vs-XLA A/B), from the same model on the same batches; the
+    kernels' launches counted exactly, the library run's none."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
     from zigp_tpu_torch.ops import linalg
     from zigp_tpu_torch.training import DataSet, make_optimizer, make_scan_train_step, stage_batches
 
     base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
-    Xs, Ys = stage_batches(DataSet(split.Xtrain, split.Ytrain, seed=3), cfg.batch_size, 10,
+    per_step = per_step_launches(base)
+    Xs, Ys = stage_batches(DataSet(split.Xtrain, split.Ytrain, seed=3), cfg.batch_size, AB_STEPS,
                            device=DEVICE, dtype=torch.float32)
     out = {}
     route = linalg.chol_inv_route
@@ -592,16 +652,104 @@ def phase_ab(cfg, split):
         finally:
             linalg.chol_inv_route = route
         out[kernels] = losses
-        log(f"A/B {'kernels' if kernels else 'library'}: losses {losses[0]:.6f} .. {losses[-1]:.6f}, "
-            f"launches rbf_gram {counts['rbf_gram']}, chol_inv {counts['chol_inv']}")
-        if (counts["rbf_gram"] > 0) != kernels or (counts["chol_inv"] > 0) != kernels:
-            raise AssertionError(f"A/B: the {'kernel' if kernels else 'library'} run launched {counts}")
+        log(f"A/B {name} {'kernels' if kernels else 'library'}: losses {losses[0]:.6f} .. {losses[-1]:.6f}, "
+            f"launches rbf_gram {counts['rbf_gram']}, chol_inv.cu {counts['chol_inv']}, chol_inv_cluster.cu "
+            f"{counts['chol_inv_blocked']}")
+        check_launches(f"A/B {name} {'kernels' if kernels else 'library'}", counts, AB_STEPS if kernels else 0,
+                       per_step)
     if not (np.isfinite(out[True]).all() and np.isfinite(out[False]).all()):
-        raise AssertionError("A/B: non-finite losses")
+        raise AssertionError(f"A/B {name}: non-finite losses")
     err = abs(out[True][-1] - out[False][-1]) / abs(out[False][-1])
-    log(f"A/B: final loss kernels {out[True][-1]:.6f} vs library {out[False][-1]:.6f}: relative {err:.3e} (tol 5e-3)")
+    log(f"A/B {name}: final loss kernels {out[True][-1]:.6f} vs library {out[False][-1]:.6f}: relative {err:.3e} "
+        f"(tol 5e-3)")
     if not err <= 5e-3:
-        raise AssertionError(f"A/B: final losses differ by {err:.3e}")
+        raise AssertionError(f"A/B {name}: final losses differ by {err:.3e}")
+
+
+def scale_train_cfg():
+    """The 105 × 250 grid (the JAX bench's scale probe) at B = 8192."""
+    from zigp_tpu_torch.experiments.configs import KronGridConfig, OnOffPptrConfig
+
+    return OnOffPptrConfig(grid=KronGridConfig(num_spatial=105, num_temporal=250), batch_size=8192)
+
+
+def phase_ab_cluster(split):
+    """Where the package runs the scale grid's n = 250 by the cluster
+    kernel's pair instance, 10 steps of the 105 × 250 grid at B = 8192 with
+    chol_inv_blocked forced to the row instance, against 10 with the
+    package's, from the same model on the same batches: final losses within
+    5e-3 relative, each run's launches exact. Returns the row instance's
+    launches by n, or {} where the package already runs it."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+    from zigp_tpu_torch.training import DataSet, make_optimizer, make_scan_train_step, stage_batches
+
+    cfg = scale_train_cfg()
+    base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
+    sizes = [n for n in (Z.shape[0] for Z in base.f.Zs) if n > ci.MAX_N]
+    if all(ci.blocked_route(n) == "cluster" for n in sizes):
+        return {}
+    Xs, Ys = stage_batches(DataSet(split.Xtrain, split.Ytrain, seed=3), cfg.batch_size, AB_STEPS,
+                           device=DEVICE, dtype=torch.float32)
+    route = ci.blocked_route
+    out, counts = {}, {}
+    for name in ("package", "rows"):
+        m = copy.deepcopy(base)
+        if name == "rows":
+            ci.blocked_route = lambda n: "cluster"
+        try:
+            zero_counts()
+            losses = make_scan_train_step(make_optimizer(m, default_lr=cfg.indp_lr))(m, Xs, Ys).cpu().numpy()
+            counts[name] = read_counts()
+            want = AB_STEPS * len(sizes)
+        finally:
+            ci.blocked_route = route
+        got = counts[name]["chol_inv_blocked"]
+        log(f"A/B scale 105x250 chol_inv_blocked {name}: losses {losses[0]:.6f} .. {losses[-1]:.6f}, launches "
+            f"{got} (expected {want}), by n {counts[name]['chol_inv_blocked_by_n']}")
+        if got != want or not np.isfinite(losses).all():
+            raise AssertionError(f"A/B chol_inv_blocked {name}: launches {got} (expected {want}) or non-finite losses")
+        out[name] = losses
+    err = abs(out["rows"][-1] - out["package"][-1]) / abs(out["package"][-1])
+    log(f"A/B scale 105x250 chol_inv_blocked: final loss row instance {out['rows'][-1]:.6f} vs package "
+        f"{out['package'][-1]:.6f}: relative {err:.3e} (tol 5e-3)")
+    if not err <= 5e-3:
+        raise AssertionError(f"A/B chol_inv_blocked instances: final losses differ by {err:.3e}")
+    return counts["rows"]["chol_inv_blocked_by_n"]
+
+
+def blocked_rows(ci, blocked: dict, rows_ab: dict, card) -> list:
+    """The kernels-line rows of the cluster kernel at each n > MAX_N: by the
+    package's instance on the main path (``blocked``: its launches in scale
+    serving and training), and by the row instance from the scale A/B
+    (``rows_ab``) where the package runs the pair instance. Each: ms per
+    call with the host, device ms (CUDA graph), the plain version's ms
+    (chol_inv_plain at the kernel's width), torch.linalg's, the bound and the
+    largest difference from the plain version."""
+    entries = [(n, ci.blocked_route(n), k, "scale 105x250 serving and training") for n, k in blocked.items()]
+    entries += [(n, "cluster", k, "scale 105x250 training A/B, the row instance forced") for n, k in rows_ab.items()]
+    rows = []
+    for n, instance, launches, path in sorted(entries):
+        K = torch.as_tensor(spd_grams(n), device=DEVICE)
+        kern = (lambda: ci.launch_chol_inv_pair(K)) if instance == "pair" else (lambda: ci.launch_chol_inv_cluster(K))
+        plain = lambda: ci.chol_inv_plain(K, ci.NB)
+        with torch.inference_mode():
+            ms, device_ms = cuda_ms(kern, reps=200), graph_ms(kern)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            lib_ms = cuda_ms(lambda: library_chol_inv(K), reps=200)
+            err = max(float((a - b).abs().max()) for a, b in zip(kern(), plain()))
+        b_ms, b_by = bound_ms(n, 2)
+        label = "pair" if instance == "pair" else f"rows C={ci.plan(n).C}"
+        kname = f"chol_inv_cluster {label} n={n} G=2 ({path})"
+        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg "
+            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; "
+            f"{card}")
+        if launches == 0:
+            raise AssertionError(f"{kname}: not launched on its path")
+        rows.append({"name": kname, "route": "cuda", "source": CLUSTER_SOURCE, "replaces": CLUSTER_REPLACES,
+                     "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return rows
 
 
 def device_step(model, split, batch):
@@ -627,7 +775,7 @@ def time_training(split, card):
     of 4 blocks, in turns), and the 105 × 250 scale grid at B = 8192 (2
     blocks, launch counts read around them)."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
-    from zigp_tpu_torch.experiments.configs import KronGridConfig, OnOffPptrConfig
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
 
     cfg = OnOffPptrConfig()
     runs = {}
@@ -645,7 +793,7 @@ def time_training(split, card):
         f"{rate[True]:.1f} steps/s {[round(r, 1) for r in runs[True][2]]}, off {rate[False]:.1f} steps/s "
         f"{[round(r, 1) for r in runs[False][2]]} (median of 3 passes of 200 steps; {card})")
 
-    scfg = OnOffPptrConfig(grid=KronGridConfig(num_spatial=105, num_temporal=250), batch_size=8192)
+    scfg = scale_train_cfg()
     m = build_onoff_pptr(scfg, split, device=DEVICE, use_kernel=True)
     step = device_step(m, split, scfg.batch_size)
     timed_blocks(step, m, 0, 1)  # warm-up
@@ -653,7 +801,9 @@ def time_training(split, card):
     scale_rate = timed_blocks(step, m, 1, 2)
     counts = read_counts()
     log(f"time scale training 105x250, B=8192, gram kernel on: {scale_rate:.1f} steps/s (2 blocks of 50); "
-        f"launches rbf_gram {counts['rbf_gram']}, chol_inv {counts['chol_inv']}; {card}")
+        f"launches rbf_gram {counts['rbf_gram']}, chol_inv.cu {counts['chol_inv']}, chol_inv_cluster.cu "
+        f"{counts['chol_inv_blocked']} (expected 100 x {per_step_launches(m)}); {card}")
+    check_launches("scale training", counts, 100, per_step_launches(m))
     return {"flagship_kernel_on": rate[True], "flagship_kernel_off": rate[False], "scale_105x250_b8192": scale_rate}, counts
 
 
@@ -720,7 +870,6 @@ REPLACES = {
     "kron_mv_2": "zigp_tpu/ops/pallas/kron_matvec.py:32",
 }
 AB_RANK = 4  # chol_pallas's default columns per step
-AB_STEPS = 10
 
 
 def route_chol_dc(K):
@@ -1181,8 +1330,9 @@ def time_panel_widths(card) -> None:
     """Both tiled kernels at every panel width they are built for, on the
     pair at n = 100 and 200 (chol.cu also on one matrix at n = 100): ms per
     call with the host, and device ms (CUDA graph); then the line MAX_N rests
-    on, (L, L⁻¹) at n = 200 by the direct kernel, by chol_inv_blocked and by
-    torch.linalg; then the plain inverses at n = 100."""
+    on, (L, L⁻¹) at n = 200 by the direct kernel, by the cluster kernel's
+    pair instance, by the torch blocked routine and by torch.linalg; then the
+    plain inverses at n = 100."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
     from zigp_tpu_torch.ops.cuda import cholesky as sc
 
@@ -1201,9 +1351,11 @@ def time_panel_widths(card) -> None:
     K = torch.as_tensor(spd_grams(200), device=DEVICE)
     with torch.inference_mode():
         direct = lambda: ci.launch_chol_inv(K, "sweep")
+        pair = lambda: ci.launch_chol_inv_pair(K)
+        routine = lambda: ci.chol_inv_blocked_plain(K)
         line = {"direct chol_inv.cu": (cuda_ms(direct, reps=200), graph_ms(direct)),
-                "chol_inv_blocked": (cuda_ms(lambda: ci.chol_inv_blocked(K), reps=200),
-                                     graph_ms(lambda: ci.chol_inv_blocked(K))),
+                "cluster kernel, pair": (cuda_ms(pair, reps=200), graph_ms(pair)),
+                "torch blocked routine": (cuda_ms(routine, reps=200), graph_ms(routine)),
                 "torch.linalg": (cuda_ms(lambda: library_chol_inv(K), reps=200), None)}
     log(f"time (L, L⁻¹) (2,200,200), (ms, device ms): {json.dumps(line)}; MAX_N {ci.MAX_N}; {card}")
 
@@ -1212,6 +1364,47 @@ def time_panel_widths(card) -> None:
         L = sc.launch_chol(K, "sweep")
         inv = {f.__name__: cuda_ms(lambda: f(L), reps=50) for f in (ci.tri_inv_dc, ci.tri_inv_newton)}
     log(f"time plain inverses (2,100,100): {json.dumps({k: round(v, 5) for k, v in inv.items()})} ms; {card}")
+
+
+def time_blocked_routes(card) -> dict:
+    """The cluster kernel at (2, 250, 250) and (2, 512, 512): its pair
+    instance where it reaches and its row instance at every cluster size
+    that fits, beside the torch blocked routine they replaced (which
+    launches chol_inv.cu on its diagonal blocks) and torch.linalg: ms per
+    call with the host (CUDA events around 200 calls) and device ms (CUDA
+    graph), in turns (routine, instances, instances reversed, routine).
+    Every instance's output must be the same bits as the package's: each
+    entry takes the same operations whichever CTA computes it. Runs after
+    every count has been read; returns the line."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+
+    out = {}
+    for n in (250, 512):
+        K = torch.as_tensor(spd_grams(n), device=DEVICE)
+        sizes = [C for C in ci.CLUSTER_SIZES if ci._cluster_bytes(n, C)[1] <= ci.SMEM_BYTES]
+        calls = {f"rows C={C}": (lambda C=C: ci.launch_chol_inv_cluster(K, C)) for C in sizes}
+        if ci.blocked_route(n) == "pair":
+            calls["pair"] = lambda: ci.launch_chol_inv_pair(K)
+        calls["torch routine"] = lambda: ci.chol_inv_blocked_plain(K)
+        times = {name: [] for name in calls}
+        order = ["torch routine", *(name for name in calls if name != "torch routine")]
+        with torch.inference_mode():
+            for names in (order, order[::-1]):
+                for name in names:
+                    times[name].append((cuda_ms(calls[name], reps=200), graph_ms(calls[name])))
+            lib_ms = cuda_ms(lambda: library_chol_inv(K), reps=200)
+            ref = ci.chol_inv_blocked(K)
+            for name in order[1:]:
+                L, Linv = calls[name]()
+                if not (torch.equal(L, ref[0]) and torch.equal(Linv, ref[1])):
+                    raise AssertionError(f"chol_inv_blocked n={n}: {name} differs from the package's instance")
+        row = {name: [round(min(m for m, _ in t), 5), round(min(d for _, d in t), 5)] for name, t in times.items()}
+        row["torch.linalg"] = [round(lib_ms, 5), None]
+        row["package"] = route_name(ci, n)
+        out[f"(2,{n},{n})"] = row
+    log(f"time chol_inv_blocked instances, (ms, device ms), best of 2 in turns, every instance the same bits: "
+        f"{json.dumps(out)}; {card}")
+    return out
 
 
 def time_train_routes(split, card) -> dict:
@@ -1302,6 +1495,8 @@ def main() -> int:
     train_cfg = dataclasses.replace(OnOffPptrConfig(), num_iter=200, scan_inner=50, sampler="device", log_every=50)
     train_counts = {"flagship train": phase_train("flagship", train_cfg, split, check=True)[1]}
     phase_ab(train_cfg, split)
+    phase_ab(scale_train_cfg(), split, "scale 105x250 B=8192")
+    cluster_ab_counts = phase_ab_cluster(split)
     route_counts = phase_train_routes(train_cfg, split)
     champ_cfg = dataclasses.replace(best_onoff_config(), num_iter=50, scan_inner=50, log_every=50)
     train_counts["champion train"] = phase_train("champion", champ_cfg, split)[1]
@@ -1312,23 +1507,19 @@ def main() -> int:
     steps_per_s, train_counts["scale train, 2 timed blocks"] = time_training(split, card)
     route_rates = time_train_routes(split, card)
     time_panel_widths(card)
+    time_blocked_routes(card)
     time_kron_instances(card)
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
     serving["scale 105x250"] = (scale_sizes, scale_by_n)
+    scale_train = train_counts["scale train, 2 timed blocks"]["chol_inv_blocked_by_n"]
     for name, (sizes, by_n) in serving.items():
         for n in sizes:
-            if n <= ci.MAX_N:
-                launches = by_n.get(n, 0)
-                kname = f"chol_inv n={n} G=2 ({name})"
-                replaces, source = "zigp_tpu/ops/pallas/chol_inv.py:339", "zigp_tpu_torch/ops/cuda/csrc/chol_inv.cu"
-            else:  # the blocked routine: its kernel launches are its diagonal blocks'
-                offs = ci.block_offsets(n)
-                blocks = [b - a for a, b in zip(offs[:-1], offs[1:])]
-                launches = sum(by_n.get(b, 0) for b in set(blocks))
-                kname = f"chol_inv_blocked n={n} G=2, blocks {blocks} ({name})"
-                replaces, source = "zigp_tpu/ops/pallas/chol_inv.py:387", "zigp_tpu_torch/ops/cuda/chol_inv.py"
+            if n > ci.MAX_N:  # chol_inv_blocked's route: its rows below
+                continue
+            launches = by_n.get(n, 0)
+            kname = f"chol_inv n={n} G=2 ({name})"
             if launches == 0:
                 raise AssertionError(f"{kname}: not launched on the main path")
             ms, device_ms, plain_ms, lib_ms, err = time_chol_inv(ci, n)
@@ -1337,10 +1528,13 @@ def main() -> int:
                 f"torch.linalg {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, "
                 f"max |kernel - plain| {err:.3e}; {card}")
             kernels.append({
-                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "name": kname, "route": "cuda", "source": "zigp_tpu_torch/ops/cuda/csrc/chol_inv.cu",
+                "replaces": "zigp_tpu/ops/pallas/chol_inv.py:339", "launches": launches, "max_abs_err": err, "ms": ms,
+                "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
+    blocked = {n: by_n.get(n, 0) + scale_train.get(n, 0) for sizes, by_n in serving.values() for n in sizes
+               if n > ci.MAX_N}
+    kernels += blocked_rows(ci, blocked, cluster_ab_counts, card)
 
     kernels += gram_rows(rg, train_counts, card)
     kernels += ab_rows(route_counts, serve_counts, card)

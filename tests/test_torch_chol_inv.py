@@ -91,8 +91,8 @@ def test_nan_on_non_psd():
         (129, torch.float32, "cuda", "kernel"),  # past the JAX kernel's 128: the whole matrix fits the card's
         (200, torch.float32, "cuda", "kernel"),  # the champion's temporal factor, in one launch
         (238, torch.float32, "cuda", "kernel"),  # MAX_N
-        (239, torch.float32, "cuda", "blocked"),
-        (512, torch.float32, "cuda", "blocked"),
+        (239, torch.float32, "cuda", "cluster"),  # past MAX_N: one thread-block cluster a matrix
+        (512, torch.float32, "cuda", "cluster"),
         (513, torch.float32, "cuda", "library"),
         (100, torch.float64, "cuda", "library"),
         (100, torch.float32, "cpu", "library"),

@@ -13,6 +13,8 @@ matrices and O(1) grams the relative Frobenius distance is held to 1e-5,
 about 100 float32 ulps.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -58,12 +60,89 @@ def test_kernel_matches_plain(cuda, n):
 
 @pytest.mark.parametrize("n", [239, 250])
 def test_blocked_on_card_matches_plain(cuda, n):
-    assert linalg.chol_inv_route(n, torch.float32, "cuda") == "blocked"
+    assert linalg.chol_inv_route(n, torch.float32, "cuda") == "cluster"
     K = torch.as_tensor(_spd(n, seed=n), device=cuda)
     with torch.inference_mode():
         L, Linv = linalg.chol_inv(K)
-        Lp, Linvp = ci.chol_inv_plain(K)
+        Lp, Linvp = ci.chol_inv_plain(K, ci.NB)
     assert _rel(L, Lp) < 1e-5 and _rel(Linv, Linvp) < 1e-5
+
+
+@pytest.mark.parametrize("n", [239, 250, 300, 324, 450, 512])
+def test_cluster_kernel_matches_plain(cuda, n):
+    """chol_inv_blocked makes one launch a call (the pair instance to
+    n = 320, the row instance above) and none of chol_inv.cu; the row
+    instance launched directly matches too; the plain version at the
+    kernel's width takes its operations in its order."""
+    K = torch.as_tensor(_spd(n, seed=n), device=cuda)
+    before = (ci.chol_inv_blocked.launches, ci.chol_inv_cuda.launches)
+    with torch.inference_mode():
+        L, Linv = ci.chol_inv_blocked(K)
+        torch.cuda.synchronize()
+        assert (ci.chol_inv_blocked.launches, ci.chol_inv_cuda.launches) == (before[0] + 1, before[1])
+        Lc, Linvc = ci.launch_chol_inv_cluster(K)
+        Lp, Linvp = ci.chol_inv_plain(K, ci.NB)
+    for a, b in ((L, Lp), (Linv, Linvp), (Lc, Lp), (Linvc, Linvp)):
+        assert _rel(a, b) < 1e-5 and torch.all(torch.triu(a, 1) == 0)
+
+
+def test_cluster_kernel_same_bits_at_every_cluster_size(cuda):
+    """Each entry takes the same operations whichever CTA or instance
+    computes it: the same bits at C = 2, 4, 8, by the pair instance, and
+    those of chol_inv.cu where it runs."""
+    K = torch.as_tensor(_spd(250, seed=3), device=cuda)
+    with torch.inference_mode():
+        outs = [ci.launch_chol_inv_cluster(K, C) for C in ci.CLUSTER_SIZES] + [ci.launch_chol_inv_pair(K)]
+        K200 = torch.as_tensor(_spd(200, seed=4), device=cuda)
+        direct = ci.launch_chol_inv(K200)
+        others = [ci.launch_chol_inv_cluster(K200, 2), ci.launch_chol_inv_pair(K200)]
+    for L, Linv in outs[1:]:
+        assert torch.equal(L, outs[0][0]) and torch.equal(Linv, outs[0][1])
+    for L, Linv in others:
+        assert torch.equal(direct[0], L) and torch.equal(direct[1], Linv)
+
+
+@pytest.mark.parametrize("n", [250, 400, 512])
+def test_cluster_kernel_nan_on_non_psd(cuda, n):
+    """The failing pivot in the first, a middle and the last CTA's rows."""
+    p = ci.plan(n)
+    for rank in (0, p.C // 2, p.C - 1):
+        rows = p.rows(rank)
+        piv = rows[len(rows) // 2]
+        K = torch.eye(n, device=cuda)[None].repeat(2, 1, 1)
+        K[:, piv, piv] = -1.0
+        L, Linv = ci.chol_inv_blocked(K)
+        assert torch.isnan(L[:, piv:, piv:]).any() and torch.isnan(Linv[:, piv:, :]).any()
+        eye = torch.eye(piv, device=cuda).expand(2, piv, piv)
+        assert torch.equal(L[:, :piv, :piv], eye) and torch.equal(Linv[:, :piv, :piv], eye)
+
+
+def test_cluster_plan_matches_the_kernel(cuda):
+    from zigp_tpu_torch.ops.cuda import _build
+
+    pair = _build.load("chol_inv_cluster").zigp_chol_inv_pair_smem
+    pair.argtypes, pair.restype = [ctypes.c_int], ctypes.c_longlong
+    for n in (239, 250, 301, 302, 320, 406, 407, 512):
+        assert pair(n) == ci.pair_bytes(n)
+        for C in ci.CLUSTER_SIZES:
+            if ci._cluster_bytes(n, C)[1] <= ci.SMEM_BYTES:
+                assert ci.cluster_shared_bytes(n, C) == ci.plan(n, C).bytes
+
+
+def test_cluster_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
+    before = ci.chol_inv_blocked.launches
+    for n in (ci.MAX_N, ci.BLOCKED_MAX_N + 1):
+        with pytest.raises(ValueError):
+            ci.chol_inv_blocked(torch.eye(n, device=cuda)[None])
+    with pytest.raises(TypeError):
+        ci.chol_inv_blocked(torch.eye(250, device=cuda, dtype=torch.float64)[None])
+    with pytest.raises(ValueError):
+        ci.chol_inv_blocked(torch.eye(500, device=cuda)[::2, ::2][None])
+    with pytest.raises(ValueError):
+        ci.launch_chol_inv_cluster(torch.eye(512, device=cuda)[None], C=2)  # does not fit two CTAs
+    with pytest.raises(ValueError):
+        ci.launch_chol_inv_pair(torch.eye(321, device=cuda)[None])  # past the pair instance's reach
+    assert ci.chol_inv_blocked.launches == before
 
 
 @pytest.mark.parametrize("n", [33, 100, 200])
@@ -111,8 +190,8 @@ def _library_chol_inv(K):
 
 @pytest.mark.parametrize("n", [10, 100, 200, 250])
 def test_chol_inv_gradient_on_card_launches_the_kernel(cuda, n):
-    """With grad, ``linalg.chol_inv`` runs the kernel (directly, or on the
-    blocked routine's diagonal blocks) and its backward equals autograd of
+    """With grad, ``linalg.chol_inv`` runs one kernel launch (chol_inv.cu to
+    MAX_N, the cluster kernel above) and its backward equals autograd of
     torch.linalg's Cholesky and triangular solve."""
     rng = np.random.RandomState(n)
     K = torch.as_tensor(_spd(n, seed=n), device=cuda)
@@ -120,13 +199,38 @@ def test_chol_inv_gradient_on_card_launches_the_kernel(cuda, n):
     grads = []
     for fn in (linalg.chol_inv, _library_chol_inv):
         Kr = K.clone().requires_grad_(True)
-        before = ci.chol_inv_cuda.launches
+        before = (ci.chol_inv_cuda.launches, ci.chol_inv_blocked.launches)
         L, Linv = fn(Kr)
-        launched = ci.chol_inv_cuda.launches - before
+        launched = (ci.chol_inv_cuda.launches - before[0], ci.chol_inv_blocked.launches - before[1])
         (g,) = torch.autograd.grad((L * dL).sum() + (Linv * dLinv).sum(), Kr)
         grads.append((g, launched))
-    assert grads[0][1] == (1 if n <= ci.MAX_N else len(ci.block_offsets(n)) - 1) and grads[1][1] == 0
+    assert grads[0][1] == ((1, 0) if n <= ci.MAX_N else (0, 1)) and grads[1][1] == (0, 0)
     assert _rel(grads[0][0], grads[1][0]) < 1e-4
+
+
+def test_chol_inv_gradient_at_250_on_card_matches_cpu_f64(cuda):
+    """The gradient of a scalar through ``linalg.chol_inv`` at n = 250 (the
+    cluster kernel's forward) against the CPU float64 one, within max(3 ×
+    the CPU float32 run's error, 1e-5)."""
+    n = 250
+    t = np.linspace(0.0, 1.0, n)[:, None]
+    K64 = 10.0 * np.exp(-0.5 * (t - t.T) ** 2 / 0.05**2) + 1e-3 * np.eye(n)
+    K64 = np.stack([K64, 0.5 * K64 + 0.01 * np.eye(n)])
+    rng = np.random.RandomState(0)
+    dL, dLinv = rng.randn(2, n, n) * 1e-2, rng.randn(2, n, n) * 1e-4
+
+    def grad(device, dtype):
+        K = torch.tensor(K64, dtype=dtype, device=device, requires_grad=True)
+        L, Linv = linalg.chol_inv(K)
+        w = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        (g,) = torch.autograd.grad((L * w(dL)).sum() + (Linv * w(dLinv)).sum(), K)
+        return g.detach().cpu().double()
+
+    before = ci.chol_inv_blocked.launches
+    card = grad(cuda, torch.float32)
+    assert ci.chol_inv_blocked.launches == before + 1
+    ref, cpu32 = grad("cpu", torch.float64), grad("cpu", torch.float32)
+    assert _rel(card, ref) <= max(3.0 * _rel(cpu32, ref), 1e-5)
 
 
 def _gram_inputs(G, N, M, D, shared, seed=0):

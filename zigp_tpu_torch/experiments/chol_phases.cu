@@ -5,8 +5,12 @@
 //
 // The marks after P and U follow the kernels' own barriers; the lookahead's
 // is warp 0's alone.
+//
+// Also the cluster kernel (chol_inv_cluster.cu, included whole) with marks
+// at its phases, read by threads 0 and 32 of every CTA.
 
 #include "../ops/cuda/csrc/chol_tile.cuh"
+#include "../ops/cuda/csrc/chol_inv_cluster.cu"
 
 namespace {
 
@@ -75,4 +79,39 @@ extern "C" int zigp_chol_phases(const void* K, void* L, void* Linv, int n, int n
     case 16: return inv ? launch<16, true>(k, l, li, n, c) : launch<16, false>(k, l, li, n, c);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+namespace {
+
+// Cycles of the cluster kernel by phase, summed over the steps, for threads
+// 0 (warp 0: the chain on the owner of the next diagonal block) and 32 (warp
+// 1: never the chain) of every CTA: cycles[(cta * 2 + thread 32) * 8 + k],
+// k = 1 the wait for L_jj, 2 the panel, 3 the wait for the staged panel, 4
+// the update with the step's closing barrier, 5 the chain (the next block's
+// tiles, its factor and the push), 6 the load and the first block's factor,
+// 7 the store; slot 0 holds the last reading.
+struct ClusterClock {
+  long long* cycles;
+  __device__ void operator()(int phase) const {
+    if (threadIdx.x != 0 && threadIdx.x != 32) return;
+    long long* c = cycles + (blockIdx.x * 2 + (threadIdx.x == 32)) * 8;
+    const long long t = clock64();
+    if (phase == 0) {
+      for (int k = 1; k < 8; ++k) c[k] = 0;
+    } else {
+      c[phase] += t - c[0];
+    }
+    c[0] = t;
+  }
+};
+
+}  // namespace
+
+// G matrices, n x n row-major, in clusters of C CTAs on the default stream,
+// with the phase marks into `cycles` (G * C * 16 long longs). Returns the
+// launch's cudaError_t (0 on success).
+extern "C" int zigp_chol_cluster_phases(const void* K, void* L, void* Linv, int n, int G, int C, void* cycles) {
+  return static_cast<int>(zigp_cluster::launch_cluster(static_cast<const float*>(K), static_cast<float*>(L),
+                                                       static_cast<float*>(Linv), n, G, C, nullptr,
+                                                       ClusterClock{static_cast<long long*>(cycles)}));
 }

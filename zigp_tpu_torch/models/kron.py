@@ -81,7 +81,10 @@ class KronGP(nn.Module):
         self.q_sqrt = q_sqrt
         self.q_sqrt_factors = None if q_sqrt_factors is None else nn.ModuleList(q_sqrt_factors)
         self.input_masks = tuple(tuple(m) for m in input_masks)
-        self.jitter = float(jitter)
+        # None: the package's default for the dtype the grams are built in,
+        # resolved where it is added (``jitter_for``), as the JAX package
+        # takes its default in the precision it runs.
+        self.jitter = None if jitter is None else float(jitter)
         self.whiten = whiten
         # column picks as index tensors, moved to the device with the module
         for p, m in enumerate(self.input_masks):
@@ -116,7 +119,7 @@ class KronGP(nn.Module):
             # frozen when the kron-factored covariance is active
             q_sqrt=positive_param(np.ones((M, 1)), lr=lr, trainable=factors is None),
             input_masks=gen_input_masks(Zs),
-            jitter=jitter if jitter is not None else default_jitter(torch.float64),
+            jitter=jitter,
             whiten=whiten,
             q_sqrt_factors=factors,
         )
@@ -137,6 +140,11 @@ class KronGP(nn.Module):
         shapes = tuple((n, tuple(p.shape)) for n, p in self.named_parameters())
         return shapes, self.input_masks, self.jitter, self.whiten, self.kernel_flags()
 
+    def jitter_for(self, dtype: torch.dtype) -> float:
+        """The absolute jitter added to a gram of ``dtype``: the model's own,
+        or ``default_jitter(dtype)`` (1e-6 in float64, 1e-5 in float32)."""
+        return self.jitter if self.jitter is not None else default_jitter(dtype)
+
     def values(self) -> GPValues:
         return GPValues(
             tuple(k.values() for k in self.kernels),
@@ -148,10 +156,8 @@ class KronGP(nn.Module):
 
     # The methods below take values with a leading batch dim (see _stack).
     def _gram_factors(self, vals: GPValues):
-        return [
-            linalg.add_jitter(k.K(Z, use_kernel=f), self.jitter)
-            for k, Z, f in zip(vals.kernels, vals.Zs, self.kernel_flags())
-        ]
+        grams = [k.K(Z, use_kernel=f) for k, Z, f in zip(vals.kernels, vals.Zs, self.kernel_flags())]
+        return [linalg.add_jitter(K, self.jitter_for(K.dtype)) for K in grams]
 
     def _factor_state(self, vals: GPValues):
         pairs = [linalg.chol_inv(Kp) for Kp in self._gram_factors(vals)]
@@ -178,7 +184,7 @@ class KronGP(nn.Module):
             vals.q_mu,
             vals.q_sqrt,
             self.masks(),
-            jitter=self.jitter,
+            jitter=self.jitter_for(vals.q_mu.dtype),
             whiten=self.whiten,
             q_sqrt_factors=vals.q_sqrt_factors,
             factor_state=factor_state if factor_state is not None else self._factor_state(vals),

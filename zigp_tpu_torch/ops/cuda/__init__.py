@@ -1,11 +1,14 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), built from ``csrc/`` at
-first use (``_build``) and bound with ctypes: ``chol_inv`` (L and L⁻¹),
+first use (``_build``) and bound with ctypes: ``chol_inv`` (L and L⁻¹, one
+CTA a matrix to n = 238 and one thread-block cluster a matrix to 512),
 ``cholesky`` (L only, any number of columns per step), ``rbf_gram`` and
 ``kron_matvec`` (the two-factor Kronecker matvec)."""
 
 from .chol_inv import (
     chol_cuda,
     chol_inv_blocked,
+    chol_inv_blocked_plain,
+    chol_inv_cluster_plain,
     chol_inv_cuda,
     chol_inv_plain,
     tri_inv_dc,
@@ -19,6 +22,8 @@ __all__ = [
     "chol_inv_cuda",
     "chol_inv_plain",
     "chol_inv_blocked",
+    "chol_inv_blocked_plain",
+    "chol_inv_cluster_plain",
     "rbf_gram_cuda",
     "rbf_gram_plain",
     # the JAX package's A/B alternatives to chol_inv (ops/pallas/__init__.py)

@@ -39,15 +39,16 @@ def add_jitter(K: torch.Tensor, jitter: float, *, relative_f32: float = 2.0e-4) 
 def chol_inv_route(n: int, dtype: torch.dtype, device_type: str) -> str:
     """Which implementation ``chol_inv`` takes (``zigp_tpu/ops/linalg.py:
     138-151``): float32 on the card goes to the CUDA kernel for n ≤ ``MAX_N``
-    (238: the kernel holds the whole matrix, where the JAX package's kernel
-    stops at 128) and to the blocked routine for n ≤ 512; anything else, the
-    CPU included, to the library Cholesky and triangular solve, where the JAX
-    package leaves it to XLA."""
+    (238: one CTA holds the whole matrix, where the JAX package's kernel
+    stops at 128) and to the thread-block-cluster kernel for n ≤ 512 (the JAX
+    package's blocked routine); anything else, the CPU included, to the
+    library Cholesky and triangular solve, where the JAX package leaves it
+    to XLA."""
     if dtype == torch.float32 and device_type == "cuda":
         if n <= MAX_N:
             return "kernel"
         if n <= BLOCKED_MAX_N:
-            return "blocked"
+            return "cluster"
     return "library"
 
 
@@ -55,8 +56,8 @@ def _chol_inv_forward(K: torch.Tensor):
     route = chol_inv_route(K.shape[-1], K.dtype, K.device.type)
     if route == "kernel":
         return chol_inv_cuda(K.contiguous())
-    if route == "blocked":
-        return chol_inv_blocked(K)
+    if route == "cluster":
+        return chol_inv_blocked(K.contiguous())
     L = torch.linalg.cholesky(K)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
@@ -70,7 +71,7 @@ def _phi_half_diag(X: torch.Tensor) -> torch.Tensor:
 class _CholInv(torch.autograd.Function):
     """(L, L⁻¹) = chol_inv(K) with the matmul-only backward of
     ``zigp_tpu/ops/linalg.py:177-211`` (reverse-mode Cholesky with L⁻¹ in
-    hand, Murray 2016), on every route: the forward's kernel, blocked routine
+    hand, Murray 2016), on every route: the forward's kernel, cluster kernel
     or library call sees a detached K, and the backward needs no solve."""
 
     @staticmethod
