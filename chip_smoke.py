@@ -69,7 +69,10 @@ so any failure exits non-zero):
    first 4096 rows within max(3 × the CPU f32 run's error, 1e-5) of CPU f64.
 7. Training, flagship (10 × 100, B = 1000) at full width with the gram
    kernel on: 4 blocks of 50 steps through ``train_onoff_pptr`` with the
-   device sampler. Losses finite and falling (last block's mean below the
+   device sampler, so through ``fit_scanned``'s CUDA graph: the first block
+   eager on a side stream (the capture's warm-up), the block captured once
+   and replayed for the other three, each replay counted as the launches its
+   capture made. Losses finite and falling (last block's mean below the
    first's); rbf_gram launches 4 per step (K_mm and K_mn of both factors,
    the f/g pair in one launch) and chol_inv launches 2 per step; on one
    fixed batch the card's float32 loss and the gradient of every raw against
@@ -90,15 +93,29 @@ so any failure exits non-zero):
    (``small_cholesky_cuda`` on each GP's factors): final losses within 5e-3
    relative of production's, chol.cu launched once per factorization (2 a
    step, 4 unpaired) and chol_inv.cu not at all.
-9. Training, champion (32 × 200, whitened, Kronecker-factored q, B = 4000):
-   one block of 50 steps, finite losses and the launch counts.
-10. Times, beside the card's name and power limit: predict_batched points/s
-   (median of 5 passes); steps/s of the flagship's scanned step with the
-   gram kernel on and off (median of 3 timed passes of 4 blocks, in turns),
-   of the 105 × 250 scale grid at B = 8192 (2 timed blocks of 50), and with
-   each A/B route against production (median of 3 passes of 2 blocks, in
-   turns); the 105 × 250 serving pass with the production Kronecker solve
-   and with the kron_mv_2 route (median of 5, in turns); both tiled
+9. Training, champion (32 × 200, whitened, Kronecker-factored q, B = 4000)
+   and the 105 × 250 grid at B = 8192 (device sampler), each through
+   ``train_onoff_pptr``: two blocks of 50 steps (one eager, one replay),
+   finite losses and exact launch counts (the kernels line's training
+   launches). Then, for the flagship, the champion and the 105 × 250
+   grid at B = 8192, 10 steps by one replay of the captured block against 10
+   eager steps from the same state on the same batches: the largest
+   relative loss difference at most 1e-4 (reported, with whether the bits
+   are equal), launches exact. Then ``train_onoff_pptr`` on the flagship
+   with a workdir, stopped by Ctrl-C after 2 of 4 blocks and resumed: equal
+   to the uninterrupted run within 1e-4 (losses and raws).
+10. Times, beside the card's name and power limit: points/s of
+   predict_batched (every chunk one replay of the model's chunk graph,
+   captured by its first call) against the same chunks launched eagerly,
+   median of 5 passes each, in turns, the graphed predictions within the
+   serving gate's tolerance of the eager ones; steps/s of blocks of 50
+   eager against one replay each (flagship with the gram kernel on and
+   off, champion, scale; median of 3 passes, in turns) with each graph's
+   capture and instantiate times and pool size; steps/s of eager blocks
+   with each A/B route against production's (median of 3 passes of 2
+   blocks, in turns); the 105 × 250 serving pass with the production
+   Kronecker solve and with the kron_mv_2 route, each on its own copy of
+   the model (median of 5, in turns); both tiled
    Cholesky kernels at every panel width they are built for, at n = 100 and
    200, and (L, L⁻¹) at n = 200 by the direct kernel, the blocked routine
    and torch.linalg (the line ``MAX_N`` rests on), and the plain inverses;
@@ -123,6 +140,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -402,18 +420,36 @@ def phase_serving(ci, name, cfg, split, batch):
     return model, X, by_n, ref
 
 
-def time_predict(name, model, X, batch, card):
+def time_predict(name, model, X, batch, card, ref):
+    """predict_batched points/s (every chunk one replay of the graph the
+    model's first call captured) against the same chunks launched eagerly
+    (``predict_chunks_eager``, the path before the graph): median of 5
+    passes each, in turns, each ending in the one copy to the host. The
+    graphed predictions must be within the serving gate's tolerance of the
+    eager ones."""
+    from zigp_tpu_torch.experiments.profile_predict import predict_chunks_eager
     from zigp_tpu_torch.experiments.runners import predict_batched
 
-    predict_batched(model.predict, X, batch=batch, device=DEVICE)  # warm-up
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        predict_batched(model.predict, X, batch=batch, device=DEVICE)  # ends in a host copy: synchronised
-        times.append(time.perf_counter() - t0)
-    pts = X.shape[0] / float(np.median(times))
-    log(f"time {name}: predict_batched {X.shape[0]} rows at batch {batch}: {pts:.1f} points/s "
-        f"(median of 5; {card})")
+    paths = {"eager": lambda: predict_chunks_eager(model.predict, X, batch), "graphed": lambda: predict_batched(
+        model.predict, X, batch=batch, device=DEVICE)}
+    with torch.inference_mode():
+        out = {path: fn() for path, fn in paths.items()}  # warm-up
+        times = {path: [] for path in paths}
+        for rep in range(5):
+            for path in (paths if rep % 2 == 0 else list(paths)[::-1]):
+                t0 = time.perf_counter()
+                paths[path]()
+                times[path].append(time.perf_counter() - t0)
+    for k in ("gfmean", "gfvar", "fmean", "gmean"):
+        tol = max(3.0 * rel(ref[torch.float32][k], ref[torch.float64][k]), 1e-5)
+        d = rel(out["graphed"][k], out["eager"][k])
+        log(f"{name}: {k:6s} graphed vs eager predict {d:.3e} (tol {tol:.3e})")
+        if not d <= tol:
+            raise AssertionError(f"{name}: graphed {k} differs from eager by {d:.3e} > {tol:.3e}")
+    pts = {path: X.shape[0] / float(np.median(t)) for path, t in times.items()}
+    log(f"time {name}: predict {X.shape[0]} rows at batch {batch}: eager {pts['eager']:.1f} points/s "
+        f"{[round(X.shape[0] / t) for t in times['eager']]}, graphed (predict_batched) {pts['graphed']:.1f} points/s "
+        f"{[round(X.shape[0] / t) for t in times['graphed']]} (median of 5, in turns; {card})")
     return pts
 
 
@@ -445,20 +481,9 @@ GRAM_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/rbf_gram.cu"
 GRAM_REPLACES = "zigp_tpu/ops/pallas/rbf_gram.py:79"
 
 
-def counted_wrappers() -> dict:
-    """Every kernel wrapper's launch counter, by name."""
-    from zigp_tpu_torch.ops.cuda import chol_inv as ci
-    from zigp_tpu_torch.ops.cuda import cholesky as sc
-    from zigp_tpu_torch.ops.cuda import kron_matvec as km
-    from zigp_tpu_torch.ops.cuda import rbf_gram as rg
-
-    return {"rbf_gram": rg.rbf_gram_cuda, "chol_inv": ci.chol_inv_cuda, "chol_inv_blocked": ci.chol_inv_blocked,
-            "chol": ci.chol_cuda,
-            "small_cholesky": sc.small_cholesky_cuda, "batched_small_cholesky": sc.batched_small_cholesky_cuda,
-            "kron_mv_2": km.kron_mv_2_cuda}
-
-
 def zero_counts() -> None:
+    from zigp_tpu_torch.ops.cuda.graphs import counted_wrappers
+
     for fn in counted_wrappers().values():
         fn.launches = 0
         getattr(fn, "launches_by_shape", getattr(fn, "launches_by_n", None)).clear()
@@ -471,6 +496,8 @@ def read_counts() -> dict:
     the chol_inv wrappers' by-shape keys are ``chol_inv_by_n`` and
     ``chol_inv_blocked_by_n`` (the cluster kernel), and kron_mv_2 also has
     ``kron_mv_2_by_instance`` ({(G, Ma, Mb, transpose, instance): launches})."""
+    from zigp_tpu_torch.ops.cuda.graphs import counted_wrappers
+
     out = {}
     for name, fn in counted_wrappers().items():
         out[name] = fn.launches
@@ -750,61 +777,6 @@ def blocked_rows(ci, blocked: dict, rows_ab: dict, card) -> list:
                      "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
     return rows
-
-
-def device_step(model, split, batch):
-    from zigp_tpu_torch.training import make_device_sampling_scan_step, make_optimizer
-
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
-    return make_device_sampling_scan_step(make_optimizer(model), t(split.Xtrain), t(split.Ytrain), batch)
-
-
-def timed_blocks(step, model, first_block, blocks, inner=50) -> float:
-    """steps/s of ``blocks`` device-sampled blocks, host clock around work
-    that ends in a synchronise."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in range(blocks):
-        step(model, first_block + b, inner)
-    torch.cuda.synchronize()
-    return blocks * inner / (time.perf_counter() - t0)
-
-
-def time_training(split, card):
-    """Flagship steps/s with the gram kernel on and off (median of 3 passes
-    of 4 blocks, in turns), and the 105 × 250 scale grid at B = 8192 (2
-    blocks, launch counts read around them)."""
-    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
-    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
-
-    cfg = OnOffPptrConfig()
-    runs = {}
-    for on in (True, False):
-        m = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=on)
-        step = device_step(m, split, cfg.batch_size)
-        timed_blocks(step, m, 0, 1)  # warm-up
-        runs[on] = (m, step, [])
-    for rep in range(3):
-        for on in ((True, False) if rep % 2 == 0 else (False, True)):
-            m, step, rates = runs[on]
-            rates.append(timed_blocks(step, m, 1 + 4 * rep, 4))
-    rate = {on: float(np.median(r[2])) for on, r in runs.items()}
-    log(f"time flagship training, scanned step (device sampler, B={cfg.batch_size}): gram kernel on "
-        f"{rate[True]:.1f} steps/s {[round(r, 1) for r in runs[True][2]]}, off {rate[False]:.1f} steps/s "
-        f"{[round(r, 1) for r in runs[False][2]]} (median of 3 passes of 200 steps; {card})")
-
-    scfg = scale_train_cfg()
-    m = build_onoff_pptr(scfg, split, device=DEVICE, use_kernel=True)
-    step = device_step(m, split, scfg.batch_size)
-    timed_blocks(step, m, 0, 1)  # warm-up
-    zero_counts()
-    scale_rate = timed_blocks(step, m, 1, 2)
-    counts = read_counts()
-    log(f"time scale training 105x250, B=8192, gram kernel on: {scale_rate:.1f} steps/s (2 blocks of 50); "
-        f"launches rbf_gram {counts['rbf_gram']}, chol_inv.cu {counts['chol_inv']}, chol_inv_cluster.cu "
-        f"{counts['chol_inv_blocked']} (expected 100 x {per_step_launches(m)}); {card}")
-    check_launches("scale training", counts, 100, per_step_launches(m))
-    return {"flagship_kernel_on": rate[True], "flagship_kernel_off": rate[False], "scale_105x250_b8192": scale_rate}, counts
 
 
 def gram_bound_ms(G, N, M, D, shared: bool) -> tuple[float, str]:
@@ -1168,11 +1140,12 @@ def phase_serving_kron_mv(name, model, X, batch, ref):
 
     chunks = math.ceil(X.shape[0] / batch)
     prod = predict_batched(model.predict, X, batch=batch, device=DEVICE)
+    routed = copy.deepcopy(model)  # its own chunk graph, captured with the route
     solve = linalg.kron_linv_solve
     linalg.kron_linv_solve = kron_linv_solve_kron_mv
     try:
         zero_counts()
-        out = predict_batched(model.predict, X, batch=batch, device=DEVICE)
+        out = predict_batched(routed.predict, X, batch=batch, device=DEVICE)
         counts = read_counts()
     finally:
         linalg.kron_linv_solve = solve
@@ -1303,13 +1276,15 @@ def time_serving_kron_mv(model, X, batch, card) -> dict:
 
     solve = linalg.kron_linv_solve
     routes = {"production": solve, "kron_mv_2": kron_linv_solve_kron_mv}
+    # each route on its own model: the chunk graph its first call captures holds the route
+    models = {"production": model, "kron_mv_2": copy.deepcopy(model)}
     times = {name: [] for name in routes}
 
     def run(name):
         linalg.kron_linv_solve = routes[name]
         try:
             t0 = time.perf_counter()
-            predict_batched(model.predict, X, batch=batch, device=DEVICE)  # ends in a host copy: synchronised
+            predict_batched(models[name].predict, X, batch=batch, device=DEVICE)  # ends in a host copy: synchronised
             return time.perf_counter() - t0
         finally:
             linalg.kron_linv_solve = solve
@@ -1407,10 +1382,33 @@ def time_blocked_routes(card) -> dict:
     return out
 
 
+def eager_blocks(model, split, batch, inner=50):
+    """``run(first_block, blocks) -> steps/s`` of eager blocks of ``inner``
+    device-sampled steps (``StagedBlocks`` + ``make_scan_train_step``; the
+    A/B routes stay eager), host clock around work that ends in a
+    synchronise."""
+    from zigp_tpu_torch.training import DataSet, StagedBlocks, make_optimizer, make_scan_train_step
+
+    st = StagedBlocks(DataSet(split.Xtrain, split.Ytrain), "device", batch, inner, device=DEVICE,
+                      dtype=torch.float32)
+    step = make_scan_train_step(make_optimizer(model))
+
+    def run(first_block, blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(blocks):
+            st.fill(first_block + b)
+            step(model, st.Xs, st.Ys)
+        torch.cuda.synchronize()
+        return blocks * inner / (time.perf_counter() - t0)
+
+    return run
+
+
 def time_train_routes(split, card) -> dict:
-    """Flagship steps/s of the scanned step with each route of chol_inv's
-    forward against production: median of 3 passes of 2 blocks of 50, in
-    turns."""
+    """Flagship steps/s of eager blocks with each route of chol_inv's
+    forward against production's eager block: median of 3 passes of 2
+    blocks of 50, in turns."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
     from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
     from zigp_tpu_torch.ops import linalg
@@ -1420,29 +1418,192 @@ def time_train_routes(split, card) -> dict:
     forward = linalg._chol_inv_forward
     runs = {}
     for name, route in {"production": None, **TRAIN_ROUTES}.items():
-        m = copy.deepcopy(base)
-        runs[name] = (m, device_step(m, split, cfg.batch_size), route, [])
+        runs[name] = (eager_blocks(copy.deepcopy(base), split, cfg.batch_size), route, [])
 
-    def run(name, first_block, blocks, inner=50):
-        m, step, route, _ = runs[name]
+    def run(name, first_block, blocks):
+        blocks_of, route, _ = runs[name]
         if route is not None:
             linalg._chol_inv_forward = route
         try:
-            return timed_blocks(step, m, first_block, blocks, inner)
+            return blocks_of(first_block, blocks)
         finally:
             linalg._chol_inv_forward = forward
 
     for name in runs:
-        run(name, 0, 1, inner=10)  # warm-up
+        run(name, 0, 1)  # warm-up
     order = list(runs)
     for rep in range(3):
         for name in order if rep % 2 == 0 else order[::-1]:
-            runs[name][3].append(run(name, 1 + 2 * rep, 2))
-    rate = {name: float(np.median(r[3])) for name, r in runs.items()}
-    log("time flagship training by chol_inv forward route (device sampler, B=1000, median of 3 passes of 100 "
-        "steps, in turns): " + ", ".join(f"{n} {rate[n]:.1f} steps/s {[round(v, 1) for v in runs[n][3]]}" for n in runs)
-        + f"; {card}")
+            runs[name][2].append(run(name, 1 + 2 * rep, 2))
+    rate = {name: float(np.median(r[2])) for name, r in runs.items()}
+    log("time flagship training by chol_inv forward route, eager blocks (device sampler, B=1000, median of 3 "
+        "passes of 100 steps, in turns): "
+        + ", ".join(f"{n} {rate[n]:.1f} steps/s {[round(v, 1) for v in runs[n][2]]}" for n in runs) + f"; {card}")
     return rate
+
+
+# --- the block and the chunk as CUDA graphs, and the production loop ---------
+
+GRAPH_TOL = 1e-4  # graphed vs eager training losses, relative; equal bits are expected
+
+
+def train_cfgs() -> dict:
+    """The three training configurations at full width: flagship, champion,
+    and the 105 × 250 scale grid at B = 8192."""
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig, best_onoff_config
+
+    return {"flagship": OnOffPptrConfig(), "champion": best_onoff_config(), "scale 105x250 B=8192": scale_train_cfg()}
+
+
+def optimizer_for(model, cfg):
+    from zigp_tpu_torch.training import cosine_adam, make_optimizer
+
+    return make_optimizer(model, default_lr=cfg.indp_lr,
+                          schedule=cosine_adam(cfg.num_iter) if cfg.lr_schedule == "cosine" else None)
+
+
+def phase_graph_ab(name, cfg, split) -> float:
+    """From one model, a warm-up block of 10 eager steps on a side stream on
+    each of two copies, then 10 steps by one replay of the captured block
+    against 10 eager steps on the same batches: the largest relative
+    difference of the 10 losses within GRAPH_TOL, each run's launches
+    exact (the replay's counted from its capture)."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, make_graphed_scan_step, make_scan_train_step, stage_batches
+
+    base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
+    per_step = per_step_launches(base)
+    ds = DataSet(split.Xtrain, split.Ytrain, seed=3)
+    warm, timed = (stage_batches(ds, cfg.batch_size, AB_STEPS, device=DEVICE, dtype=torch.float32) for _ in range(2))
+    out = {}
+    for path in ("eager", "graphed"):
+        m = copy.deepcopy(base)
+        opt = optimizer_for(m, cfg)
+        Xs, Ys = (t.clone() for t in warm)
+        on_side_stream(lambda: make_scan_train_step(opt)(m, Xs, Ys))
+        if path == "graphed":
+            step = make_graphed_scan_step(opt, m, Xs, Ys)
+            Xs.copy_(timed[0])
+            Ys.copy_(timed[1])
+            zero_counts()
+            losses = step()
+        else:
+            zero_counts()
+            losses = make_scan_train_step(opt)(m, *timed)
+        torch.cuda.synchronize()
+        check_launches(f"graph A/B {name} {path}", read_counts(), AB_STEPS, per_step)
+        out[path] = losses.cpu().double().numpy()
+        if not np.isfinite(out[path]).all():
+            raise AssertionError(f"graph A/B {name} {path}: non-finite losses")
+    err = float(np.max(np.abs(out["graphed"] - out["eager"]) / np.abs(out["eager"])))
+    log(f"graph A/B {name}: {AB_STEPS} steps by one replay vs eager, losses {out['graphed'][0]:.6f} .. "
+        f"{out['graphed'][-1]:.6f}; largest relative loss difference {err:.3e} (tol {GRAPH_TOL:.0e}), equal bits "
+        f"{bool(np.array_equal(out['graphed'], out['eager']))}; launches exact")
+    if not err <= GRAPH_TOL:
+        raise AssertionError(f"graph A/B {name}: graphed and eager losses differ by {err:.3e}")
+    return err
+
+
+def phase_resume(split) -> None:
+    """train_onoff_pptr on the flagship (4 blocks of 50, device sampler,
+    checkpoints every 50) straight through, and with a workdir stopped by
+    Ctrl-C from the monitor callback after block 2, then resumed: the
+    resumed run's losses and raws equal to the uninterrupted run's within
+    GRAPH_TOL (the resumed run warms up eagerly where the straight one
+    replays; equal bits are expected)."""
+    import tempfile
+
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+    from zigp_tpu_torch.experiments.runners import train_onoff_pptr
+
+    cfg = dataclasses.replace(OnOffPptrConfig(), num_iter=200, scan_inner=50, sampler="device", log_every=50,
+                              ckpt_every=50, monitor_every=50)
+    quiet = lambda s: None
+    full = train_onoff_pptr(cfg, split, use_kernel=True, log_fn=quiet)
+
+    def stop(step, model):
+        if step == 100:
+            raise KeyboardInterrupt
+
+    with tempfile.TemporaryDirectory() as wd:
+        first = train_onoff_pptr(cfg, split, use_kernel=True, log_fn=quiet, workdir=wd, monitor_cb=stop)
+        ckpts = sorted(os.listdir(os.path.join(wd, "ckpt_onoff")))
+        logs = []
+        resumed = train_onoff_pptr(cfg, split, use_kernel=True, log_fn=logs.append, workdir=wd, resume=True)
+        records = sum(1 for _ in open(os.path.join(wd, "metrics_onoff.jsonl")))
+    if not (first.interrupted and ckpts == ["step_0000000000", "step_0000000050", "step_0000000100"]):
+        raise AssertionError(f"resume: the first run was not interrupted at step 100 ({first.interrupted}, {ckpts})")
+    if "resumed from checkpoint at step 100" not in logs:
+        raise AssertionError(f"resume: {logs}")
+    a, b = resumed.step_losses.double().numpy(), full.step_losses[100:].double().numpy()
+    loss_err = float(np.max(np.abs(a - b) / np.abs(b)))
+    raw_err = max(rel(p.detach().cpu(), q.detach().cpu()) for p, q in zip(resumed.model.parameters(),
+                                                                           full.model.parameters()))
+    log(f"resume flagship: interrupted at step 100 (checkpoints {ckpts}, {records} metric records), resumed to 200: "
+        f"largest relative loss difference from the uninterrupted run {loss_err:.3e}, raws {raw_err:.3e} (tol "
+        f"{GRAPH_TOL:.0e}), equal bits {bool(np.array_equal(a, b))}")
+    if not (np.isfinite(a).all() and loss_err <= GRAPH_TOL and raw_err <= GRAPH_TOL):
+        raise AssertionError(f"resume: the resumed run left the uninterrupted one ({loss_err:.3e}, {raw_err:.3e})")
+
+
+def time_graphed_training(split, card) -> dict:
+    """Steps/s of blocks of 50 device-sampled steps, eager against one
+    replay of the captured block, from one warm-up block each (on a side
+    stream): median of 3 passes each, in turns (flagship 4 blocks a pass,
+    with the gram kernel on and off; champion and scale 2, kernel on), host
+    clock around work that ends in a synchronise; with each graph's capture
+    and instantiate times and pool."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, make_graphed_scan_step, make_scan_train_step
+    from zigp_tpu_torch.training.scan import StagedBlocks
+
+    inner = 50
+    out = {}
+    cases = [(name, cfg, True) for name, cfg in train_cfgs().items()]
+    cases.insert(1, ("flagship, gram kernel off", train_cfgs()["flagship"], False))
+    for name, cfg, use_kernel in cases:
+        blocks = 4 if name.startswith("flagship") else 2
+        runs = {}
+        for path in ("eager", "graphed"):
+            m = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=use_kernel)
+            opt = optimizer_for(m, cfg)
+            st = StagedBlocks(DataSet(split.Xtrain, split.Ytrain), "device", cfg.batch_size, inner, device=DEVICE,
+                              dtype=torch.float32)
+            eager = make_scan_train_step(opt)
+            st.fill(0)
+            on_side_stream(lambda: eager(m, st.Xs, st.Ys))
+            run = make_graphed_scan_step(opt, m, st.Xs, st.Ys) if path == "graphed" else (
+                lambda eager=eager, m=m, st=st: eager(m, st.Xs, st.Ys))
+            runs[path] = (st, run, [])
+
+        def timed(path, first):
+            st, run, _ = runs[path]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in range(blocks):
+                st.fill(first + b)
+                losses = run()
+            torch.cuda.synchronize()
+            if not torch.isfinite(losses).all():
+                raise AssertionError(f"time {name} {path}: non-finite losses")
+            return blocks * inner / (time.perf_counter() - t0)
+
+        for rep in range(3):
+            for path in (("eager", "graphed") if rep % 2 == 0 else ("graphed", "eager")):
+                runs[path][2].append(timed(path, 1 + blocks * rep))
+        rate = {path: float(np.median(r[2])) for path, r in runs.items()}
+        g = runs["graphed"][1].graph
+        log(f"time training {name}, B={cfg.batch_size}, blocks of {inner} (device sampler, gram kernel "
+            f"{'on' if use_kernel else 'off'}): eager "
+            f"{rate['eager']:.1f} steps/s {[round(v, 1) for v in runs['eager'][2]]}, graphed {rate['graphed']:.1f} "
+            f"steps/s {[round(v, 1) for v in runs['graphed'][2]]} (median of 3 passes of {blocks * inner} steps, in "
+            f"turns); block graph: {g.describe()}; {card}")
+        out[name] = {**rate, "capture_ms": g.capture_ms, "instantiate_ms": g.instantiate_ms,
+                     "pool_mib": g.pool_bytes / 2**20}
+        del runs
+    return out
 
 
 def main() -> int:
@@ -1498,13 +1659,17 @@ def main() -> int:
     phase_ab(scale_train_cfg(), split, "scale 105x250 B=8192")
     cluster_ab_counts = phase_ab_cluster(split)
     route_counts = phase_train_routes(train_cfg, split)
-    champ_cfg = dataclasses.replace(best_onoff_config(), num_iter=50, scan_inner=50, log_every=50)
+    champ_cfg = dataclasses.replace(best_onoff_config(), num_iter=100, scan_inner=50, log_every=50)
     train_counts["champion train"] = phase_train("champion", champ_cfg, split)[1]
+    scale_train = dataclasses.replace(scale_train_cfg(), num_iter=100, scan_inner=50, sampler="device", log_every=50)
+    train_counts["scale train"] = phase_train("scale 105x250 B=8192", scale_train, split)[1]
+    graph_ab = {name: phase_graph_ab(name, cfg, split) for name, cfg in train_cfgs().items()}
+    phase_resume(split)
 
-    pts = {name: time_predict(name, m, X, batch, card) for name, (m, X, _, _, batch) in runs.items()}
+    pts = {name: time_predict(name, m, X, batch, card, ref) for name, (m, X, _, ref, batch) in runs.items()}
     pts["scale 105x250 by solve route"] = time_serving_kron_mv(scale_model, scale_X, 4096, card)
     del scale_model, scale_X
-    steps_per_s, train_counts["scale train, 2 timed blocks"] = time_training(split, card)
+    graphed_rates = time_graphed_training(split, card)
     route_rates = time_train_routes(split, card)
     time_panel_widths(card)
     time_blocked_routes(card)
@@ -1513,7 +1678,7 @@ def main() -> int:
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
     serving["scale 105x250"] = (scale_sizes, scale_by_n)
-    scale_train = train_counts["scale train, 2 timed blocks"]["chol_inv_blocked_by_n"]
+    scale_train = train_counts["scale train"]["chol_inv_blocked_by_n"]
     for name, (sizes, by_n) in serving.items():
         for n in sizes:
             if n > ci.MAX_N:  # chol_inv_blocked's route: its rows below
@@ -1539,8 +1704,9 @@ def main() -> int:
     kernels += gram_rows(rg, train_counts, card)
     kernels += ab_rows(route_counts, serve_counts, card)
 
-    log(f"serving points/s: {json.dumps(pts)}; training steps/s: {json.dumps(steps_per_s)}; by chol_inv forward "
-        f"route: {json.dumps(route_rates)}; total {time.perf_counter() - t_start:.1f} s")
+    log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
+        f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
+        f"by chol_inv forward route: {json.dumps(route_rates)}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

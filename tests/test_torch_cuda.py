@@ -517,3 +517,189 @@ def test_kron_mv_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
         km.kron_mv_2_cuda(A, B.cpu(), x)
     with pytest.raises(ValueError):
         km.kron_mv_2_cuda(A, B, x[:, :-1])
+
+
+# --- the training block and the serving chunk as CUDA graphs ---
+
+GRAPH_TOL = 1e-4  # relative; the same kernels run in the same order, so equal bits are expected
+
+
+def _graph_setup(cuda, K=10, B=256, seed=0):
+    """A small on/off model with both kernels on, its optimizer, and two
+    blocks of K batches on the card, staged into one static pair."""
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+    from zigp_tpu_torch.training import DataSet, cosine_adam, make_optimizer, stage_batches
+
+    split = synthetic_pptr(12, 120, seed=seed)
+    cfg = configs.OnOffPptrConfig(grid=configs.KronGridConfig(6, 20), batch_size=B)
+    model = build_onoff_pptr(cfg, split, use_kernel=True)
+    opt = make_optimizer(model, default_lr=1e-2, schedule=cosine_adam(100))
+    ds = DataSet(split.Xtrain, split.Ytrain, seed=3)
+    blocks = [stage_batches(ds, B, K, device=cuda, dtype=torch.float32) for _ in range(3)]
+    return model, opt, blocks
+
+
+def _twin(model):
+    """A copy of the model with its own optimizer, for the eager side."""
+    import copy
+
+    from zigp_tpu_torch.training import cosine_adam, make_optimizer
+
+    m = copy.deepcopy(model)
+    return m, make_optimizer(m, default_lr=1e-2, schedule=cosine_adam(100))
+
+
+def _rel_max(a, b):
+    return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+
+def test_graphed_block_matches_eager_and_counts_its_launches(cuda):
+    """A warm-up block (eager, on a side stream) on both twins, then 10 steps
+    by a replay of the captured block against 10 eager steps on the same
+    batches: the losses and the raws within GRAPH_TOL (reported), and the
+    replay counted as its kernels' launches."""
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import make_graphed_scan_step, make_scan_train_step
+
+    model, opt, blocks = _graph_setup(cuda)
+    twin, topt = _twin(model)
+    Xs, Ys = (b.clone() for b in blocks[0])
+    on_side_stream(lambda: make_scan_train_step(opt)(model, Xs, Ys))
+    make_scan_train_step(topt)(twin, Xs, Ys)
+    graphed = make_graphed_scan_step(opt, model, Xs, Ys)
+    Xs.copy_(blocks[1][0])
+    Ys.copy_(blocks[1][1])
+    g0, c0 = rg.rbf_gram_cuda.launches, ci.chol_inv_cuda.launches
+    got = graphed()
+    torch.cuda.synchronize()
+    assert (rg.rbf_gram_cuda.launches - g0, ci.chol_inv_cuda.launches - c0) == (10 * 4, 10 * 2)
+    want = make_scan_train_step(topt)(twin, *blocks[1])
+    err = _rel_max(got, want)
+    print(f"graphed vs eager, 10 steps: largest relative loss difference {err:.3e}")
+    assert torch.isfinite(got).all() and err <= GRAPH_TOL
+    for (n, a), b in zip(model.named_parameters(), twin.parameters()):
+        assert torch.allclose(a, b, rtol=GRAPH_TOL, atol=GRAPH_TOL * float(b.abs().max())), n
+    assert float(opt.step_count) == float(topt.step_count) == 20.0
+
+
+def test_restore_under_the_graph_matches_an_eager_restore(cuda, tmp_path):
+    """Checkpoint after the first replay, replay block 3, restore in place
+    and replay block 3 again: the same losses (the graph reads the restored
+    storage), equal to an eager twin restored from the same checkpoint."""
+    from zigp_tpu_torch.io.checkpoint import CheckpointManager
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import make_graphed_scan_step, make_scan_train_step
+
+    model, opt, blocks = _graph_setup(cuda)
+    Xs, Ys = (b.clone() for b in blocks[0])
+    on_side_stream(lambda: make_scan_train_step(opt)(model, Xs, Ys))
+    graphed = make_graphed_scan_step(opt, model, Xs, Ys)
+    Xs.copy_(blocks[1][0])
+    Ys.copy_(blocks[1][1])
+    graphed()
+    mgr = CheckpointManager(str(tmp_path / "ck"), every=10)
+    mgr.save_at(20, model, opt)
+    ptrs = [p.data_ptr() for p in model.parameters()] + [t.data_ptr() for ts in opt.state_tensors().values()
+                                                         for t in ts.values()]
+    Xs.copy_(blocks[2][0])
+    Ys.copy_(blocks[2][1])
+    first = graphed()
+    mgr.restore_latest(model, opt)
+    again = graphed()
+    twin, topt = _twin(model)
+    mgr.restore_latest(twin, topt)
+    eager = make_scan_train_step(topt)(twin, *blocks[2])
+    torch.cuda.synchronize()
+    assert ptrs == [p.data_ptr() for p in model.parameters()] + [t.data_ptr() for ts in opt.state_tensors().values()
+                                                                 for t in ts.values()]
+    assert torch.equal(first, again)
+    err = _rel_max(again, eager)
+    print(f"graphed restore vs eager restore, 10 steps: largest relative loss difference {err:.3e}")
+    assert err <= GRAPH_TOL
+
+
+def test_fit_scanned_and_fit_on_card_replay_their_graphs(cuda):
+    """fit_scanned (device sampler, blocks of 5) and the per-step fit run the
+    captured block on the card, count every step's launches, and say so."""
+    from zigp_tpu_torch.training import DataSet, fit, fit_scanned
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+
+    model, opt, _ = _graph_setup(cuda)
+    split = synthetic_pptr(12, 120, seed=0)
+    for name, run, steps in (
+        ("fit_scanned", lambda logs: fit_scanned(model, DataSet(split.Xtrain, split.Ytrain), num_iter=20,
+                                                 batch_size=256, num_inner=5, optimizer=opt, sampler="device",
+                                                 log_fn=logs.append), 20),
+        ("fit", lambda logs: fit(model, DataSet(split.Xtrain, split.Ytrain), num_iter=8, batch_size=256,
+                                 optimizer=opt, log_every=4, log_fn=logs.append), 8),
+    ):
+        logs = []
+        g0, c0 = rg.rbf_gram_cuda.launches, ci.chol_inv_cuda.launches
+        res = run(logs)
+        torch.cuda.synchronize()
+        assert any("graph" in line and "capture" in line for line in logs), (name, logs)
+        assert torch.isfinite(res.step_losses).all() and res.step_losses.shape == (steps,)
+        assert (rg.rbf_gram_cuda.launches - g0, ci.chol_inv_cuda.launches - c0) == (steps * 4, steps * 2), name
+
+
+def test_predict_batched_graph_matches_eager_chunks(cuda):
+    """predict_batched replays its captured chunk: every field equal to the
+    eager chunks' within 1e-6 relative, one chol_inv launch per factor and
+    chunk."""
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.experiments.runners import predict_batched
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+
+    split = synthetic_pptr(12, 120, seed=0)
+    model = build_onoff_pptr(configs.OnOffPptrConfig(grid=configs.KronGridConfig(6, 20)), split)
+    X = split.Xtrain[:1000]
+    c0 = ci.chol_inv_cuda.launches
+    got = predict_batched(model.predict, X, batch=256)
+    torch.cuda.synchronize()
+    assert ci.chol_inv_cuda.launches - c0 == 4 * 2
+    with torch.inference_mode():
+        for start in range(0, 1000, 256):
+            rows = torch.as_tensor(X[start:start + 256], dtype=torch.float32, device=cuda)
+            pad = 256 - rows.shape[0]
+            chunk = torch.cat([rows, rows[-1:].expand(pad, -1)]) if pad else rows
+            want = model.predict(chunk)._asdict()
+            for k, v in want.items():
+                a = torch.as_tensor(got[k][start:start + 256])
+                b = v[: 256 - pad].cpu()
+                assert float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)), 1e-30)) <= 1e-6, k
+
+
+def test_predict_batched_keeps_its_graph_across_calls(cuda):
+    """The second call replays the first call's graph for every chunk (no new
+    capture, each chunk's launches counted), and sees a parameter changed in
+    place; a copy of the model captures its own."""
+    import copy
+
+    from zigp_tpu_torch.experiments import configs, runners
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+
+    split = synthetic_pptr(12, 120, seed=0)
+    model = build_onoff_pptr(configs.OnOffPptrConfig(grid=configs.KronGridConfig(6, 20)), split)
+    X = split.Xtrain[:1000]
+    runners.predict_batched(model.predict, X, batch=256)
+    (graph,) = runners._CHUNK_GRAPHS[model].values()
+    with torch.no_grad():
+        model.f.q_mu.raw.add_(0.25)
+    c0 = ci.chol_inv_cuda.launches
+    got = runners.predict_batched(model.predict, X, batch=256)
+    torch.cuda.synchronize()
+    assert ci.chol_inv_cuda.launches - c0 == 4 * 2
+    assert list(runners._CHUNK_GRAPHS[model].values()) == [graph]
+    with torch.inference_mode():
+        want = model.predict(torch.as_tensor(X[:256], dtype=torch.float32, device=cuda))._asdict()
+    for k, v in want.items():
+        a, b = torch.as_tensor(got[k][:256]), v.cpu()
+        assert float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)), 1e-30)) <= 1e-6, k
+    twin = copy.deepcopy(model)
+    runners.predict_batched(twin.predict, X, batch=256)
+    (twin_graph,) = runners._CHUNK_GRAPHS[twin].values()
+    assert twin_graph is not graph

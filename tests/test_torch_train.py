@@ -45,12 +45,13 @@ from zigp_tpu_torch.ops import linalg as tlinalg
 from zigp_tpu_torch.ops.kernels import RBF as TRBF
 from zigp_tpu_torch.training import (
     DataSet,
+    StagedBlocks,
     cosine_adam,
     fit_scanned,
-    make_device_sampling_scan_step,
     make_optimizer,
     make_scan_train_step,
 )
+from zigp_tpu_torch.training.scan import block_seed
 
 from .test_golden import GOLDEN_KRON_ONOFF_ELBO, _kron_fixture
 
@@ -378,16 +379,23 @@ def test_dataset_batches_match_jax_across_epochs():
 
 
 def test_device_sampler_is_one_gather_of_seeded_indices():
-    """A device-sampled block equals the scanned step on the rows its seeded
-    generator picks, and the same seed picks the same rows."""
+    """A device-sampled block (``StagedBlocks.fill``) holds the rows its
+    block's seeded generator picks, in one gather; the scanned step on it
+    equals the step on those rows; the same block picks the same rows."""
     Zs, X, Y, _, _ = _kron_fixture()
     _, tm = _pair_models()
     _, tm2 = _pair_models()
-    step = make_device_sampling_scan_step(make_optimizer(tm), _t(X), _t(Y), 8)
-    losses = step(tm, 123, 5)
-    idx = torch.randint(0, X.shape[0], (40,), generator=torch.Generator().manual_seed(123))
+    blocks = StagedBlocks(DataSet(X, Y), "device", 8, 5, device="cpu", dtype=torch.float64, sampler_seed=3)
+    blocks.fill(7)
+    losses = make_scan_train_step(make_optimizer(tm))(tm, blocks.Xs, blocks.Ys)
+    idx = torch.randint(0, X.shape[0], (40,), generator=torch.Generator().manual_seed(block_seed(3, 7)))
     ref = make_scan_train_step(make_optimizer(tm2))(tm2, _t(X)[idx].reshape(5, 8, 3), _t(Y)[idx].reshape(5, 8, 1))
     np.testing.assert_array_equal(losses.numpy(), ref.numpy())
+    first = blocks.Xs.clone()
+    blocks.fill(8)
+    assert not torch.equal(blocks.Xs, first)
+    blocks.fill(7)
+    assert torch.equal(blocks.Xs, first)
 
 
 def _small_cfg(**kw):
@@ -423,7 +431,7 @@ def test_train_onoff_pptr_host_sampler_matches_fit_scanned_on_staged_batches():
 
 @pytest.mark.parametrize(
     "override",
-    [{"optimizer": "natgrad"}, {"hyper_every": 10}, {"mesh_data": 2}, {"scan_inner": 0}, {"num_iter": 5}],
+    [{"optimizer": "natgrad"}, {"hyper_every": 10}, {"mesh_data": 2}],
 )
 def test_train_onoff_pptr_raises_on_what_is_not_ported(override):
     split = synthetic_pptr(8, 24, seed=0)
@@ -431,7 +439,7 @@ def test_train_onoff_pptr_raises_on_what_is_not_ported(override):
         train_onoff_pptr(_small_cfg(**override), split, device="cpu")
 
 
-@pytest.mark.parametrize("arg", ["ckpt_manager", "metric_logger", "mesh", "alternating", "callback"])
+@pytest.mark.parametrize("arg", ["mesh", "alternating"])
 def test_fit_scanned_raises_on_what_is_not_ported(arg):
     _, tm = _pair_models()
     x, y = _kron_fixture()[1:3]

@@ -8,6 +8,8 @@ unconstrained value in both packages. ``forward`` runs on tensors;
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -78,8 +80,7 @@ class Sigmoid(Bijector):
         self.hi = float(hi_a[0]) if hi_a.size == 1 else tuple(map(float, hi_a))
 
     def forward(self, x):
-        lo = torch.as_tensor(self.lo, dtype=x.dtype, device=x.device)
-        hi = torch.as_tensor(self.hi, dtype=x.dtype, device=x.device)
+        lo, hi = _bounds(self.lo, self.hi, x.dtype, x.device)
         # stable logistic via tanh
         return lo + (hi - lo) * 0.5 * (torch.tanh(0.5 * x) + 1.0)
 
@@ -87,6 +88,15 @@ class Sigmoid(Bijector):
         y = np.asarray(y, dtype=np.float64)
         p = (y - np.asarray(self.lo)) / (np.asarray(self.hi) - np.asarray(self.lo))
         return np.log(p) - np.log1p(-p)
+
+
+@functools.lru_cache(maxsize=None)
+def _bounds(lo, hi, dtype: torch.dtype, device: torch.device):
+    """The bounds as tensors on ``device``, copied there once: a step then
+    makes no host-to-device copy (a CUDA graph capture refuses one). Built
+    outside any inference mode, so autograd may save them."""
+    with torch.inference_mode(False):
+        return (torch.as_tensor(lo, dtype=dtype, device=device), torch.as_tensor(hi, dtype=dtype, device=device))
 
 
 class FillLowerTriangular(Bijector):

@@ -55,9 +55,12 @@ class OnOffPptrConfig:
     q_mu_scale: float = 0.1
     seed: int = 0
     log_every: int = 200
+    ckpt_every: int = 10_000  # checkpoint cadence of a run with a workdir
+    hist_every: int = 0  # param/grad histogram cadence (the reference's 200 is costly)
+    monitor_every: int = 10_000  # cadence of the runner's monitor callback
     exact_owen_t: bool = False
     whiten: bool = False
-    scan_inner: int = 50  # optimizer steps per block of fit_scanned
+    scan_inner: int = 50  # optimizer steps per block of fit_scanned; 0 = the per-step fit
     lr_schedule: str = ""  # "" = constant; "cosine" = cosine decay over num_iter
     sampler: str = "host"  # "host" (shuffled epochs) | "device" (uniform, on the device)
     optimizer: str = "adam"  # "natgrad" is not ported

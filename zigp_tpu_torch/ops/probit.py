@@ -12,6 +12,7 @@ reference's closed-form lower bound or by 32-node Gauss–Legendre quadrature
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -30,12 +31,22 @@ def owen_t_bound(h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.arctan(a) / (2.0 * np.pi) * torch.exp(-0.5 * torch.square(h) * (torch.square(a) + 1.0))
 
 
+@functools.lru_cache(maxsize=None)
+def _legendre(order: int, dtype: torch.dtype, device: torch.device):
+    """Gauss–Legendre nodes and weights from numpy, copied to ``device``
+    once: a step then makes no host-to-device copy (a CUDA graph capture
+    refuses one). Built outside any inference mode, so autograd may save
+    them."""
+    nodes, weights = np.polynomial.legendre.leggauss(order)
+    with torch.inference_mode(False):
+        return (torch.as_tensor(nodes, dtype=dtype, device=device),
+                torch.as_tensor(weights, dtype=dtype, device=device))
+
+
 def owen_t_exact(h: torch.Tensor, a: torch.Tensor, order: int = 32) -> torch.Tensor:
     """Owen's T(h, a) = ∫₀ᵃ e^{−h²(1+t²)/2} / (2π(1+t²)) dt by Gauss–Legendre
-    quadrature on [0, a]; nodes and weights from numpy."""
-    nodes, weights = np.polynomial.legendre.leggauss(order)
-    nodes = torch.as_tensor(nodes, dtype=h.dtype, device=h.device)
-    weights = torch.as_tensor(weights, dtype=h.dtype, device=h.device)
+    quadrature on [0, a]."""
+    nodes, weights = _legendre(order, h.dtype, h.device)
     t = 0.5 * a[..., None] * (nodes + 1.0)
     w = 0.5 * a[..., None] * weights
     h2 = torch.square(h)[..., None]
