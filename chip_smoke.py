@@ -104,7 +104,30 @@ so any failure exits non-zero):
    are equal), launches exact. Then ``train_onoff_pptr`` on the flagship
    with a workdir, stopped by Ctrl-C after 2 of 4 blocks and resumed: equal
    to the uninterrupted run within 1e-4 (losses and raws).
-10. Times, beside the card's name and power limit: points/s of
+10. The other model families at full width on the same split, the JAX
+   package's ``preset_configs("best")``: ``tuned_svgp_config()`` (32 × 200,
+   whitened, Gaussian, B = 500), ``tuned_classifier_config()`` (32 × 200,
+   whitened, plug-in Bernoulli, B = 1000, the gram kernel on) and
+   ``HurdleJointConfig()`` (10 × 100, f and g stacked, LogNormal head,
+   B = 1000). Each built on the card in float32 with its raws moved off the
+   init; its loss and gradients on one batch against CPU float64 (the gate
+   of phase 7); two blocks of 50 steps through ``runners._fit_auto`` with
+   the configuration's sampler (one eager, one replay), finite losses and
+   exact launches (``chol_inv.cu`` 2 a step: G = 1 for the single GP, the
+   stacked pair for the hurdle; the classifier's ``rbf_gram`` 4 a step);
+   10 graphed steps against 10 eager (1e-4); 65,536 rows served through
+   ``predict_batched`` by the family's method (``predict_latent``,
+   ``predict_class``, ``predict``), one launch per factor and chunk, the
+   first 4096 rows within the serving gate of CPU float64, and a second call
+   that captures no new graph.
+11. One fold of the protocol end to end in one workdir: ``run_classifier``
+   (at its own 5000 steps), ``run_svgp``, ``run_hurdle`` (LogNormal head),
+   ``run_zero_inflated``, ``run_hurdle_joint`` and ``run_onoff`` at 100
+   steps, on the split's rows with targets from a seeded rain field
+   (``rain_split``: the split's own wet hours are random, so a classifier
+   calls no row "on" and the two-stage hurdle has nothing to train on).
+   Every metric, prediction and loss finite, every result pickle written.
+12. Times, beside the card's name and power limit: points/s of
    predict_batched (every chunk one replay of the model's chunk graph,
    captured by its first call) against the same chunks launched eagerly,
    median of 5 passes each, in turns, the graphed predictions within the
@@ -112,8 +135,8 @@ so any failure exits non-zero):
    eager against one replay each (flagship with the gram kernel on and
    off, champion, scale; median of 3 passes, in turns) with each graph's
    capture and instantiate times and pool size; steps/s of eager blocks
-   with each A/B route against production's (median of 3 passes of 2
-   blocks, in turns); the 105 × 250 serving pass with the production
+   with each A/B route against production's (median of 3 passes of one
+   block, in turns); the 105 × 250 serving pass with the production
    Kronecker solve and with the kron_mv_2 route, each on its own copy of
    the model (median of 5, in turns); both tiled
    Cholesky kernels at every panel width they are built for, at n = 100 and
@@ -125,8 +148,11 @@ so any failure exits non-zero):
    calls captured once in a CUDA graph, the replay timed with CUDA events),
    the plain version's (for kron_mv_2 also its device ms), the library's
    and the bound, each rbf_gram shape's output within 1e-5 relative of the
-   plain version's.
-11. A ``kernels`` JSON line (the kron_mv_2 rows with the serving path's
+   plain version's; each family's steps/s eager against graphed (median of
+   3 passes of 50 steps, in turns) and its serving points/s (graphed,
+   median of 5), and the fold protocol's wall time.
+13. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
+   and the hurdle's pair, and the classifier's ``rbf_gram`` rows at G = 1) (the kron_mv_2 rows with the serving path's
    launches by the instance the library ran), then the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
@@ -508,14 +534,22 @@ def read_counts() -> dict:
     return out
 
 
+def first_gp(model):
+    """The GP whose grams a step factors: a KronSVGP's one GP, or f of a
+    stacked pair (g's grams share its launches)."""
+    return model.gp if hasattr(model, "gp") else model.f
+
+
 def per_step_launches(model) -> tuple[int, int, int]:
     """(rbf_gram, chol_inv.cu, chol_inv_cluster.cu) launches of one training
-    step of the stacked f/g pair: K_mm and K_mn per factor; one chol_inv
-    launch per factor, chol_inv.cu to MAX_N and the cluster kernel above."""
+    step or serving chunk, a stacked f/g pair or a single GP alike: K_mm and
+    K_mn per factor whose gram kernel is on; one chol_inv launch per factor,
+    chol_inv.cu to MAX_N and the cluster kernel above."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
 
-    sizes = [Z.shape[0] for Z in model.f.Zs]
-    return 2 * len(sizes), sum(n <= ci.MAX_N for n in sizes), sum(n > ci.MAX_N for n in sizes)
+    gp = first_gp(model)
+    sizes = [Z.shape[0] for Z in gp.Zs]
+    return 2 * sum(gp.kernel_flags()), sum(n <= ci.MAX_N for n in sizes), sum(n > ci.MAX_N for n in sizes)
 
 
 LAUNCH_KEYS = ("rbf_gram", "chol_inv", "chol_inv_blocked")  # per_step_launches' order
@@ -603,13 +637,16 @@ def check_f32_against_cpu_f64(name, model, X, Y):
     card = loss_and_grads(model, X, Y)
     cpu64, cpu32 = (loss_and_grads(copy.deepcopy(model).to(device="cpu", dtype=dt), X, Y)
                     for dt in (torch.float64, torch.float32))
-    rows = [("loss", abs(card[0] - cpu64[0]) / abs(cpu64[0]), abs(cpu32[0] - cpu64[0]) / abs(cpu64[0]))]
-    rows += [(f"d {n}", rel(card[1][n], cpu64[1][n]), rel(cpu32[1][n], cpu64[1][n])) for n in cpu64[1]]
+    rows = [("loss", abs(card[0] - cpu64[0]) / abs(cpu64[0]), abs(cpu32[0] - cpu64[0]) / abs(cpu64[0]),
+             abs(card[0] - cpu32[0]) / abs(cpu32[0]))]
+    rows += [(f"d {n}", rel(card[1][n], cpu64[1][n]), rel(cpu32[1][n], cpu64[1][n]), rel(card[1][n], cpu32[1][n]))
+             for n in cpu64[1]]
     worst = 0.0
-    for what, e_card, e_cpu in rows:
+    for what, e_card, e_cpu, e_32 in rows:
         tol = max(3.0 * e_cpu, 1e-5)
         worst = max(worst, e_card / tol)
-        log(f"{name}: {what:32s} card f32 vs cpu f64 {e_card:.3e}, cpu f32 vs cpu f64 {e_cpu:.3e} (tol {tol:.3e})")
+        log(f"{name}: {what:32s} card f32 vs cpu f64 {e_card:.3e}, cpu f32 vs cpu f64 {e_cpu:.3e} (tol {tol:.3e}); "
+            f"card f32 vs cpu f32 {e_32:.3e}")
         if not e_card <= tol:
             raise AssertionError(f"{name}: {what} card error {e_card:.3e} > {tol:.3e}")
     log(f"{name}: loss and {len(rows) - 1} gradients within bound (largest share of its tolerance {worst:.2f})")
@@ -1407,8 +1444,8 @@ def eager_blocks(model, split, batch, inner=50):
 
 def time_train_routes(split, card) -> dict:
     """Flagship steps/s of eager blocks with each route of chol_inv's
-    forward against production's eager block: median of 3 passes of 2
-    blocks of 50, in turns."""
+    forward against production's eager block: median of 3 passes of one
+    block of 50, in turns."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
     from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
     from zigp_tpu_torch.ops import linalg
@@ -1434,10 +1471,10 @@ def time_train_routes(split, card) -> dict:
     order = list(runs)
     for rep in range(3):
         for name in order if rep % 2 == 0 else order[::-1]:
-            runs[name][2].append(run(name, 1 + 2 * rep, 2))
+            runs[name][2].append(run(name, 1 + rep, 1))
     rate = {name: float(np.median(r[2])) for name, r in runs.items()}
     log("time flagship training by chol_inv forward route, eager blocks (device sampler, B=1000, median of 3 "
-        "passes of 100 steps, in turns): "
+        "passes of 50 steps, in turns): "
         + ", ".join(f"{n} {rate[n]:.1f} steps/s {[round(v, 1) for v in runs[n][2]]}" for n in runs) + f"; {card}")
     return rate
 
@@ -1456,25 +1493,31 @@ def train_cfgs() -> dict:
 
 
 def optimizer_for(model, cfg):
+    """The runners' Adam for ``cfg``: the on/off config's ``indp_lr``, the
+    families' ``lr``."""
     from zigp_tpu_torch.training import cosine_adam, make_optimizer
 
-    return make_optimizer(model, default_lr=cfg.indp_lr,
-                          schedule=cosine_adam(cfg.num_iter) if cfg.lr_schedule == "cosine" else None)
+    lr = cfg.indp_lr if hasattr(cfg, "indp_lr") else cfg.lr
+    return make_optimizer(model, default_lr=lr, schedule=cosine_adam(cfg.num_iter) if cfg.lr_schedule == "cosine"
+                          else None)
 
 
-def phase_graph_ab(name, cfg, split) -> float:
-    """From one model, a warm-up block of 10 eager steps on a side stream on
-    each of two copies, then 10 steps by one replay of the captured block
-    against 10 eager steps on the same batches: the largest relative
-    difference of the 10 losses within GRAPH_TOL, each run's launches
-    exact (the replay's counted from its capture)."""
+def phase_graph_ab(name, cfg, split, base=None, Y=None) -> float:
+    """From one model (``base``, by default the on/off model of ``cfg`` with
+    the gram kernel on), a warm-up block of 10 eager steps on a side stream
+    on each of two copies, then 10 steps by one replay of the captured block
+    against 10 eager steps on the same batches (targets ``Y``, by default
+    the split's): the largest relative difference of the 10 losses within
+    GRAPH_TOL, each run's launches exact (the replay's counted from its
+    capture)."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
     from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
     from zigp_tpu_torch.training import DataSet, make_graphed_scan_step, make_scan_train_step, stage_batches
 
-    base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
+    if base is None:
+        base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
     per_step = per_step_launches(base)
-    ds = DataSet(split.Xtrain, split.Ytrain, seed=3)
+    ds = DataSet(split.Xtrain, split.Ytrain if Y is None else Y, seed=3)
     warm, timed = (stage_batches(ds, cfg.batch_size, AB_STEPS, device=DEVICE, dtype=torch.float32) for _ in range(2))
     out = {}
     for path in ("eager", "graphed"):
@@ -1547,63 +1590,326 @@ def phase_resume(split) -> None:
         raise AssertionError(f"resume: the resumed run left the uninterrupted one ({loss_err:.3e}, {raw_err:.3e})")
 
 
-def time_graphed_training(split, card) -> dict:
-    """Steps/s of blocks of 50 device-sampled steps, eager against one
-    replay of the captured block, from one warm-up block each (on a side
-    stream): median of 3 passes each, in turns (flagship 4 blocks a pass,
-    with the gram kernel on and off; champion and scale 2, kernel on), host
-    clock around work that ends in a synchronise; with each graph's capture
-    and instantiate times and pool."""
-    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+def time_blocks(name, make_model, cfg, X, Y, blocks, card, note) -> dict:
+    """Steps/s of blocks of 50 device-sampled steps of ``make_model()`` on
+    (X, Y), eager against one replay of the captured block, from one warm-up
+    block each (on a side stream): median of 3 passes of ``blocks`` blocks
+    each, in turns, host clock around work that ends in a synchronise; with
+    the graph's capture and instantiate times and pool."""
     from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
     from zigp_tpu_torch.training import DataSet, make_graphed_scan_step, make_scan_train_step
     from zigp_tpu_torch.training.scan import StagedBlocks
 
     inner = 50
-    out = {}
+    runs = {}
+    for path in ("eager", "graphed"):
+        m = make_model()
+        opt = optimizer_for(m, cfg)
+        st = StagedBlocks(DataSet(X, Y), "device", cfg.batch_size, inner, device=DEVICE, dtype=torch.float32)
+        eager = make_scan_train_step(opt)
+        st.fill(0)
+        on_side_stream(lambda: eager(m, st.Xs, st.Ys))
+        run = make_graphed_scan_step(opt, m, st.Xs, st.Ys) if path == "graphed" else (
+            lambda eager=eager, m=m, st=st: eager(m, st.Xs, st.Ys))
+        runs[path] = (st, run, [])
+
+    def timed(path, first):
+        st, run, _ = runs[path]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(blocks):
+            st.fill(first + b)
+            losses = run()
+        torch.cuda.synchronize()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"time {name} {path}: non-finite losses")
+        return blocks * inner / (time.perf_counter() - t0)
+
+    for rep in range(3):
+        for path in (("eager", "graphed") if rep % 2 == 0 else ("graphed", "eager")):
+            runs[path][2].append(timed(path, 1 + blocks * rep))
+    rate = {path: float(np.median(r[2])) for path, r in runs.items()}
+    g = runs["graphed"][1].graph
+    log(f"time training {name}, B={cfg.batch_size}, blocks of {inner} (device sampler, {note}): eager "
+        f"{rate['eager']:.1f} steps/s {[round(v, 1) for v in runs['eager'][2]]}, graphed {rate['graphed']:.1f} "
+        f"steps/s {[round(v, 1) for v in runs['graphed'][2]]} (median of 3 passes of {blocks * inner} steps, in "
+        f"turns); block graph: {g.describe()}; {card}")
+    return {**rate, "capture_ms": g.capture_ms, "instantiate_ms": g.instantiate_ms, "pool_mib": g.pool_bytes / 2**20}
+
+
+def time_graphed_training(split, card) -> dict:
+    """``time_blocks`` of the on/off configurations, 2 blocks a pass: the
+    flagship with the gram kernel on and off, champion and scale with it on."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+
     cases = [(name, cfg, True) for name, cfg in train_cfgs().items()]
     cases.insert(1, ("flagship, gram kernel off", train_cfgs()["flagship"], False))
-    for name, cfg, use_kernel in cases:
-        blocks = 4 if name.startswith("flagship") else 2
-        runs = {}
-        for path in ("eager", "graphed"):
-            m = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=use_kernel)
-            opt = optimizer_for(m, cfg)
-            st = StagedBlocks(DataSet(split.Xtrain, split.Ytrain), "device", cfg.batch_size, inner, device=DEVICE,
-                              dtype=torch.float32)
-            eager = make_scan_train_step(opt)
-            st.fill(0)
-            on_side_stream(lambda: eager(m, st.Xs, st.Ys))
-            run = make_graphed_scan_step(opt, m, st.Xs, st.Ys) if path == "graphed" else (
-                lambda eager=eager, m=m, st=st: eager(m, st.Xs, st.Ys))
-            runs[path] = (st, run, [])
+    return {
+        name: time_blocks(name, lambda cfg=cfg, k=use_kernel: build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=k),
+                          cfg, split.Xtrain, split.Ytrain, 2, card,
+                          f"gram kernel {'on' if use_kernel else 'off'}")
+        for name, cfg, use_kernel in cases
+    }
 
-        def timed(path, first):
-            st, run, _ = runs[path]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for b in range(blocks):
-                st.fill(first + b)
-                losses = run()
-            torch.cuda.synchronize()
-            if not torch.isfinite(losses).all():
-                raise AssertionError(f"time {name} {path}: non-finite losses")
-            return blocks * inner / (time.perf_counter() - t0)
 
-        for rep in range(3):
-            for path in (("eager", "graphed") if rep % 2 == 0 else ("graphed", "eager")):
-                runs[path][2].append(timed(path, 1 + blocks * rep))
-        rate = {path: float(np.median(r[2])) for path, r in runs.items()}
-        g = runs["graphed"][1].graph
-        log(f"time training {name}, B={cfg.batch_size}, blocks of {inner} (device sampler, gram kernel "
-            f"{'on' if use_kernel else 'off'}): eager "
-            f"{rate['eager']:.1f} steps/s {[round(v, 1) for v in runs['eager'][2]]}, graphed {rate['graphed']:.1f} "
-            f"steps/s {[round(v, 1) for v in runs['graphed'][2]]} (median of 3 passes of {blocks * inner} steps, in "
-            f"turns); block graph: {g.describe()}; {card}")
-        out[name] = {**rate, "capture_ms": g.capture_ms, "instantiate_ms": g.instantiate_ms,
-                     "pool_mib": g.pool_bytes / 2**20}
-        del runs
-    return out
+# --- the other model families: Kronecker SVGP, the classifier, the joint hurdle ---
+
+# name: (its preset_configs("best") key, the gram kernel on, the serving method)
+FAMILIES = {
+    "svgp": ("svgp", False, "predict_latent"),
+    "classifier": ("classifier", True, "predict_class"),
+    "hurdlej": ("hurdlej", False, "predict"),
+}
+FAMILY_STEPS = 100  # two blocks of 50: one eager, one replay
+
+
+def family_cfg(name):
+    """The family's configuration of the JAX package's ``preset_configs("best")``
+    (tuned_svgp_config, tuned_classifier_config, HurdleJointConfig), cut to
+    two blocks of 50 steps."""
+    from zigp_tpu_torch.experiments.configs import preset_configs
+
+    return dataclasses.replace(preset_configs("best")[FAMILIES[name][0]], num_iter=FAMILY_STEPS, scan_inner=50,
+                               log_every=50)
+
+
+def build_family(name, cfg, split):
+    from zigp_tpu_torch.experiments import builders
+
+    build = {"svgp": builders.build_svgp_pptr, "classifier": builders.build_classifier_pptr,
+             "hurdlej": builders.build_hurdle_joint_pptr}[name]
+    return build(cfg, split, device=DEVICE, dtype=torch.float32, use_kernel=FAMILIES[name][1])
+
+
+def family_targets(name, Y):
+    """The targets the family trains on: the classifier's binarized."""
+    from zigp_tpu_torch.experiments.builders import binarize_targets
+
+    return binarize_targets(Y) if name == "classifier" else Y
+
+
+def check_serving_against_cpu(name, model, method, out, X):
+    """The first CHECK_ROWS rows of every field within max(3 × the CPU f32
+    run's error, 1e-5) of the same model on the CPU in float64."""
+    from zigp_tpu_torch.experiments.runners import predict_batched
+
+    ref = {}
+    for dt in (torch.float64, torch.float32):
+        cpu = copy.deepcopy(model).to(device="cpu", dtype=dt)
+        ref[dt] = predict_batched(getattr(cpu, method), X[:CHECK_ROWS], batch=CHECK_ROWS, device="cpu", dtype=dt)
+    for k in ref[torch.float64]:
+        e_card = rel(out[k][:CHECK_ROWS], ref[torch.float64][k])
+        e_cpu = rel(ref[torch.float32][k], ref[torch.float64][k])
+        tol = max(3.0 * e_cpu, 1e-5)
+        log(f"{name}: {k:6s} card f32 vs cpu f64 {e_card:.3e}, cpu f32 vs cpu f64 {e_cpu:.3e} (tol {tol:.3e}); "
+            f"card f32 vs cpu f32 {rel(out[k][:CHECK_ROWS], ref[torch.float32][k]):.3e}")
+        if not e_card <= tol:
+            raise AssertionError(f"{name}: {k} card error {e_card:.3e} > {tol:.3e}")
+
+
+def phase_family(name, split) -> dict:
+    """One family at full width on the card in float32: its model with the
+    raws moved off the init; the loss and gradients on one batch against CPU
+    float64; two blocks of 50 steps through ``_fit_auto`` with the
+    configuration's sampler (one eager, one replay), finite losses and exact
+    launches; 10 graphed steps against 10 eager (GRAPH_TOL); 65,536 rows
+    served through ``predict_batched`` (one launch per factor and chunk, the
+    first rows within the serving gate of CPU float64), and a second call
+    that captures no new graph. Returns the model, its training launches,
+    its serving launches and its serving rows."""
+    from zigp_tpu_torch.experiments.runners import _CHUNK_GRAPHS, _fit_auto, predict_batched
+    from zigp_tpu_torch.training import DataSet
+
+    cfg = family_cfg(name)
+    method = FAMILIES[name][2]
+    Y = family_targets(name, split.Ytrain)
+    t0 = time.perf_counter()
+    model = perturbed(build_family(name, cfg, split), seed=2)
+    sizes = [Z.shape[0] for Z in first_gp(model).Zs]
+    per_step = per_step_launches(model)
+    G = 2 if name == "hurdlej" else 1
+    if name == "hurdlej" and not model._pairable():
+        raise AssertionError("hurdlej: f and g do not run as one stacked pass")
+    log(f"family {name}: {type(model).__name__}, factors {sizes}, G={G}, B={cfg.batch_size}, sampler {cfg.sampler}, "
+        f"whiten {cfg.whiten}, likelihood {type(getattr(model, 'likelihood', getattr(model, 'amount_likelihood', None))).__name__}, "
+        f"gram kernel {'on' if FAMILIES[name][1] else 'off'}; built in {time.perf_counter() - t0:.1f} s")
+    check_f32_against_cpu_f64(f"family {name}", model, split.Xtrain[:cfg.batch_size], Y[:cfg.batch_size])
+
+    zero_counts()
+    res = _fit_auto(model, DataSet(split.Xtrain, Y), cfg, learning_rate=cfg.lr, kind=name,
+                    log_fn=lambda s: log(f"family {name} train: {s}"))
+    torch.cuda.synchronize()
+    train_counts = read_counts()
+    steps = res.step_losses.numel()
+    log(f"family {name} train: {steps} steps through _fit_auto, block mean losses "
+        f"{[f'{b:.6g}' for b in res.step_losses.double().reshape(-1, 50).mean(1).tolist()]}; launches rbf_gram "
+        f"{train_counts['rbf_gram']} {train_counts['rbf_gram_by_shape']}, chol_inv.cu {train_counts['chol_inv']} "
+        f"{train_counts['chol_inv_by_n']} (expected {steps} x {per_step})")
+    if steps != FAMILY_STEPS or not torch.isfinite(res.step_losses).all():
+        raise AssertionError(f"family {name}: {steps} steps, finite {bool(torch.isfinite(res.step_losses).all())}")
+    check_launches(f"family {name} train", train_counts, steps, per_step)
+
+    phase_graph_ab(f"family {name}", cfg, split, base=model, Y=Y)
+
+    X = np.asarray(split.Xtrain[:ROWS])
+    batch, chunks = 4096, math.ceil(ROWS / 4096)
+    serve_counts = []
+    for call in range(2):
+        graphs_before = dict(_CHUNK_GRAPHS.get(model, {}))
+        zero_counts()
+        out = predict_batched(getattr(model, method), X, batch=batch, device=DEVICE)
+        torch.cuda.synchronize()
+        serve_counts.append(read_counts())
+        check_launches(f"family {name} serving call {call + 1}", serve_counts[-1], chunks, per_step)
+        graphs = _CHUNK_GRAPHS.get(model, {})
+        new = [k for k in graphs if graphs_before.get(k) is not graphs[k]]
+        log(f"family {name} serving call {call + 1}: {X.shape[0]} rows by {method} in {chunks} chunks of {batch}: "
+            f"launches chol_inv.cu {serve_counts[-1]['chol_inv']}, rbf_gram {serve_counts[-1]['rbf_gram']} "
+            f"(expected {chunks} x {per_step}); graphs captured {len(new)}")
+        if len(new) != (1 if call == 0 else 0):
+            raise AssertionError(f"family {name}: serving call {call + 1} captured {len(new)} graphs")
+        for k, v in out.items():
+            if v.shape[0] != X.shape[0] or not np.isfinite(v).all():
+                raise AssertionError(f"family {name}: {k} has shape {v.shape} or non-finite values")
+    check_serving_against_cpu(f"family {name}", model, method, out, X)
+    return {"model": model, "train": train_counts, "serve": serve_counts[0], "X": X, "method": method}
+
+
+def time_family_serving(name, model, method, X, card) -> float:
+    """Points/s of predict_batched at batch 4096 (every chunk one replay of
+    the model's chunk graph): median of 5 warm passes."""
+    from zigp_tpu_torch.experiments.runners import predict_batched
+
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        predict_batched(getattr(model, method), X, batch=4096, device=DEVICE)
+        times.append(time.perf_counter() - t0)
+    pts = X.shape[0] / float(np.median(times))
+    log(f"time family {name}: serve {X.shape[0]} rows by {method} at batch 4096, graphed {pts:.1f} points/s "
+        f"{[round(X.shape[0] / t) for t in times]} (median of 5); {card}")
+    return pts
+
+
+def rain_split(split, seed: int = 1):
+    """The split's rows with targets from a seeded rain field moving over
+    the station box: z = sin 2π(lat/10 + h/72) + cos 2π(lon/11 − h/100) (h in
+    hours), wet where z exceeds its 89.8 % quantile (the real set's dry
+    share), amounts exponential(1). The split's own targets are wet at
+    random, with nothing for a classifier to call "on"; the fold protocol's
+    two-stage hurdle trains on what its classifier calls "on"."""
+    from zigp_tpu_torch.io.datasets import PPTR_ZERO_FRAC, Split
+
+    def field(X):
+        lat, lon, hour = X[:, 0], X[:, 1], X[:, 2] * 1000.0
+        return np.sin(2 * np.pi * (lat / 10.0 + hour / 72.0)) + np.cos(2 * np.pi * (lon / 11.0 - hour / 100.0))
+
+    zt, ze = field(split.Xtrain), field(split.Xtest)
+    q = np.quantile(np.concatenate([zt, ze]), PPTR_ZERO_FRAC)
+    rng = np.random.RandomState(seed)
+    wet = lambda z: np.where(z > q, rng.exponential(1.0, z.shape), 0.0)[:, None]
+    return Split(split.Xtrain, wet(zt), split.Xtest, wet(ze))
+
+
+def non_finite(results, path="") -> list:
+    """The entries of a runner's results (metrics, predictions, indices,
+    losses; not the model) that are not finite."""
+    bad = []
+    for k, v in results.items():
+        if k == "model":
+            continue
+        if isinstance(v, dict):
+            bad += non_finite(v, f"{path}{k}.")
+        elif not np.isfinite(np.asarray(v, dtype=np.float64)).all():
+            bad.append(f"{path}{k}")
+    return bad
+
+
+FOLD_CLASSIFIER_STEPS = 5000  # tuned_classifier_config's own num_iter
+
+
+def phase_fold_protocol(split, card) -> float:
+    """One fold of the experiment's protocol end to end on the card, every
+    variant in one shared workdir: run_classifier, run_svgp, run_hurdle
+    (LogNormal head), run_zero_inflated, run_hurdle_joint and run_onoff, the
+    ``preset_configs("best")`` configurations at num_iter 100 (scan_inner 50),
+    the classifier at its own FOLD_CLASSIFIER_STEPS, on ``rain_split(split)``.
+    Every metric, prediction and loss finite, each variant's result pickle
+    written. Returns the wall time in seconds."""
+    import tempfile
+
+    from zigp_tpu_torch.experiments import runners
+    from zigp_tpu_torch.experiments.configs import preset_configs
+
+    best = preset_configs("best")
+    short = lambda cfg, **kw: dataclasses.replace(cfg, num_iter=100, scan_inner=50, log_every=50, **kw)
+    data = rain_split(split)
+    quiet = lambda s: None
+    t0 = time.perf_counter()
+    res, walls = {}, {}
+    with tempfile.TemporaryDirectory() as wd:
+        kw = dict(workdir=wd, log_fn=quiet)
+        runs = {
+            "classifier": lambda: runners.run_classifier(
+                data, dataclasses.replace(best["classifier"], num_iter=FOLD_CLASSIFIER_STEPS, log_every=1000),
+                use_kernel=True, **kw),
+            "svgp": lambda: runners.run_svgp(data, short(best["svgp"]), **kw),
+            "hurdle": lambda: runners.run_hurdle(data, res["classifier"], short(best["svgp"], likelihood="lognormal"),
+                                                 **kw),
+            "zi": lambda: runners.run_zero_inflated(data, res["classifier"], res["svgp"], **kw),
+            "hurdlej": lambda: runners.run_hurdle_joint(data, short(best["hurdlej"]), **kw),
+            "onoff": lambda: runners.run_onoff(data, short(best["onoff"]), **kw),
+        }
+        for variant, run in runs.items():
+            t1 = time.perf_counter()
+            res[variant] = run()
+            torch.cuda.synchronize()
+            walls[variant] = round(time.perf_counter() - t1, 1)
+        wall = time.perf_counter() - t0
+        pickles = sorted(f for f in os.listdir(wd) if f.startswith("results_"))
+    want = sorted(f"results_{v}.pickle" for v in ("scgp", "svgp", "hurdle", "zi", "hurdlej", "onoff"))
+    on = res["hurdle"]
+    log(f"fold protocol on the rain field (wet {np.mean(data.Ytrain > 0):.3f}): classifier test auc "
+        f"{res['classifier']['test_auc']:.4f} after {FOLD_CLASSIFIER_STEPS} steps, 'on' {len(on['train_pred_on_idx'])} "
+        f"train / {len(on['test_pred_on_idx'])} test rows; test rmse svgp {res['svgp']['test_rmse']:.4f}, hurdle "
+        f"{on['test_hurdle_comb_rmse']:.4f} (nlpd {on['test_hurdle_nlpd']:.4f}, crps {on['test_crps']:.4f}), zi "
+        f"{res['zi']['test_zi_prob_reg_rmse']:.4f}, hurdlej {res['hurdlej']['test_hurdle_comb_rmse']:.4f} (gate auc "
+        f"{res['hurdlej']['test_gate_auc']:.4f}), onoff {res['onoff']['test_rmse']:.4f} (crps "
+        f"{res['onoff']['test_crps']:.4f}); pickles {pickles}; wall {wall:.1f} s, by runner {walls} (training, "
+        f"serving and the host's float64 scoring); {card}")
+    bad = {v: non_finite(r) for v, r in res.items() if non_finite(r)}
+    if bad or pickles != want:
+        raise AssertionError(f"fold protocol: non-finite {bad}, pickles {pickles} (expected {want})")
+    return wall
+
+
+def family_rows(ci, rg, families: dict, card) -> list:
+    """The kernels-line rows of the families' paths: chol_inv.cu at each
+    (G, n, n) with its training and serving launches on those paths, and
+    rbf_gram at each training shape of the classifier."""
+    by_shape = {}  # (G, n): {family: (training, serving) launches}
+    for name, fam in families.items():
+        G = 2 if name == "hurdlej" else 1
+        for n, train in fam["train"]["chol_inv_by_n"].items():
+            by_shape.setdefault((G, n), {})[name] = (train, fam["serve"]["chol_inv_by_n"].get(n, 0))
+    rows = []
+    for (G, n), paths in sorted(by_shape.items()):
+        launches = sum(t + s for t, s in paths.values())
+        ms, device_ms, plain_ms, lib_ms, err = time_chol_inv(ci, n, G)
+        b_ms, b_by = bound_ms(n, G)
+        where = ", ".join(f"{name} training {t}, serving {s}" for name, (t, s) in paths.items())
+        kname = f"chol_inv n={n} G={G} (families: {where})"
+        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg "
+            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; "
+            f"{card}")
+        rows.append({
+            "name": kname, "route": "cuda", "source": "zigp_tpu_torch/ops/cuda/csrc/chol_inv.cu",
+            "replaces": "zigp_tpu/ops/pallas/chol_inv.py:339", "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        })
+    rows += gram_rows(rg, {f"family {name} training": fam["train"] for name, fam in families.items()
+                           if fam["train"]["rbf_gram"]}, card)
+    return rows
 
 
 def main() -> int:
@@ -1617,6 +1923,7 @@ def main() -> int:
     from zigp_tpu_torch.ops.cuda import rbf_gram as rg
 
     t_start = time.perf_counter()
+    mark = lambda what: log(f"elapsed {time.perf_counter() - t_start:.1f} s: {what} done")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1634,6 +1941,7 @@ def main() -> int:
     phase_chol_gate()
     phase_kron_gate()
     phase_tri_inv_gate()
+    mark("kernel gates")
 
     t0 = time.perf_counter()
     split = synthetic_pptr(105, 1080, seed=0)
@@ -1652,6 +1960,7 @@ def main() -> int:
     serve_counts["scale 105x250"] = phase_serving_kron_mv("scale 105x250", scale_model, scale_X, 4096, ref)
     scale_sizes = [Z.shape[0] for Z in scale_model.f.Zs]
     del ref
+    mark("serving phases")
 
     train_cfg = dataclasses.replace(OnOffPptrConfig(), num_iter=200, scan_inner=50, sampler="device", log_every=50)
     train_counts = {"flagship train": phase_train("flagship", train_cfg, split, check=True)[1]}
@@ -1665,6 +1974,9 @@ def main() -> int:
     train_counts["scale train"] = phase_train("scale 105x250 B=8192", scale_train, split)[1]
     graph_ab = {name: phase_graph_ab(name, cfg, split) for name, cfg in train_cfgs().items()}
     phase_resume(split)
+    mark("training phases")
+    families = {name: phase_family(name, split) for name in FAMILIES}
+    mark("family phases")
 
     pts = {name: time_predict(name, m, X, batch, card, ref) for name, (m, X, _, ref, batch) in runs.items()}
     pts["scale 105x250 by solve route"] = time_serving_kron_mv(scale_model, scale_X, 4096, card)
@@ -1674,6 +1986,16 @@ def main() -> int:
     time_panel_widths(card)
     time_blocked_routes(card)
     time_kron_instances(card)
+    mark("on/off times")
+    for name, fam in families.items():
+        cfg = family_cfg(name)
+        graphed_rates[f"family {name}"] = time_blocks(
+            f"family {name}", lambda m=fam["model"]: copy.deepcopy(m), cfg, split.Xtrain,
+            family_targets(name, split.Ytrain), 1, card, f"gram kernel {'on' if FAMILIES[name][1] else 'off'}")
+        pts[f"family {name}"] = time_family_serving(name, fam["model"], fam["method"], fam["X"], card)
+    mark("family times")
+    fold_wall = phase_fold_protocol(split, card)
+    mark("fold protocol")
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
@@ -1703,10 +2025,12 @@ def main() -> int:
 
     kernels += gram_rows(rg, train_counts, card)
     kernels += ab_rows(route_counts, serve_counts, card)
+    kernels += family_rows(ci, rg, families, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
-        f"by chol_inv forward route: {json.dumps(route_rates)}; total {time.perf_counter() - t_start:.1f} s")
+        f"by chol_inv forward route: {json.dumps(route_rates)}; fold protocol {fold_wall:.1f} s; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -703,3 +703,80 @@ def test_predict_batched_keeps_its_graph_across_calls(cuda):
     runners.predict_batched(twin.predict, X, batch=256)
     (twin_graph,) = runners._CHUNK_GRAPHS[twin].values()
     assert twin_graph is not graph
+
+
+# --- the other model families on the card ---
+
+
+def _family(name, split):
+    """A small model of each family, its training targets and its serving
+    method: the SVGP (Gaussian), the classifier (Gauss–Hermite Bernoulli,
+    gram kernel on) and the joint hurdle (Gamma head, f and g stacked)."""
+    from zigp_tpu_torch.experiments import builders, configs
+
+    grid = configs.KronGridConfig(6, 20)
+    if name == "svgp":
+        return builders.build_svgp_pptr(configs.SvgpPptrConfig(grid=grid), split), split.Ytrain, "predict_latent"
+    if name == "classifier":
+        model = builders.build_classifier_pptr(configs.ClassifierPptrConfig(grid=grid, num_gh=20), split,
+                                               use_kernel=True)
+        return model, builders.binarize_targets(split.Ytrain), "predict_class"
+    model = builders.build_hurdle_joint_pptr(configs.HurdleJointConfig(grid=grid, likelihood="gamma"), split)
+    return model, split.Ytrain, "predict"
+
+
+@pytest.mark.parametrize("name", ["svgp", "classifier", "hurdlej"])
+def test_family_graphed_block_matches_eager_and_counts_its_launches(cuda, name):
+    """A family's block of 10 steps by one replay against 10 eager steps on
+    the same batches (GH nodes and lgamma constants inside the capture):
+    losses within GRAPH_TOL, chol_inv 2 launches a step (G = 1 for one GP,
+    the stacked pair for the hurdle), rbf_gram 4 a step with the kernel on."""
+    import copy
+
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, make_graphed_scan_step, make_optimizer, make_scan_train_step
+    from zigp_tpu_torch.training import stage_batches
+
+    split = synthetic_pptr(12, 120, seed=0)
+    model, Y, _ = _family(name, split)
+    twin = copy.deepcopy(model)
+    opt, topt = make_optimizer(model, default_lr=1e-2), make_optimizer(twin, default_lr=1e-2)
+    ds = DataSet(split.Xtrain, Y, seed=3)
+    blocks = [stage_batches(ds, 256, 10, device=cuda, dtype=torch.float32) for _ in range(2)]
+    Xs, Ys = (b.clone() for b in blocks[0])
+    on_side_stream(lambda: make_scan_train_step(opt)(model, Xs, Ys))
+    make_scan_train_step(topt)(twin, Xs, Ys)
+    graphed = make_graphed_scan_step(opt, model, Xs, Ys)
+    Xs.copy_(blocks[1][0])
+    Ys.copy_(blocks[1][1])
+    g0, c0 = rg.rbf_gram_cuda.launches, ci.chol_inv_cuda.launches
+    got = graphed()
+    torch.cuda.synchronize()
+    grams = 4 if name == "classifier" else 0
+    assert (rg.rbf_gram_cuda.launches - g0, ci.chol_inv_cuda.launches - c0) == (10 * grams, 10 * 2)
+    want = make_scan_train_step(topt)(twin, *blocks[1])
+    err = _rel_max(got, want)
+    print(f"{name}: graphed vs eager, 10 steps: largest relative loss difference {err:.3e}")
+    assert torch.isfinite(got).all() and err <= GRAPH_TOL
+
+
+@pytest.mark.parametrize("name", ["svgp", "classifier", "hurdlej"])
+def test_family_serving_keeps_its_graph_across_calls(cuda, name):
+    """Serving a family by its bound method captures once: a second call
+    (and a second runner-style eval on the same model) replays it."""
+    from zigp_tpu_torch.experiments import runners
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+
+    split = synthetic_pptr(12, 120, seed=0)
+    model, _, method = _family(name, split)
+    X = split.Xtrain[:1000]
+    first = runners.predict_batched(getattr(model, method), X, batch=256)
+    (graph,) = runners._CHUNK_GRAPHS[model].values()
+    c0 = ci.chol_inv_cuda.launches
+    again = runners.predict_batched(getattr(model, method), X, batch=256)
+    torch.cuda.synchronize()
+    assert ci.chol_inv_cuda.launches - c0 == 4 * 2
+    assert list(runners._CHUNK_GRAPHS[model].values()) == [graph]
+    for k in first:
+        assert np.array_equal(first[k], again[k]) and np.isfinite(first[k]).all(), k

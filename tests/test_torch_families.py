@@ -1,0 +1,341 @@
+"""The port's other model families against the JAX package, on the CPU.
+
+``KronSVGP`` (Gaussian, LogNormal and Gamma regression heads, the probit
+classifier with the plug-in and the Gauss–Hermite Bernoulli) and
+``KronHurdleSVGP`` (the jointly trained hurdle, each amount head), on the
+golden Kron fixture (``tests/test_golden.py``) in float64, the JAX raws
+carried into the port by name (``io.convert``):
+
+- the golden SVGP and classifier ELBOs at rtol 1e-10;
+- the ELBO at rtol 1e-10 and every raw's gradient against ``jax.grad`` at
+  rtol 1e-8, for each head, whitened and not, q ``diag`` and ``kron``;
+- the hurdle paired equal to unpaired, finite gradients with zeros in Y,
+  and an injected ``factor_state`` equal to the ELBO computed in place;
+- 20 scanned Adam steps of each family against the JAX package's scanned
+  step at rtol 1e-8;
+- the likelihoods' predictive moments and NLPDs, the Gauss–Hermite nodes,
+  and a warm GH or Gamma step building no tensor from host data (a
+  host-to-device copy, which a CUDA graph capture refuses).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from zigp_tpu import likelihoods as jlik
+from zigp_tpu.models import KronHurdleSVGP as JKronHurdleSVGP
+from zigp_tpu.models import KronSVGP as JKronSVGP
+from zigp_tpu.ops import quadrature as jquad
+from zigp_tpu.ops.kernels import RBF as JRBF
+from zigp_tpu.training import make_optimizer as jmake_optimizer
+from zigp_tpu.training import make_scan_train_step as jmake_scan_train_step
+from zigp_tpu_torch import likelihoods as tlik
+from zigp_tpu_torch.io.convert import dump_arrays, jax_key, load_jax_arrays
+from zigp_tpu_torch.models import KronHurdleSVGP, KronSVGP
+from zigp_tpu_torch.ops import quadrature as tquad
+from zigp_tpu_torch.ops.kernels import RBF as TRBF
+from zigp_tpu_torch.training import make_optimizer, make_scan_train_step
+
+from .test_golden import GOLDEN_KRON_CLF_ELBO, GOLDEN_KRON_SVGP_ELBO, _kron_fixture
+from .test_torch_train import _jraws, _with_raws
+
+HEADS = ["gaussian", "lognormal", "gamma", "bernoulli", "bernoulli_gh"]
+AMOUNT_HEADS = ["lognormal", "gamma", "gaussian"]
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+
+def _likelihood(pkg, head):
+    if head == "gaussian":
+        return pkg.Gaussian.create(0.01)  # the golden fixture's
+    if head == "lognormal":
+        return pkg.LogNormal.create(0.4)
+    if head == "gamma":
+        return pkg.Gamma.create(1.7)
+    return pkg.Bernoulli.create(20 if head == "bernoulli_gh" else 0)
+
+
+def _targets(head, Y):
+    """The fixture's targets as the head takes them: binary for the
+    classifier, strictly positive for the positive heads."""
+    if head.startswith("bernoulli"):
+        return (Y > 0).astype(np.float64)
+    if head in ("lognormal", "gamma"):
+        return np.abs(Y) + 0.25
+    return Y
+
+
+def _perturb(arrays, seed, q_cov):
+    """Seeded noise on every raw but the kron family's frozen q_sqrt."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, a in arrays.items():
+        frozen = ".q_sqrt.raw" in k and q_cov == "kron"
+        scale = 0.02 if ".Zs" in k else 0.1
+        out[k] = a if frozen else a + scale * rng.randn(*np.shape(a))
+    return out
+
+
+def _svgp_models(head, *, whiten=False, q_cov="diag", perturb=True, golden=False, mean_const=None):
+    """The fixture's KronSVGP in both packages with the same raws."""
+    Zs, X, Y, q_mu, _ = _kron_fixture()
+    v = 1.5
+    kw = dict(num_data=100, jitter=1e-5, q_mu_init=q_mu, whiten=whiten, q_cov=q_cov, mean_const=mean_const)
+    jm = JKronSVGP.create([JRBF.create([0.5, 0.5], v), JRBF.create([0.2], v)], Zs, _likelihood(jlik, head), **kw)
+    tm = KronSVGP.create([TRBF.create([0.5, 0.5], v), TRBF.create([0.2], v)], Zs, _likelihood(tlik, head), **kw)
+    arrays = _jraws(jm)
+    if perturb and not golden:
+        arrays = _perturb(arrays, 3, q_cov)
+    load_jax_arrays(tm, arrays)
+    return _with_raws(jm, arrays), tm, X, _targets(head, Y)
+
+
+def _hurdle_models(head, *, whiten=False, q_cov="diag", pair=True):
+    Zs, X, Y, q_mu, _ = _kron_fixture()
+    mean_const = None if head == "gaussian" else -0.3
+    jks = lambda v: [JRBF.create([0.5, 0.5], v), JRBF.create([0.2], v)]
+    tks = lambda v: [TRBF.create([0.5, 0.5], v), TRBF.create([0.2], v)]
+    kw = dict(num_data=100, jitter=1e-5, seed=0, whiten=whiten, q_cov=q_cov, mean_const=mean_const)
+    jm = JKronHurdleSVGP.create(jks(1.2), Zs, jks(2.0), [Z.copy() for Z in Zs], jlik.Bernoulli.create(0),
+                                _likelihood(jlik, head), **kw)
+    tm = KronHurdleSVGP.create(tks(1.2), Zs, tks(2.0), [Z.copy() for Z in Zs], tlik.Bernoulli.create(0),
+                               _likelihood(tlik, head), **kw)
+    tm.pair_gps = pair
+    arrays = _perturb(_jraws(jm), 5, q_cov)
+    load_jax_arrays(tm, arrays)
+    return _with_raws(jm, arrays), tm, X, Y  # Y has exact zeros
+
+
+def _grads_match(jm, tm, X, Y, rtol=1e-8):
+    """ELBO at rtol 1e-10 and every trainable raw's gradient at ``rtol``;
+    returns the number of gradients checked."""
+    jelbo, jg = jax.value_and_grad(lambda m: m.elbo(jnp.asarray(X), jnp.asarray(Y)))(jm)
+    jg = _jraws(jg)
+    tm.zero_grad()
+    elbo = tm.elbo(_t(X), _t(Y))
+    elbo.backward()
+    np.testing.assert_allclose(float(elbo), float(jelbo), rtol=1e-10)
+    checked = 0
+    for name, p in tm.named_parameters():
+        if not p.requires_grad:
+            continue
+        want = jg[jax_key(name)]
+        assert np.isfinite(p.grad.numpy()).all(), name
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=rtol, atol=rtol * 1e-3 * np.abs(want).max(),
+                                   err_msg=name)
+        checked += 1
+    return checked
+
+
+# ---------------------------------------------------------------------------
+# KronSVGP
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("head,golden", [("gaussian", GOLDEN_KRON_SVGP_ELBO), ("bernoulli", GOLDEN_KRON_CLF_ELBO)])
+def test_svgp_and_classifier_elbos_equal_golden(head, golden):
+    _, tm, X, Y = _svgp_models(head, golden=True)
+    with torch.no_grad():
+        np.testing.assert_allclose(float(tm.elbo(_t(X), _t(Y))), golden, rtol=1e-10)
+
+
+@pytest.mark.parametrize("head", HEADS)
+@pytest.mark.parametrize("whiten,q_cov", [(False, "diag"), (True, "diag"), (False, "kron"), (True, "kron")])
+def test_svgp_elbo_and_gradients_match_jax(head, whiten, q_cov):
+    mean_const = -0.2 if head in ("lognormal", "gamma") else None
+    jm, tm, X, Y = _svgp_models(head, whiten=whiten, q_cov=q_cov, mean_const=mean_const)
+    n_kernel_and_z = 2 * 2 + 2 + (1 if mean_const is not None else 0)
+    n_lik = 1 if head in ("gaussian", "lognormal", "gamma") else 0
+    n_q = 1 + (2 if q_cov == "kron" else 1)  # q_mu, and q_sqrt or the two C factors
+    assert _grads_match(jm, tm, X, Y) == n_kernel_and_z + n_lik + n_q
+
+
+@pytest.mark.parametrize("head", ["gaussian", "bernoulli_gh"])
+def test_svgp_factor_state_injected_and_num_data_match_jax(head):
+    jm, tm, X, Y = _svgp_models(head)
+    want = float(jm.elbo(jnp.asarray(X), jnp.asarray(Y), num_data=37))
+    with torch.no_grad():
+        st = tm.factor_state()
+        np.testing.assert_allclose(float(tm.elbo(_t(X), _t(Y), num_data=37, factor_state=st)), want, rtol=1e-10)
+        np.testing.assert_allclose(float(tm.loss(_t(X), _t(Y), num_data=37)), -want, rtol=1e-10)
+
+
+def test_svgp_predictions_match_jax():
+    jm, tm, X, _ = _svgp_models("bernoulli")
+    with torch.no_grad():
+        lat, cls = tm.predict_latent(_t(X)), tm.predict_class(_t(X))
+    for got, want in zip((*lat, *cls), (*jm.predict_f(jnp.asarray(X)), *jm.predict_prob(jnp.asarray(X)))):
+        assert got.shape == (X.shape[0], 1)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("head", ["gaussian", "lognormal", "gamma", "bernoulli", "hurdle"])
+def test_raws_carry_across_and_back_bit_for_bit(head):
+    if head == "hurdle":
+        jm, tm, _, _ = _hurdle_models("lognormal", q_cov="kron")
+    else:
+        jm, tm, _, _ = _svgp_models(head, mean_const=0.7 if head in ("lognormal", "gamma") else None)
+    assert dump_arrays(tm).keys() == _jraws(jm).keys()
+    for k, a in _jraws(jm).items():
+        np.testing.assert_array_equal(dump_arrays(tm)[k], a, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# KronHurdleSVGP
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("head", AMOUNT_HEADS)
+@pytest.mark.parametrize("pair", [True, False])
+def test_hurdle_elbo_and_gradients_match_jax_with_zeros_in_y(head, pair):
+    jm, tm, X, Y = _hurdle_models(head, pair=pair)
+    assert (Y == 0).any() and (Y > 0).any()
+    assert tm._pairable() == pair
+    n = 2 * (2 * 2 + 2 + 2) + (1 if head != "gaussian" else 0) + 1  # the pair, mean_const, the head
+    assert _grads_match(jm, tm, X, Y) == n
+
+
+@pytest.mark.parametrize("whiten,q_cov", [(True, "diag"), (True, "kron"), (False, "kron")])
+def test_hurdle_parameterizations_match_jax(whiten, q_cov):
+    jm, tm, X, Y = _hurdle_models("lognormal", whiten=whiten, q_cov=q_cov)
+    _grads_match(jm, tm, X, Y)
+
+
+def test_hurdle_paired_equals_unpaired_and_factor_state_injected():
+    _, tm, X, Y = _hurdle_models("gamma")
+    with torch.no_grad():
+        paired = float(tm.elbo(_t(X), _t(Y)))
+        injected = float(tm.elbo(_t(X), _t(Y), factor_state=tm.factor_state()))
+        tm.pair_gps = False
+        unpaired = float(tm.elbo(_t(X), _t(Y)))
+        unpaired_injected = float(tm.elbo(_t(X), _t(Y), factor_state=tm.factor_state()))
+    np.testing.assert_allclose([injected, unpaired, unpaired_injected], paired, rtol=1e-12)
+
+
+def test_hurdle_amount_term_is_masked_not_subset():
+    """The ELBO is the gate term over every row plus the amount term over
+    the positives only: the zero rows' amounts do not enter it."""
+    _, tm, X, Y = _hurdle_models("lognormal")
+    with torch.no_grad():
+        a = float(tm.elbo(_t(X), _t(Y)))
+        (fm, fv), (gm, gv) = tm._predict_fg(_t(X))
+        fm = fm + tm.mean_const.value
+        on = _t(Y > 0)
+        gate = tm.gate_likelihood.variational_expectations(gm, gv, on)
+        pos = (Y > 0).reshape(-1)
+        amount = tm.amount_likelihood.variational_expectations(fm[pos], fv[pos], _t(Y[pos]))
+        want = float((gate.sum() + amount.sum()) * (100 / X.shape[0]) - tm.prior_kl())
+    np.testing.assert_allclose(a, want, rtol=1e-12)
+
+
+def test_hurdle_predict_matches_jax():
+    jm, tm, X, _ = _hurdle_models("gamma")
+    with torch.no_grad():
+        got = tm.predict(_t(X))
+    want = jm.predict(jnp.asarray(X))
+    for f in got._fields:
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)), rtol=1e-10, atol=1e-14,
+                                   err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# 20 scanned Adam steps of each family
+# ---------------------------------------------------------------------------
+
+
+def _staged(X, Y, K=20, B=16, seed=0):
+    idx = np.random.RandomState(seed).randint(0, X.shape[0], size=(K, B))
+    return X[idx], Y[idx]
+
+
+@pytest.mark.parametrize("family", ["svgp gaussian", "classifier gh", "svgp gamma", "hurdle lognormal"])
+def test_scan_train_steps_match_jax(family):
+    if family.startswith("hurdle"):
+        jm, tm, X, Y = _hurdle_models("lognormal")
+    else:
+        head = {"svgp gaussian": "gaussian", "classifier gh": "bernoulli_gh", "svgp gamma": "gamma"}[family]
+        jm, tm, X, Y = _svgp_models(head, whiten=True, mean_const=0.1 if head == "gamma" else None)
+    jopt = jmake_optimizer(jm, default_lr=1e-2)
+    topt = make_optimizer(tm, default_lr=1e-2)
+    Xs, Ys = _staged(X, Y)
+    jm2, _, jlosses = jmake_scan_train_step(jopt, unroll=1)(jm, jopt.init(jm), jnp.asarray(Xs), jnp.asarray(Ys))
+    tlosses = make_scan_train_step(topt)(tm, _t(Xs), _t(Ys))
+    np.testing.assert_allclose(tlosses.numpy(), np.asarray(jlosses), rtol=1e-8)
+    assert abs(float(tlosses[-1]) - float(tlosses[0])) > 1e-3 * abs(float(tlosses[0]))  # it trained
+    want = _jraws(jm2)
+    for key, got in dump_arrays(tm).items():
+        np.testing.assert_allclose(got, want[key], rtol=1e-8, atol=1e-12, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# likelihoods and quadrature
+# ---------------------------------------------------------------------------
+
+
+def _moments(seed=0, n=40):
+    rng = np.random.RandomState(seed)
+    return rng.randn(n, 1), 0.05 + rng.rand(n, 1), np.abs(rng.randn(n, 1)) + 0.1
+
+
+@pytest.mark.parametrize("head", ["gaussian", "lognormal", "gamma"])
+def test_predictive_moments_and_nlpd_match_jax(head):
+    mu, var, y = _moments()
+    j, t = _likelihood(jlik, head), _likelihood(tlik, head)
+    for got, want in zip(t.predict_mean_and_var(_t(mu), _t(var)), j.predict_mean_and_var(mu, var)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-12)
+    if head != "gaussian":
+        np.testing.assert_allclose(t.nlpd(_t(mu), _t(var), _t(y)).detach().numpy(), np.asarray(j.nlpd(mu, var, y)),
+                                   rtol=1e-12)
+    if head == "lognormal":
+        np.testing.assert_allclose(t.predict_median(_t(mu), _t(var)).numpy(), np.asarray(j.predict_median(mu, var)),
+                                   rtol=1e-14)
+
+
+@pytest.mark.parametrize("num_gh", [0, 20])
+def test_bernoulli_matches_jax_at_both_labels(num_gh):
+    mu, var, _ = _moments(1)
+    y = (np.arange(mu.shape[0]) % 2).astype(np.float64)[:, None]
+    j, t = jlik.Bernoulli.create(num_gh), tlik.Bernoulli.create(num_gh)
+    np.testing.assert_allclose(t.variational_expectations(_t(mu), _t(var), _t(y)).numpy(),
+                               np.asarray(j.variational_expectations(mu, var, y)), rtol=1e-12)
+    np.testing.assert_allclose(t.predict_prob(_t(mu), _t(var)).numpy(), np.asarray(j.predict_prob(mu, var)),
+                               rtol=1e-14)
+
+
+@pytest.mark.parametrize("n", [1, 20, 32])
+def test_gauss_hermite_points_match_jax_and_are_cached(n):
+    x, w = tquad.gauss_hermite_points(n)
+    jx, jw = jquad.gauss_hermite_points(n, dtype=jnp.float64)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    assert tquad.gauss_hermite_points(n)[0] is x  # built once per (n, dtype, device)
+    mu, var, _ = _moments(2)
+    got = tquad.expectation(torch.square, _t(mu), _t(var), n=n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jquad.expectation(jnp.square, mu, var, n=n)), rtol=1e-12)
+
+
+@pytest.mark.parametrize("model", ["classifier gh", "hurdle gamma gh gate"])
+def test_a_warm_step_turns_no_host_value_into_a_tensor(monkeypatch, model):
+    """After one step, a GH or Gamma step builds no tensor from host data
+    (on the card a host-to-device copy, which a CUDA graph capture refuses)."""
+    if model.startswith("classifier"):
+        _, tm, X, Y = _svgp_models("bernoulli_gh")
+    else:
+        _, tm, X, Y = _hurdle_models("gamma")
+        tm.gate_likelihood.num_gh = 20
+    X, Y = _t(X), _t(Y)
+    tm.loss(X, Y).backward()
+    as_tensor = torch.as_tensor
+
+    def guarded(data, *args, **kw):
+        if not isinstance(data, torch.Tensor):
+            raise AssertionError(f"a host value became a tensor inside the step: {type(data)}")
+        return as_tensor(data, *args, **kw)
+
+    monkeypatch.setattr(torch, "as_tensor", guarded)
+    monkeypatch.setattr(torch, "tensor", lambda *a, **k: pytest.fail("torch.tensor inside the step"))
+    tm.loss(X, Y).backward()

@@ -41,6 +41,14 @@ class Parameter(nn.Module):
     def shape(self):
         return self.raw.shape
 
+    def assign_(self, value) -> None:
+        """Set the constrained value in place: its raw (the bijector's
+        inverse, in numpy float64) is copied into the storage that exists, so
+        a CUDA graph captured over it stays valid. The JAX ``replace_value``."""
+        raw = self.bijector.inverse(np.asarray(value, dtype=np.float64))
+        with torch.no_grad():
+            self.raw.copy_(torch.as_tensor(np.asarray(raw), dtype=self.raw.dtype))
+
     def extra_repr(self) -> str:
         return f"shape={tuple(self.raw.shape)}, bijector={self.bijector}, lr={self.lr}"
 
@@ -94,3 +102,16 @@ def collect_lrs(model: nn.Module, default_lr: float) -> dict[str, float]:
         if isinstance(m, Parameter) and m.trainable and m.lr is not None:
             groups[_label(m, "default")] = m.lr
     return groups
+
+
+def hyperparam_summary(model: nn.Module, *, max_size: int = 8) -> dict[str, np.ndarray]:
+    """{JAX-style path: constrained value} of every trainable Parameter of
+    at most ``max_size`` entries: the learned kernel hyperparameters and
+    likelihood noise, not the variational or inducing arrays (the JAX
+    ``hyperparam_summary``; the runners log one line each)."""
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, Parameter) and m.trainable and m.raw.numel() <= max_size:
+            key = "".join(f"[{p}]" if p.isdigit() else f".{p}" for p in name.split(".")).strip(".")
+            out[key] = m.value.detach().cpu().numpy()
+    return out

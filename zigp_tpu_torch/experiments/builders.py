@@ -1,7 +1,10 @@
 """Model builders wiring configs to models for the pptr experiments.
 
-Counterpart of ``zigp_tpu/experiments/builders.py:54-178`` for the on/off
-model. The port has the RBF kernel only: any other family, or a composite
+Counterpart of ``zigp_tpu/experiments/builders.py:54-337``: the on/off
+model, the Kronecker SVGP regression (Gaussian, LogNormal and Gamma heads),
+the probit classifier and the jointly trained hurdle. Each builder takes
+``device`` (``None`` = the CUDA card), ``dtype`` and ``use_kernel``. The
+port has the RBF kernel only: any other family, or a composite
 "a*b" / "a+b" spec, raises ``NotImplementedError``. ``use_kernel=True``
 builds every factor's grams with the ``rbf_gram`` CUDA kernel (the JAX
 ``use_pallas``).
@@ -18,10 +21,10 @@ from ..core import bijectors
 from ..core.config import resolve_device
 from ..core.parameters import param
 from ..io.datasets import Split, kron_inducing_init
-from ..likelihoods import OnOffGaussian
-from ..models import KronOnOffSVGP
+from ..likelihoods import Bernoulli, Gamma, Gaussian, LogNormal, OnOffGaussian
+from ..models import KronHurdleSVGP, KronOnOffSVGP, KronSVGP
 from ..ops.kernels import RBF
-from .configs import KernelInit, OnOffPptrConfig
+from .configs import ClassifierPptrConfig, HurdleJointConfig, KernelInit, OnOffPptrConfig, SvgpPptrConfig
 
 _RBF_NAMES = ("rbf", "se")
 
@@ -125,3 +128,157 @@ def build_onoff_pptr(
         q_cov=cfg.q_cov,
     )
     return model.to(device=device, dtype=dtype)
+
+
+def make_regression_likelihood(cfg, Y: np.ndarray):
+    """(likelihood, mean_const) of the regression head named by
+    ``cfg.likelihood``. The positive-support heads model the latent on a log
+    scale, so they get a learned constant prior mean initialised from the
+    (strictly positive) targets."""
+    name = (cfg.likelihood or "gaussian").lower()
+    if name == "gaussian":
+        return Gaussian.create(cfg.noise_variance, lr=cfg.lr), None
+    Y = np.asarray(Y, dtype=np.float64).reshape(-1)
+    if (Y <= 0).any():
+        raise ValueError(
+            f"likelihood={name!r} requires strictly positive targets (got min {Y.min()}); use it as the "
+            "hurdle's on-subset head or filter zeros first"
+        )
+    if name == "lognormal":
+        return LogNormal.create(cfg.lognormal_variance, lr=cfg.lr), float(np.mean(np.log(Y)))
+    if name == "gamma":
+        return Gamma.create(cfg.gamma_shape, lr=cfg.lr), float(np.log(np.mean(Y)))
+    raise ValueError(f"unknown regression likelihood {name!r}; choose gaussian | lognormal | gamma")
+
+
+def _log_matched_kernel_inits(k_spatial, k_temporal, Y, n_factors: int):
+    """Kernel inits with per-factor variance var(log y)^(1/F): the positive
+    heads' latent lives on a log scale, where the Kronecker prior variance
+    is the product over the factors (20 · 20 = 400 would put exp(200) in the
+    predictive means)."""
+    v_log = max(float(np.var(np.log(np.asarray(Y, dtype=np.float64).reshape(-1)))), 0.05)
+    v_f = v_log ** (1.0 / n_factors)
+    return dataclasses.replace(k_spatial, variance=v_f), dataclasses.replace(k_temporal, variance=v_f)
+
+
+def _grid(cfg, X):
+    return kron_inducing_init(
+        X, cfg.grid.num_spatial, cfg.grid.num_temporal, seed=cfg.seed,
+        spatial_factors=cfg.grid.spatial_factors, num_exog=cfg.grid.num_exog,
+    )
+
+
+def _kernels(k_spatial, k_temporal, cfg, X, use_kernel):
+    return make_factor_kernels(
+        k_spatial, k_temporal, cfg.grid.spatial_factors, lr=cfg.lr, axis_spans=_axis_spans(X), use_kernel=use_kernel,
+    ) + _exog_kernels(X, lr=cfg.lr, use_kernel=use_kernel)
+
+
+def _amount_inits(cfg, Y):
+    """(likelihood, mean_const, k_spatial, k_temporal) of a regression or
+    amount model on targets Y: the positive heads' kernels log-matched."""
+    likelihood, mean_const = make_regression_likelihood(cfg, Y)
+    k_spatial, k_temporal = cfg.k_spatial, cfg.k_temporal
+    if mean_const is not None:
+        n_factors = 2 if cfg.grid.spatial_factors is None else 3
+        k_spatial, k_temporal = _log_matched_kernel_inits(k_spatial, k_temporal, Y, n_factors)
+    return likelihood, mean_const, k_spatial, k_temporal
+
+
+def build_svgp_pptr(
+    cfg: SvgpPptrConfig,
+    split: Split,
+    *,
+    subset_idx=None,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+    use_kernel: bool = False,
+) -> KronSVGP:
+    """The Kronecker SVGP regression of ``cfg`` on ``split``'s training rows,
+    or on the rows ``subset_idx`` of them (its grid and inits from those)."""
+    device = resolve_device(device)
+    X = split.Xtrain if subset_idx is None else split.Xtrain[subset_idx]
+    Y = split.Ytrain if subset_idx is None else split.Ytrain[subset_idx]
+    likelihood, mean_const, k_spatial, k_temporal = _amount_inits(cfg, Y)
+    model = KronSVGP.create(
+        _kernels(k_spatial, k_temporal, cfg, X, use_kernel),
+        _grid(cfg, X),
+        likelihood,
+        num_data=X.shape[0],
+        mean_const=mean_const,
+        jitter=cfg.jitter,
+        seed=cfg.seed,
+        lr=cfg.lr,
+        q_mu_scale=cfg.q_mu_scale,
+        whiten=cfg.whiten,
+        q_cov=cfg.q_cov,
+    )
+    return model.to(device=device, dtype=dtype)
+
+
+def build_classifier_pptr(
+    cfg: ClassifierPptrConfig,
+    split: Split,
+    *,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+    use_kernel: bool = False,
+) -> KronSVGP:
+    """The Kronecker probit classifier of ``cfg`` (train it on
+    ``binarize_targets(split.Ytrain)``)."""
+    device = resolve_device(device)
+    X = split.Xtrain
+    model = KronSVGP.create(
+        _kernels(cfg.k_spatial, cfg.k_temporal, cfg, X, use_kernel),
+        _grid(cfg, X),
+        Bernoulli.create(num_gh=cfg.num_gh),
+        num_data=X.shape[0],
+        jitter=cfg.jitter,
+        seed=cfg.seed,
+        lr=cfg.lr,
+        q_mu_scale=cfg.q_mu_scale,
+        whiten=cfg.whiten,
+        q_cov=cfg.q_cov,
+    )
+    return model.to(device=device, dtype=dtype)
+
+
+def build_hurdle_joint_pptr(
+    cfg: HurdleJointConfig,
+    split: Split,
+    *,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+    use_kernel: bool = False,
+) -> KronHurdleSVGP:
+    """The jointly trained hurdle of ``cfg``: the amount head's likelihood,
+    mean and kernel-variance inits from the strictly positive training
+    targets, the gate's kernels from ``cfg.gk_*``."""
+    device = resolve_device(device)
+    X, Y = split.Xtrain, split.Ytrain
+    Zs = _grid(cfg, X)
+    Ypos = np.asarray(Y, dtype=np.float64).reshape(-1)
+    Ypos = Ypos[Ypos > 0]
+    amount_lik, mean_const, k_spatial, k_temporal = _amount_inits(cfg, Ypos)
+    model = KronHurdleSVGP.create(
+        _kernels(k_spatial, k_temporal, cfg, X, use_kernel),
+        Zs,
+        _kernels(cfg.gk_spatial, cfg.gk_temporal, cfg, X, use_kernel),
+        [Z.copy() for Z in Zs],
+        Bernoulli.create(num_gh=cfg.num_gh),
+        amount_lik,
+        num_data=X.shape[0],
+        mean_const=mean_const,
+        jitter=cfg.jitter,
+        seed=cfg.seed,
+        lr=cfg.lr,
+        q_mu_scale=cfg.q_mu_scale,
+        whiten=cfg.whiten,
+        q_cov=cfg.q_cov,
+    )
+    return model.to(device=device, dtype=dtype)
+
+
+def binarize_targets(Y: np.ndarray) -> np.ndarray:
+    """y > 0 as float: the classifier's target transform."""
+    return (np.asarray(Y) > 0).astype(np.float64)

@@ -1,9 +1,10 @@
 """Typed experiment configs: plain copies of ``zigp_tpu/experiments/
-configs.py`` (``KronGridConfig``, ``KernelInit``, ``OnOffPptrConfig``,
-``best_onoff_config``) with the fields that build and train the on/off model.
+configs.py`` (``KronGridConfig``, ``KernelInit``, the on/off, SVGP,
+classifier and joint-hurdle configs, ``best_onoff_config``, the tuned
+configs and ``preset_configs``) with the JAX package's fields and defaults.
 The options of trainers the port does not have yet (natural gradients, the
 block-coordinate schedule, meshes) are kept so that a config that sets them
-fails loudly in ``experiments.runners.train_onoff_pptr``."""
+fails loudly in ``experiments.runners._fit_auto``."""
 
 from __future__ import annotations
 
@@ -65,10 +66,131 @@ class OnOffPptrConfig:
     sampler: str = "host"  # "host" (shuffled epochs) | "device" (uniform, on the device)
     optimizer: str = "adam"  # "natgrad" is not ported
     hyper_every: int = 0  # > 0: block-coordinate schedule, not ported
+    # post-hoc likelihood-variance recalibration by train-residual moment
+    # matching (runners.recalibrate_noise); point metrics unchanged
+    recalibrate_noise: bool = False
     g_mean_shift: float = 0.0  # constant prior-mean shift on g at predict
     q_cov: str = "diag"  # "diag" | "kron" (factored full covariance)
     mesh_data: int = 0  # multi-device training, not ported
     mesh_model: int = 0
+
+
+@dataclass
+class SvgpPptrConfig:
+    """The reference's scripts/svgp.py defaults. ``likelihood`` is the
+    regression head: "gaussian" (the reference's), or the positive-support
+    "lognormal" / "gamma" for the hurdle's amount model y | y > 0 (strictly
+    positive training targets)."""
+
+    num_iter: int = 50_000
+    batch_size: int = 500
+    grid: KronGridConfig = field(default_factory=KronGridConfig)
+    k_spatial: KernelInit = field(default_factory=lambda: KernelInit((8.0, 8.0), 20.0))
+    k_temporal: KernelInit = field(default_factory=lambda: KernelInit((5.0 / 1000,), 20.0))
+    noise_variance: float = 0.01
+    likelihood: str = "gaussian"
+    lognormal_variance: float = 0.5  # init σ² of log y (lognormal head)
+    gamma_shape: float = 1.0  # init α (gamma head; 1 = exponential)
+    lr: float = 1e-3
+    jitter: float = 1e-5
+    q_mu_scale: float = 0.1
+    seed: int = 0
+    log_every: int = 200
+    ckpt_every: int = 10_000
+    hist_every: int = 0
+    scan_inner: int = 50
+    whiten: bool = False
+    lr_schedule: str = ""
+    q_cov: str = "diag"
+    sampler: str = "host"
+    hyper_every: int = 0  # not ported
+    recalibrate_noise: bool = False
+    mesh_data: int = 0  # not ported
+    mesh_model: int = 0
+    optimizer: str = "adam"  # "natgrad" is not ported
+    natgrad_gamma: float = 0.1
+    natgrad_warmup: int = 2000
+    natgrad_adam_warmup: int = 1000
+    natgrad_kron_joint: bool = False
+    natgrad_kl_cap: float = 10.0
+
+
+@dataclass
+class ClassifierPptrConfig:
+    """The reference's scripts/classifier.py defaults. ``num_gh`` 0 is its
+    plug-in Bernoulli, > 0 Gauss–Hermite quadrature."""
+
+    num_iter: int = 500
+    batch_size: int = 1000
+    grid: KronGridConfig = field(default_factory=KronGridConfig)
+    k_spatial: KernelInit = field(default_factory=lambda: KernelInit((5.0, 5.0), 20.0))
+    k_temporal: KernelInit = field(default_factory=lambda: KernelInit((5.0 / 1000,), 20.0))
+    lr: float = 1e-3
+    jitter: float = 1e-5
+    q_mu_scale: float = 0.01
+    num_gh: int = 0
+    seed: int = 0
+    log_every: int = 100
+    ckpt_every: int = 10_000
+    hist_every: int = 0
+    scan_inner: int = 50
+    whiten: bool = False
+    lr_schedule: str = ""
+    q_cov: str = "diag"
+    sampler: str = "host"
+    hyper_every: int = 0
+    mesh_data: int = 0
+    mesh_model: int = 0
+    optimizer: str = "adam"
+    natgrad_gamma: float = 0.1
+    natgrad_warmup: int = 2000
+    natgrad_adam_warmup: int = 1000
+    natgrad_kron_joint: bool = False
+    natgrad_kl_cap: float = 10.0
+
+
+@dataclass
+class HurdleJointConfig:
+    """The jointly trained hurdle (``models.KronHurdleSVGP``): gate and
+    amount GP in one ELBO. The gate's kernel inits follow the classifier's;
+    the builder matches the amount kernels' variance to var(log y⁺) for the
+    positive heads."""
+
+    num_iter: int = 50_000
+    batch_size: int = 1000
+    grid: KronGridConfig = field(default_factory=KronGridConfig)
+    # amount GP (f)
+    k_spatial: KernelInit = field(default_factory=lambda: KernelInit((8.0, 8.0), 20.0))
+    k_temporal: KernelInit = field(default_factory=lambda: KernelInit((5.0 / 1000,), 20.0))
+    # gate GP (g)
+    gk_spatial: KernelInit = field(default_factory=lambda: KernelInit((5.0, 5.0), 20.0))
+    gk_temporal: KernelInit = field(default_factory=lambda: KernelInit((5.0 / 1000,), 20.0))
+    likelihood: str = "lognormal"  # amount head: lognormal | gamma | gaussian
+    lognormal_variance: float = 0.5
+    gamma_shape: float = 1.0
+    noise_variance: float = 0.01  # gaussian amount head only
+    num_gh: int = 0  # gate Bernoulli: 0 = plug-in, > 0 = GH
+    lr: float = 1e-3
+    jitter: float = 1e-5
+    q_mu_scale: float = 0.1
+    seed: int = 0
+    log_every: int = 200
+    ckpt_every: int = 10_000
+    hist_every: int = 0
+    scan_inner: int = 50
+    whiten: bool = False
+    lr_schedule: str = ""
+    q_cov: str = "diag"
+    sampler: str = "host"
+    hyper_every: int = 0
+    mesh_data: int = 0
+    mesh_model: int = 0
+    optimizer: str = "adam"
+    natgrad_gamma: float = 0.1
+    natgrad_warmup: int = 2000
+    natgrad_adam_warmup: int = 1000
+    natgrad_kron_joint: bool = False
+    natgrad_kl_cap: float = 10.0
 
 
 def best_onoff_config() -> OnOffPptrConfig:
@@ -89,3 +211,48 @@ def best_onoff_config() -> OnOffPptrConfig:
         batch_size=4000,
         sampler="device",
     )
+
+
+def tuned_svgp_config() -> SvgpPptrConfig:
+    """The whitened 32 × 200 SVGP."""
+    return SvgpPptrConfig(
+        whiten=True,
+        grid=KronGridConfig(num_spatial=32, num_temporal=200),
+        k_spatial=KernelInit((2.0, 2.0), 20.0),
+    )
+
+
+def tuned_classifier_config() -> ClassifierPptrConfig:
+    """The whitened 32 × 200 classifier, 5000 steps."""
+    return ClassifierPptrConfig(
+        whiten=True,
+        num_iter=5000,
+        grid=KronGridConfig(num_spatial=32, num_temporal=200),
+        k_spatial=KernelInit((2.0, 2.0), 20.0),
+    )
+
+
+def preset_configs(preset: str) -> dict:
+    """The base config of each model family for a preset: "reference" (the
+    reference's configs, unwhitened), "reference-stable" (the same with
+    ``whiten=True`` only) or "best" (the champion and tuned configs)."""
+    import dataclasses
+
+    if preset == "best":
+        return {
+            "onoff": best_onoff_config(),
+            "svgp": tuned_svgp_config(),
+            "classifier": tuned_classifier_config(),
+            "hurdlej": HurdleJointConfig(),
+        }
+    base = {
+        "onoff": OnOffPptrConfig(),
+        "svgp": SvgpPptrConfig(),
+        "classifier": ClassifierPptrConfig(),
+        "hurdlej": HurdleJointConfig(),
+    }
+    if preset == "reference-stable":
+        return {k: dataclasses.replace(v, whiten=True) for k, v in base.items()}
+    if preset != "reference":
+        raise ValueError(f"unknown preset: {preset!r}")
+    return base

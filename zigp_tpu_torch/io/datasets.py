@@ -1,7 +1,9 @@
 """Dataset plumbing for the pptr experiments (numpy and scipy only).
 
-Counterpart of ``zigp_tpu/io/datasets.py:22-44, 236-286``: the ``Split``
-record, ``load_pptr`` and the inducing-grid init ``kron_inducing_init``,
+Counterpart of ``zigp_tpu/io/datasets.py:22-65, 236-286``: the ``Split``
+record, ``load_pptr``, the 5-fold ``make_cv_splits`` (a numpy KFold: the
+same folds as scikit-learn's ``KFold(shuffle=True)``, which the card's
+machine does not have) and the inducing-grid init ``kron_inducing_init``,
 which returns the JAX package's centres exactly for the same seed (scipy
 ``kmeans`` under ``np.random.seed``).
 
@@ -42,6 +44,36 @@ def load_pptr(path: Optional[str] = None) -> Split:
     with open(path, "rb") as f:
         d = pickle.load(f)
     return Split(d["Xtrain"], d["Ytrain"], d["Xtest"], d["Ytest"])
+
+
+def kfold_indices(n: int, n_splits: int, seed: int) -> List[tuple]:
+    """[(train_index, test_index)] of scikit-learn's ``KFold(n_splits,
+    shuffle=True, random_state=seed)`` on n rows: the rows shuffled by
+    ``RandomState(seed)``, cut into consecutive folds of n // k rows, the
+    first n % k folds one row longer; both index sets in ascending order."""
+    if not 2 <= n_splits <= n:
+        raise ValueError(f"kfold_indices: n_splits must be in 2..{n}, got {n_splits}")
+    order = np.arange(n)
+    np.random.RandomState(seed).shuffle(order)
+    sizes = np.full(n_splits, n // n_splits)
+    sizes[: n % n_splits] += 1
+    out, start = [], 0
+    for size in sizes:
+        test = np.zeros(n, dtype=bool)
+        test[order[start : start + size]] = True
+        out.append((np.flatnonzero(~test), np.flatnonzero(test)))
+        start += size
+    return out
+
+
+def make_cv_splits(data: Split, n_splits: int = 5, seed: int = 1234, time_scale: float = 1000.0) -> List[Split]:
+    """5-fold CV over the concatenated train and test rows with the time
+    column divided by ``time_scale`` (the reference's create_cvsplits)."""
+    Xraw = np.concatenate([data.Xtrain, data.Xtest])
+    Yraw = np.concatenate([data.Ytrain, data.Ytest])
+    Xraw = Xraw.copy()
+    Xraw[:, 2] = Xraw[:, 2] / time_scale
+    return [Split(Xraw[tr], Yraw[tr], Xraw[te], Yraw[te]) for tr, te in kfold_indices(Xraw.shape[0], n_splits, seed)]
 
 
 def synthetic_pptr(n_stations: int = 105, n_hours: int = 1080, *, seed: int = 0) -> Split:

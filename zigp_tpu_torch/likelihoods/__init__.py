@@ -1,3 +1,3 @@
-from .likelihoods import Gaussian, OnOffGaussian
+from .likelihoods import Bernoulli, Gamma, Gaussian, LogNormal, OnOffGaussian
 
-__all__ = ["Gaussian", "OnOffGaussian"]
+__all__ = ["Bernoulli", "Gamma", "Gaussian", "LogNormal", "OnOffGaussian"]

@@ -1,17 +1,21 @@
-"""Kronecker-structured sparse variational GPs: ``KronGP`` and the on/off pair.
+"""Kronecker-structured sparse variational GPs: ``KronGP``, the single-GP
+``KronSVGP``, and the two-GP ``KronHurdleSVGP`` and ``KronOnOffSVGP``.
 
-Counterpart of ``zigp_tpu/models/kron.py`` (``KronGP`` :41-149 and
-``KronOnOffSVGP`` :448-639): ``create``, the factor grams and their
-``chol_inv`` state, ``prior_kl``, ``predict_f`` and ``predict``, and the
-on/off ``elbo`` and ``loss``. The KL and the conditional of a step share one
-``chol_inv`` per factor, as in the JAX package.
+Counterpart of ``zigp_tpu/models/kron.py`` (``KronGP`` :41-149,
+``KronSVGP`` :173-243, ``KronHurdleSVGP`` :246-445, ``KronOnOffSVGP``
+:448-639): ``create``, the factor grams and their ``chol_inv`` state,
+``prior_kl``, ``predict_f`` and ``predict``, ``elbo`` and ``loss``. The KL
+and the conditional of a step share one ``chol_inv`` per factor, as in the
+JAX package. The samplers (``predict_f_samples``, ``predict_y_samples``) are
+not ported yet.
 
 The inducing grid is Z = Z_s × Z_t (e.g. 10 spatial kmeans centres × 100
 temporal knots), never formed: the conditional works factor by factor
 (``ops.conditionals``). Where the JAX package ``vmap``s the f/g pair over a
 stacked pytree, the port stacks the pair's constrained values on a leading
 dimension of 2 and runs one pass, so each ``chol_inv`` launch factors both
-GPs' grams of one factor. The two GPs keep separate parameters.
+GPs' grams of one factor (``_KronPair``). The two GPs keep separate
+parameters. A single GP runs the same pass with a leading dimension of 1.
 
 Parameter names follow the JAX pytree paths (``f.kernels.0.lengthscales.raw``
 here is ``.f.kernels[0].lengthscales.raw`` there), which is what
@@ -212,7 +216,223 @@ class KronGP(nn.Module):
         return mu[0], var[0]
 
 
-class KronOnOffSVGP(nn.Module):
+class LatentPrediction(NamedTuple):
+    """A single GP's predictive latent moments, each (B, 1)."""
+
+    fmean: torch.Tensor
+    fvar: torch.Tensor
+
+
+class ClassPrediction(NamedTuple):
+    """The classifier head: p(y=1|x) and p − p², each (B, 1)."""
+
+    pfmean: torch.Tensor
+    pfvar: torch.Tensor
+
+
+class KronSVGP(nn.Module):
+    """Single-GP Kronecker SVGP: regression (Gaussian, LogNormal, Gamma) or
+    the probit classifier (Bernoulli). One GP runs through ``KronGP``'s
+    stacked pass with G = 1, so one ``chol_inv`` launch per factor serves
+    the KL and the conditional of a step."""
+
+    def __init__(self, gp, likelihood, mean_const, num_data):
+        super().__init__()
+        self.gp = gp
+        self.likelihood = likelihood
+        self.mean_const = mean_const
+        self.num_data = int(num_data)
+
+    @classmethod
+    def create(cls, kernels, Zs, likelihood, *, num_data, mean_const=None, **kw) -> "KronSVGP":
+        return cls(
+            gp=KronGP.create(kernels, Zs, **kw),
+            likelihood=likelihood,
+            mean_const=None if mean_const is None else param(mean_const),
+            num_data=num_data,
+        )
+
+    def _shift(self, fmean):
+        return fmean if self.mean_const is None else fmean + self.mean_const.value
+
+    def prior_kl(self) -> torch.Tensor:
+        return self.gp.prior_kl()
+
+    def predict_f(self, Xnew: torch.Tensor):
+        """(fmean, fvar), each (B, 1), the prior mean constant added."""
+        fmean, fvar = self.gp.predict_f(Xnew)
+        return self._shift(fmean), fvar
+
+    def predict_prob(self, Xnew: torch.Tensor):
+        """The classifier head: p(y=1|x) = Φ̃(μ/√(1+v)) and p − p²."""
+        fmean, fvar = self.predict_f(Xnew)
+        p = self.likelihood.predict_prob(fmean, fvar)
+        return p, p - torch.square(p)
+
+    # ``predict_batched`` takes a bound method that returns named fields: it
+    # keeps one chunk graph per model and method.
+    def predict_latent(self, Xnew: torch.Tensor) -> LatentPrediction:
+        return LatentPrediction(*self.predict_f(Xnew))
+
+    def predict_class(self, Xnew: torch.Tensor) -> ClassPrediction:
+        return ClassPrediction(*self.predict_prob(Xnew))
+
+    def elbo(self, X: torch.Tensor, Y: torch.Tensor, *, num_data=None, factor_state=None) -> torch.Tensor:
+        """(num_data / B) Σ E_q[log p(y | f)] − KL. ``num_data`` overrides
+        the dataset size; ``factor_state`` injects ``self.factor_state()``.
+        One factorization serves the KL and the conditional."""
+        vals = _stack([self.gp.values()])
+        st = self.gp._factor_state(vals) if factor_state is None else _stack([factor_state])
+        kl = self.gp._prior_kl(vals, st)[0]
+        mu, var = self.gp._predict_f(vals, X, st)
+        var_exp = self.likelihood.variational_expectations(self._shift(mu[0]), var[0], Y)
+        n = self.num_data if num_data is None else num_data
+        return torch.sum(var_exp) * (n / X.shape[0]) - kl
+
+    def loss(self, X, Y, *, num_data=None, factor_state=None):
+        return -self.elbo(X, Y, num_data=num_data, factor_state=factor_state)
+
+    def factor_state(self):
+        return self.gp.factor_state()
+
+
+class _KronPair(nn.Module):
+    """Two GPs, f and g, run as one stacked pass when their signatures match
+    (one chol_inv launch per factor for the pair), else one after the other.
+    Same math either way. Subclasses set ``f``, ``g`` and ``pair_gps``."""
+
+    def _pairable(self) -> bool:
+        return self.pair_gps and self.f.signature() == self.g.signature()
+
+    def _stacked(self) -> GPValues:
+        return _stack([self.f.values(), self.g.values()])
+
+    def _predict_fg(self, Xnew: torch.Tensor):
+        """(fmean, fvar), (gmean, gvar), each (B, 1), without mean shifts."""
+        if self._pairable():
+            mu, var = self.f._predict_f(self._stacked(), Xnew)
+            return (mu[0], var[0]), (mu[1], var[1])
+        return self.f.predict_f(Xnew), self.g.predict_f(Xnew)
+
+    def factor_state(self):
+        """The pair's chol_inv factorizations: stacked (leading f/g dim) when
+        paired, ((f state), (g state)) otherwise."""
+        if self._pairable():
+            return self.f._factor_state(self._stacked())
+        return self.f.factor_state(), self.g.factor_state()
+
+    def prior_kl(self) -> torch.Tensor:
+        if self._pairable():
+            return torch.sum(self.f._prior_kl(self._stacked()))
+        return self.f.prior_kl() + self.g.prior_kl()
+
+    def _kl_and_predict(self, X: torch.Tensor, factor_state=None):
+        """KL_f + KL_g and ((fmean, fvar), (gmean, gvar)) at X, each GP
+        factorizing its grams once (or taking ``factor_state``, the layout of
+        ``self.factor_state()``) for its KL and its conditional."""
+
+        def kl_and_predict(gp, vals, st):
+            st = gp._factor_state(vals) if st is None else st
+            return gp._prior_kl(vals, st), gp._predict_f(vals, X, st)
+
+        if self._pairable():
+            kls, (mu, var) = kl_and_predict(self.f, self._stacked(), factor_state)
+            return torch.sum(kls), ((mu[0], var[0]), (mu[1], var[1]))
+        stf, stg = (None, None) if factor_state is None else (_stack([s]) for s in factor_state)
+        klf, (fm, fv) = kl_and_predict(self.f, _stack([self.f.values()]), stf)
+        klg, (gm, gv) = kl_and_predict(self.g, _stack([self.g.values()]), stg)
+        return klf[0] + klg[0], ((fm[0], fv[0]), (gm[0], gv[0]))
+
+
+class HurdlePrediction(NamedTuple):
+    """The joint hurdle's predictive moments: gate probability and amount latent."""
+
+    p_on: torch.Tensor  # P(y > 0 | x) = Φ̃(gmean/√(1+gvar))
+    fmean: torch.Tensor  # amount latent mean (log scale for LogNormal/Gamma)
+    fvar: torch.Tensor
+    gmean: torch.Tensor
+    gvar: torch.Tensor
+
+
+class KronHurdleSVGP(_KronPair):
+    """The jointly trained hurdle: a Bernoulli gate GP g on 1[y>0] and a
+    positive-support amount GP f on y | y>0, in one ELBO:
+
+        ELBO = Σᵢ E_q(g)[log Bern(1[yᵢ>0] | Φ(gᵢ))]
+             + Σ_{i: yᵢ>0} E_q(f)[log q(yᵢ | fᵢ)] − KL_f − KL_g.
+
+    The amount term is masked, not subset, so a step's shapes are static."""
+
+    def __init__(self, f, g, gate_likelihood, amount_likelihood, mean_const, num_data, pair_gps=True):
+        super().__init__()
+        self.f = f
+        self.g = g
+        self.gate_likelihood = gate_likelihood
+        self.amount_likelihood = amount_likelihood
+        self.mean_const = mean_const
+        self.num_data = int(num_data)
+        self.pair_gps = pair_gps
+
+    @classmethod
+    def create(
+        cls,
+        fkernels,
+        Zfs,
+        gkernels,
+        Zgs,
+        gate_likelihood,
+        amount_likelihood,
+        *,
+        num_data,
+        mean_const=None,
+        jitter=None,
+        seed: int = 0,
+        lr: Optional[float] = None,
+        q_mu_scale: float = 0.1,
+        whiten: bool = False,
+        q_cov: str = "diag",
+    ) -> "KronHurdleSVGP":
+        gkernels = copy.deepcopy(list(gkernels))  # never tie f's and g's parameters
+        kw = dict(jitter=jitter, lr=lr, q_mu_scale=q_mu_scale, whiten=whiten, q_cov=q_cov)
+        return cls(
+            f=KronGP.create(fkernels, Zfs, seed=seed, **kw),
+            g=KronGP.create(gkernels, Zgs, seed=seed + 1, **kw),
+            gate_likelihood=gate_likelihood,
+            amount_likelihood=amount_likelihood,
+            mean_const=None if mean_const is None else param(mean_const),
+            num_data=num_data,
+        )
+
+    def predict(self, Xnew: torch.Tensor) -> HurdlePrediction:
+        (fmean, fvar), (gmean, gvar) = self._predict_fg(Xnew)
+        if self.mean_const is not None:
+            fmean = fmean + self.mean_const.value
+        return HurdlePrediction(self.gate_likelihood.predict_prob(gmean, gvar), fmean, fvar, gmean, gvar)
+
+    def elbo(self, X: torch.Tensor, Y: torch.Tensor, *, num_data=None, factor_state=None) -> torch.Tensor:
+        """``Y`` carries the raw amounts, zeros included; the gate target
+        and the amount mask come from it. ``num_data`` and ``factor_state``
+        as in ``KronSVGP.elbo``."""
+        kl, ((fmean, fvar), (gmean, gvar)) = self._kl_and_predict(X, factor_state)
+        if self.mean_const is not None:
+            fmean = fmean + self.mean_const.value
+        on = (Y > 0).to(X.dtype)
+        ve_gate = self.gate_likelihood.variational_expectations(gmean, gvar, on)
+        # Y is 1 at the off rows, so the amount term stays finite there and
+        # the mask zeroes it in the primal and the backward pass alike (a
+        # log 0 would make 0·inf = NaN in the gradient, which Adam's
+        # zero_nans would then hide)
+        Ysafe = torch.where(on > 0, Y, torch.ones_like(Y))
+        ve_amount = self.amount_likelihood.variational_expectations(fmean, fvar, Ysafe)
+        var_exp = ve_gate + on * ve_amount
+        n = self.num_data if num_data is None else num_data
+        return torch.sum(var_exp) * (n / X.shape[0]) - kl
+
+    def loss(self, X, Y, *, num_data=None, factor_state=None):
+        return -self.elbo(X, Y, num_data=num_data, factor_state=factor_state)
+
+
+class KronOnOffSVGP(_KronPair):
     """The two-GP zero-inflated on/off model on Kronecker inducing grids:
     a signal GP f and a support GP g coupled by a probit gate."""
 
@@ -225,8 +445,6 @@ class KronOnOffSVGP(nn.Module):
         self.g_mean_shift = float(g_mean_shift)
         self.num_data = int(num_data)
         self.exact_owen_t = exact_owen_t
-        # Run f and g as one stacked pass when their shapes match: one
-        # chol_inv launch per factor for the pair. Same math either way.
         self.pair_gps = pair_gps
 
     @classmethod
@@ -263,24 +481,18 @@ class KronOnOffSVGP(nn.Module):
             exact_owen_t=exact_owen_t,
         )
 
-    def _pairable(self) -> bool:
-        return self.pair_gps and self.f.signature() == self.g.signature()
-
-    def _predict_fg(self, Xnew: torch.Tensor):
-        """(fmean, fvar), (gmean, gvar), each (B, 1)."""
-        if self._pairable():
-            mu, var = self.f._predict_f(_stack([self.f.values(), self.g.values()]), Xnew)
-            return (mu[0], var[0]), (mu[1], var[1])
-        return self.f.predict_f(Xnew), self.g.predict_f(Xnew)
-
-    def predict(self, Xnew: torch.Tensor) -> OnOffPrediction:
-        (fmean, fvar), (gmean, gvar) = self._predict_fg(Xnew)
+    def _gated(self, fmean, fvar, gmean, gvar):
+        """The mean shifts, then the probit gate's expectations."""
         if self.mean_const is not None:
             fmean = fmean + self.mean_const.value
         # constant prior-mean shift on g (the reference's predict module uses
         # −1.0, its training 0; default 0)
         gmean = gmean + self.g_mean_shift
-        e_phi, e_phi_sq, var_phi = probit_expectations(gmean, gvar, exact=self.exact_owen_t)
+        return fmean, gmean, probit_expectations(gmean, gvar, exact=self.exact_owen_t)
+
+    def predict(self, Xnew: torch.Tensor) -> OnOffPrediction:
+        (fmean, fvar), (gmean, gvar) = self._predict_fg(Xnew)
+        fmean, gmean, (e_phi, e_phi_sq, var_phi) = self._gated(fmean, fvar, gmean, gvar)
         return OnOffPrediction(
             e_phi * fmean,
             e_phi_sq * fvar,
@@ -293,18 +505,6 @@ class KronOnOffSVGP(nn.Module):
             var_phi,
         )
 
-    def factor_state(self):
-        """The pair's chol_inv factorizations: stacked (leading f/g dim) when
-        paired, ((f state), (g state)) otherwise."""
-        if self._pairable():
-            return self.f._factor_state(_stack([self.f.values(), self.g.values()]))
-        return self.f.factor_state(), self.g.factor_state()
-
-    def prior_kl(self) -> torch.Tensor:
-        if self._pairable():
-            return torch.sum(self.f._prior_kl(_stack([self.f.values(), self.g.values()])))
-        return self.f.prior_kl() + self.g.prior_kl()
-
     def elbo(self, X: torch.Tensor, Y: torch.Tensor, *, num_data=None, factor_state=None) -> torch.Tensor:
         """The minibatch ELBO: (num_data / B) Σ E_q[log p(y | Φ(g) f)] − KL_f − KL_g.
 
@@ -312,25 +512,8 @@ class KronOnOffSVGP(nn.Module):
         injects a precomputed ``self.factor_state()`` (same layout). Each GP
         factorizes its grams once (chol_inv) for both its KL and its
         conditional; paired, f and g run as one stacked pass."""
-
-        def kl_and_predict(gp, vals, st):
-            st = gp._factor_state(vals) if st is None else st
-            return gp._prior_kl(vals, st), gp._predict_f(vals, X, st)
-
-        if self._pairable():
-            kls, (mu, var) = kl_and_predict(self.f, _stack([self.f.values(), self.g.values()]), factor_state)
-            kl = torch.sum(kls)
-            (fmean, fvar), (gmean, gvar) = (mu[0], var[0]), (mu[1], var[1])
-        else:
-            stf, stg = (None, None) if factor_state is None else (_stack([s]) for s in factor_state)
-            klf, (fm, fv) = kl_and_predict(self.f, _stack([self.f.values()]), stf)
-            klg, (gm, gv) = kl_and_predict(self.g, _stack([self.g.values()]), stg)
-            kl = klf[0] + klg[0]
-            fmean, fvar, gmean, gvar = fm[0], fv[0], gm[0], gv[0]
-        if self.mean_const is not None:
-            fmean = fmean + self.mean_const.value
-        gmean = gmean + self.g_mean_shift
-        e_phi, e_phi_sq, var_phi = probit_expectations(gmean, gvar, exact=self.exact_owen_t)
+        kl, ((fmean, fvar), (gmean, gvar)) = self._kl_and_predict(X, factor_state)
+        fmean, gmean, (e_phi, e_phi_sq, var_phi) = self._gated(fmean, fvar, gmean, gvar)
         var_exp = self.likelihood.variational_expectations(
             e_phi * fmean, e_phi_sq * fvar, var_phi * torch.square(fmean), Y
         )
