@@ -120,23 +120,46 @@ so any failure exits non-zero):
    ``predict_class``, ``predict``), one launch per factor and chunk, the
    first 4096 rows within the serving gate of CPU float64, and a second call
    that captures no new graph.
-11. One fold of the protocol end to end in one workdir: ``run_classifier``
+11. The other trainers at full width, through ``train_onoff_pptr``
+   with the gram kernel off: README's block-coordinate recipe on the
+   flagship (device sampler, ``hyper_every`` 50, ``kern_lr`` 2e-2, 2 blocks
+   of 200), the 105 × 250 grid at B = 8192 with ``hyper_every`` 50 (2 blocks
+   of 50), natural gradients after 50 Adam warm-up steps: ``kron_joint``
+   (q_cov kron, whitened, device sampler, 4 blocks of 50), the diagonal
+   family (2 blocks) and ``kron_joint`` with ``hyper_every`` 50 (2 blocks).
+   Each: finite losses, the steps the budget gives, and every
+   ``chol_inv.cu`` and cluster-kernel launch by n exact (in each group's
+   hyper step and its factor state, four a joint natural step, none in a
+   q-only step's loss). Then for each, 10 graphed steps (``hyper_every``
+   cut to 5: two groups) against 10 eager (1e-4, launches exact), the
+   eager run's q-only steps watched: every hyper raw the same bits, no
+   ``chol_inv`` launch in their loss. Then the joint natural step on the
+   trained ``kron_joint`` model (f and g stacked, ``chol_inv.cu``) against
+   CPU float64 for each p within max(3 × CPU float32's error, 1e-5), and a
+   step forced out of the positive-definite cone kept to the bit on the
+   card and on the CPU.
+12. One fold of the protocol end to end in one workdir: ``run_classifier``
    (at its own 5000 steps), ``run_svgp``, ``run_hurdle`` (LogNormal head),
    ``run_zero_inflated``, ``run_hurdle_joint`` and ``run_onoff`` at 100
    steps, on the split's rows with targets from a seeded rain field
    (``rain_split``: the split's own wet hours are random, so a classifier
    calls no row "on" and the two-stage hurdle has nothing to train on).
    Every metric, prediction and loss finite, every result pickle written.
-12. Times, beside the card's name and power limit: points/s of
+13. Times, beside the card's name and power limit: points/s of
    predict_batched (every chunk one replay of the model's chunk graph,
    captured by its first call) against the same chunks launched eagerly,
    median of 5 passes each, in turns, the graphed predictions within the
    serving gate's tolerance of the eager ones; steps/s of blocks of 50
    eager against one replay each (flagship with the gram kernel on and
-   off, champion, scale; median of 3 passes, in turns) with each graph's
-   capture and instantiate times and pool size; steps/s of eager blocks
-   with each A/B route against production's (median of 3 passes of one
-   block, in turns); the 105 × 250 serving pass with the production
+   off, champion, scale; median of 3 passes of one block, in turns) with
+   each graph's capture and instantiate times and pool size; steps/s of
+   eager blocks of 20 steps with each A/B route against production's
+   (median of 3 passes, in turns); the other trainers' steps/s, graphed
+   blocks of 50 in turns (median of 3 passes of one block): on the
+   flagship joint Adam, ``hyper_every`` 50 and natgrad diagonal, joint Adam
+   and natgrad ``kron_joint`` on the whitened Kronecker-q twin, and on the
+   105 × 250 grid joint Adam against ``hyper_every`` 50, each graph's
+   capture and instantiate times; the 105 × 250 serving pass with the production
    Kronecker solve and with the kron_mv_2 route, each on its own copy of
    the model (median of 5, in turns); both tiled
    Cholesky kernels at every panel width they are built for, at n = 100 and
@@ -151,8 +174,10 @@ so any failure exits non-zero):
    plain version's; each family's steps/s eager against graphed (median of
    3 passes of 50 steps, in turns) and its serving points/s (graphed,
    median of 5), and the fold protocol's wall time.
-13. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
-   and the hurdle's pair, and the classifier's ``rbf_gram`` rows at G = 1) (the kron_mv_2 rows with the serving path's
+14. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
+   and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
+   the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
+   launches) (the kron_mv_2 rows with the serving path's
    launches by the instance the library ran), then the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
@@ -782,7 +807,7 @@ def phase_ab_cluster(split):
     return counts["rows"]["chol_inv_blocked_by_n"]
 
 
-def blocked_rows(ci, blocked: dict, rows_ab: dict, card) -> list:
+def blocked_rows(ci, blocked: dict, rows_ab: dict, card, path: str = "scale 105x250 serving and training") -> list:
     """The kernels-line rows of the cluster kernel at each n > MAX_N: by the
     package's instance on the main path (``blocked``: its launches in scale
     serving and training), and by the row instance from the scale A/B
@@ -790,7 +815,7 @@ def blocked_rows(ci, blocked: dict, rows_ab: dict, card) -> list:
     call with the host, device ms (CUDA graph), the plain version's ms
     (chol_inv_plain at the kernel's width), torch.linalg's, the bound and the
     largest difference from the plain version."""
-    entries = [(n, ci.blocked_route(n), k, "scale 105x250 serving and training") for n, k in blocked.items()]
+    entries = [(n, ci.blocked_route(n), k, path) for n, k in blocked.items()]
     entries += [(n, "cluster", k, "scale 105x250 training A/B, the row instance forced") for n, k in rows_ab.items()]
     rows = []
     for n, instance, launches, path in sorted(entries):
@@ -1122,7 +1147,7 @@ def phase_train_routes(cfg, split):
 
     Xs, Ys = stage_batches(DataSet(split.Xtrain, split.Ytrain, seed=3), cfg.batch_size, AB_STEPS,
                            device=DEVICE, dtype=torch.float32)
-    forward = linalg._chol_inv_forward
+    forward = linalg.chol_inv_forward
     runs = [("production", None, True), *((n, r, True) for n, r in TRAIN_ROUTES.items()),
             ("small_cholesky+solve unpaired", route_small_cholesky_solve, False)]
     out, all_counts = {}, {}
@@ -1130,13 +1155,13 @@ def phase_train_routes(cfg, split):
         m = copy.deepcopy(base)
         m.pair_gps = paired
         if route is not None:
-            linalg._chol_inv_forward = route
+            linalg.chol_inv_forward = route
         try:
             zero_counts()
             losses = make_scan_train_step(make_optimizer(m, default_lr=cfg.indp_lr))(m, Xs, Ys).cpu().numpy()
             counts = read_counts()
         finally:
-            linalg._chol_inv_forward = forward
+            linalg.chol_inv_forward = forward
         chol = counts["chol"] + counts["small_cholesky"] + counts["batched_small_cholesky"]
         per_step = 2 if paired else 4  # one factorization per factor, of the pair or of each GP
         log(f"train A/B {name}: losses {losses[0]:.6f} .. {losses[-1]:.6f}; launches chol.cu {chol} "
@@ -1442,29 +1467,32 @@ def eager_blocks(model, split, batch, inner=50):
     return run
 
 
+ROUTE_STEPS = 20  # steps of each eager route-timing block: short, for the script's time limit
+
+
 def time_train_routes(split, card) -> dict:
     """Flagship steps/s of eager blocks with each route of chol_inv's
     forward against production's eager block: median of 3 passes of one
-    block of 50, in turns."""
+    block of ROUTE_STEPS, in turns."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
     from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
     from zigp_tpu_torch.ops import linalg
 
     cfg = OnOffPptrConfig()
     base = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
-    forward = linalg._chol_inv_forward
+    forward = linalg.chol_inv_forward
     runs = {}
     for name, route in {"production": None, **TRAIN_ROUTES}.items():
-        runs[name] = (eager_blocks(copy.deepcopy(base), split, cfg.batch_size), route, [])
+        runs[name] = (eager_blocks(copy.deepcopy(base), split, cfg.batch_size, ROUTE_STEPS), route, [])
 
     def run(name, first_block, blocks):
         blocks_of, route, _ = runs[name]
         if route is not None:
-            linalg._chol_inv_forward = route
+            linalg.chol_inv_forward = route
         try:
             return blocks_of(first_block, blocks)
         finally:
-            linalg._chol_inv_forward = forward
+            linalg.chol_inv_forward = forward
 
     for name in runs:
         run(name, 0, 1)  # warm-up
@@ -1473,8 +1501,8 @@ def time_train_routes(split, card) -> dict:
         for name in order if rep % 2 == 0 else order[::-1]:
             runs[name][2].append(run(name, 1 + rep, 1))
     rate = {name: float(np.median(r[2])) for name, r in runs.items()}
-    log("time flagship training by chol_inv forward route, eager blocks (device sampler, B=1000, median of 3 "
-        "passes of 50 steps, in turns): "
+    log(f"time flagship training by chol_inv forward route, eager blocks (device sampler, B=1000, median of 3 "
+        f"passes of {ROUTE_STEPS} steps, in turns): "
         + ", ".join(f"{n} {rate[n]:.1f} steps/s {[round(v, 1) for v in runs[n][2]]}" for n in runs) + f"; {card}")
     return rate
 
@@ -1638,15 +1666,16 @@ def time_blocks(name, make_model, cfg, X, Y, blocks, card, note) -> dict:
 
 
 def time_graphed_training(split, card) -> dict:
-    """``time_blocks`` of the on/off configurations, 2 blocks a pass: the
-    flagship with the gram kernel on and off, champion and scale with it on."""
+    """``time_blocks`` of the on/off configurations, 1 block a pass (for the
+    script's time limit): the flagship with the gram kernel on and off,
+    champion and scale with it on."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
 
     cases = [(name, cfg, True) for name, cfg in train_cfgs().items()]
     cases.insert(1, ("flagship, gram kernel off", train_cfgs()["flagship"], False))
     return {
         name: time_blocks(name, lambda cfg=cfg, k=use_kernel: build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=k),
-                          cfg, split.Xtrain, split.Ytrain, 2, card,
+                          cfg, split.Xtrain, split.Ytrain, 1, card,
                           f"gram kernel {'on' if use_kernel else 'off'}")
         for name, cfg, use_kernel in cases
     }
@@ -1883,6 +1912,415 @@ def phase_fold_protocol(split, card) -> float:
     return wall
 
 
+# --- the other trainers: the block-coordinate schedule and natural gradients ---
+
+TRAINER_AB_EVERY = 5  # the graphed-vs-eager A/B of a grouped block: two groups in AB_STEPS
+
+
+def trainer_cfgs() -> dict:
+    """The other trainers' configurations at full width, cut in depth:
+    README's block-coordinate recipe on the flagship (device sampler,
+    hyper_every 50, kern_lr 2e-2, blocks of 200: two blocks), the 105 × 250
+    grid at B = 8192 with hyper_every 50 (two blocks of 50), and the natural
+    gradients with 50 Adam warm-up steps: the kron_joint recipe (q_cov kron,
+    whitened, device sampler, then 4 blocks of 50), the diagonal family (the
+    flagship default, host sampler, 2 blocks) and kron_joint with
+    hyper_every 50 (2 blocks)."""
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+
+    base = OnOffPptrConfig()
+    ng = dict(optimizer="natgrad", natgrad_adam_warmup=50, scan_inner=50, log_every=50)
+    joint = dict(q_cov="kron", whiten=True, natgrad_kron_joint=True, sampler="device")
+    rep = dataclasses.replace
+    return {
+        "alternating flagship": rep(base, sampler="device", hyper_every=50, kern_lr=2e-2, scan_inner=200,
+                                    num_iter=400, log_every=200),
+        "alternating scale 105x250 B=8192": rep(scale_train_cfg(), sampler="device", hyper_every=50, scan_inner=50,
+                                                num_iter=100, log_every=50),
+        "natgrad kron_joint": rep(base, num_iter=250, **ng, **joint),
+        "natgrad diag": rep(base, num_iter=150, **ng),
+        "natgrad kron_joint hyper_every 50": rep(base, num_iter=150, hyper_every=50, **ng, **joint),
+    }
+
+
+def natural_kind(cfg) -> str:
+    if cfg.optimizer != "natgrad":
+        return ""
+    return "joint" if cfg.natgrad_kron_joint and cfg.q_cov == "kron" else cfg.q_cov
+
+
+def trainer_launches(sizes, steps, *, hyper_every=0, natural="", start=0) -> dict:
+    """{n: factorizations} of ``steps`` steps of a trainer on a stacked f/g
+    pair with factors ``sizes`` (one chol_inv launch each): a full step's
+    loss factors every factor once; with ``hyper_every`` each group's first
+    step is full, its factor state factors every factor once, and the other
+    steps' losses take that state; the joint natural step (``natural``
+    "joint", KL budget on) factors factor (start + i) mod P four times at
+    step i (Σ_p, two map-backs, Σ′); the diagonal and mean steps none."""
+    out = {n: 0 for n in sizes}
+    for i in range(steps):
+        full = not hyper_every or i % hyper_every == 0
+        for n in sizes:
+            out[n] += int(full) + int(full and bool(hyper_every))
+        if natural == "joint":
+            out[sizes[(start + i) % len(sizes)]] += 4
+    return out
+
+
+def by_kernel(by_n: dict) -> dict:
+    """{(wrapper, n): launches}: chol_inv.cu to MAX_N, the cluster kernel above."""
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+
+    return {("chol_inv" if n <= ci.MAX_N else "chol_inv_blocked", n): k for n, k in by_n.items() if k}
+
+
+def counted_by_kernel(counts) -> dict:
+    return {**{("chol_inv", n): k for n, k in counts["chol_inv_by_n"].items()},
+            **{("chol_inv_blocked", n): k for n, k in counts["chol_inv_blocked_by_n"].items()}}
+
+
+def expected_run_launches(cfg, sizes) -> tuple[int, dict]:
+    """(steps in the result, {(wrapper, n): launches}) of one run of ``cfg``
+    through ``train_onoff_pptr``: the natural phase after its Adam warm-up
+    (``fit_natgrad_scanned``'s budget rules), or the alternating run."""
+    if cfg.optimizer != "natgrad":
+        return cfg.num_iter, by_kernel(trainer_launches(sizes, cfg.num_iter, hyper_every=cfg.hyper_every))
+    warm = min(cfg.natgrad_adam_warmup, cfg.num_iter // 2)
+    inner = max(1, min(cfg.scan_inner, cfg.num_iter - warm))
+    steps = -(-(cfg.num_iter - warm) // inner) * inner
+    warm_steps = -(-warm // min(inner, warm)) * min(inner, warm) if warm else 0
+    want = trainer_launches(sizes, steps, hyper_every=cfg.hyper_every, natural=natural_kind(cfg))
+    for n in sizes:
+        want[n] += warm_steps  # the Adam warm-up's loss, one factorization a factor
+    return steps, by_kernel(want)
+
+
+def phase_trainer(name, cfg, split) -> dict:
+    """Train ``cfg`` on the card through ``train_onoff_pptr`` (gram kernel
+    off, both packages' default), the counts zeroed just before and read just
+    after: finite losses, the steps the budget gives, and every chol_inv.cu
+    and cluster-kernel launch by n as ``expected_run_launches`` counts them
+    (none in a q-only step's loss). Returns its model and counts."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.experiments.runners import train_onoff_pptr
+
+    model = build_onoff_pptr(cfg, split, device=DEVICE)
+    sizes = [Z.shape[0] for Z in model.f.Zs]
+    steps, want = expected_run_launches(cfg, sizes)
+    lines = []
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_onoff_pptr(cfg, split, model=model, log_fn=lambda s: (lines.append(s), log(f"{name}: {s}")))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    got = counted_by_kernel(counts)
+    losses = res.step_losses
+    blocks = losses.double().reshape(-1, cfg.scan_inner).mean(1).tolist()
+    log(f"{name}: {losses.numel()} steps at B={cfg.batch_size} in {wall:.1f} s, block mean losses "
+        f"{[f'{b:.6g}' for b in blocks]}; launches {got} (expected {want}); graphs "
+        f"{[s.split(': ', 1)[1] for s in lines if 'graph' in s]}")
+    if losses.numel() != steps or not torch.isfinite(losses).all():
+        raise AssertionError(f"{name}: {losses.numel()} steps (expected {steps}), finite "
+                             f"{bool(torch.isfinite(losses).all())}")
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    return {"model": model, "counts": counts}
+
+
+def trainer_body(cfg, model, hyper_every):
+    """(block body ``(Xs, Ys) -> losses``, its per-q-step watch point) for
+    ``cfg``'s trainer on ``model``: the alternating block with its pair of
+    optimizers, or the natural-gradient trainer's block at the γ of the
+    ramp's first steps (a static float32 buffer); the joint Adam block for
+    an Adam config without ``hyper_every``."""
+    from zigp_tpu_torch.training import (
+        NaturalGradientTrainer,
+        init_alt_optimizers,
+        make_alternating_block,
+        make_scan_train_step,
+    )
+
+    if cfg.optimizer == "natgrad":
+        tr = NaturalGradientTrainer(model, gamma=cfg.natgrad_gamma, adam_lr=cfg.indp_lr,
+                                    gamma_warmup=cfg.natgrad_warmup, kron_joint=cfg.natgrad_kron_joint,
+                                    kl_cap=cfg.natgrad_kl_cap)
+        gammas = {}
+
+        def body(Xs, Ys):
+            K = Xs.shape[0]
+            if K not in gammas:
+                gammas[K] = torch.from_numpy(tr.gamma_at(np.arange(K))).to(DEVICE)
+            return tr.block(Xs, Ys, gammas[K], 0, hyper_every)
+
+        return body, tr
+    if hyper_every:
+        opt = init_alt_optimizers(model, learning_rate=cfg.indp_lr)
+        block = make_alternating_block(model, opt, hyper_every)
+        return block, opt
+    train = make_scan_train_step(optimizer_for(model, cfg))
+    return (lambda Xs, Ys: train(model, Xs, Ys)), None
+
+
+def phase_trainer_ab(name, cfg, split, base) -> float:
+    """From ``base``, 10 steps by one replay of the captured block against
+    10 eager steps from the same state on the same batches (after a warm-up
+    block of 10 on a side stream on each copy), with ``hyper_every`` cut to
+    TRAINER_AB_EVERY (two groups): losses within GRAPH_TOL, launches exact
+    on both paths; in the eager run every hyper raw is the same bits across
+    the q-only steps of a group, and a q-only step's loss launches no
+    chol_inv (its joint natural step its four)."""
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, capture_block, partition_model, stage_batches
+
+    every = TRAINER_AB_EVERY if cfg.hyper_every else 0
+    sizes = [Z.shape[0] for Z in base.f.Zs]
+    want = by_kernel(trainer_launches(sizes, AB_STEPS, hyper_every=every, natural=natural_kind(cfg)))
+    ds = DataSet(split.Xtrain, split.Ytrain, seed=3)
+    warm, timed = (stage_batches(ds, cfg.batch_size, AB_STEPS, device=DEVICE, dtype=torch.float32) for _ in range(2))
+    out, watched = {}, []
+    for path in ("eager", "graphed"):
+        m = copy.deepcopy(base)
+        body, owner = trainer_body(cfg, m, every)
+        Xs, Ys = (t.clone() for t in warm)
+        on_side_stream(lambda: body(Xs, Ys))
+        if path == "graphed":
+            step = capture_block(lambda: body(Xs, Ys))
+            Xs.copy_(timed[0])
+            Ys.copy_(timed[1])
+            zero_counts()
+            losses = step()
+        else:
+            if every:  # watch each q-only step: its launches and the hyper raws
+                _, h = partition_model(m)
+                natural = owner if cfg.optimizer == "natgrad" else None
+                hyper = [r for _, r in h if r.requires_grad] if natural is None else [
+                    r for r in m.parameters() if r.requires_grad and all(r is not p for p in natural.natural.params)]
+                target = (natural, "q_only_step") if natural is not None else (owner.q, "step")
+                inner = getattr(*target)
+
+                def watch(*a, inner=inner, hyper=hyper, **kw):
+                    before = read_counts()["chol_inv"] + read_counts()["chol_inv_blocked"]
+                    out_ = inner(*a, **kw)
+                    watched.append((before, [r.detach().clone() for r in hyper]))
+                    return out_
+
+                setattr(*target, watch)
+            zero_counts()
+            losses = body(*timed)
+        torch.cuda.synchronize()
+        got = counted_by_kernel(read_counts())
+        if got != want:
+            raise AssertionError(f"trainer A/B {name} {path}: launches {got}, expected {want}")
+        out[path] = losses.cpu().double().numpy()
+        if not np.isfinite(out[path]).all():
+            raise AssertionError(f"trainer A/B {name} {path}: non-finite losses")
+    err = float(np.max(np.abs(out["graphed"] - out["eager"]) / np.abs(out["eager"])))
+    note = ""
+    if every:
+        # watched: after each q-only step (the alternating schedule's q.step
+        # or the natural q_only_step); the AB_STEPS steps make two groups
+        q_per_group = every - 1
+        natural_launches = 4 if natural_kind(cfg) == "joint" else 0
+        for g in range(AB_STEPS // every):
+            group = watched[g * q_per_group:(g + 1) * q_per_group]
+            for (c0, h0), (c1, h1) in zip(group, group[1:]):
+                if cfg.optimizer != "natgrad" and c1 != c0:
+                    raise AssertionError(f"trainer A/B {name}: a q-only step launched chol_inv {c1 - c0} times")
+                if cfg.optimizer == "natgrad" and c1 - c0 != natural_launches:
+                    raise AssertionError(f"trainer A/B {name}: a q-only step launched chol_inv {c1 - c0} times, "
+                                         f"expected its natural step's {natural_launches}")
+                if not all(torch.equal(a, b) for a, b in zip(h0, h1)):
+                    raise AssertionError(f"trainer A/B {name}: a q-only step moved a hyper raw")
+        note = (f"; q-only steps: hyper raws the same bits, chol_inv launches "
+                f"{'none' if cfg.optimizer != 'natgrad' else f'{natural_launches} (the natural step) each'}")
+    log(f"trainer A/B {name}: {AB_STEPS} steps{f' (hyper_every {every})' if every else ''} by one replay vs eager, "
+        f"losses {out['graphed'][0]:.6f} .. {out['graphed'][-1]:.6f}; largest relative loss difference {err:.3e} "
+        f"(tol {GRAPH_TOL:.0e}), equal bits {bool(np.array_equal(out['graphed'], out['eager']))}; launches exact "
+        f"{want}{note}")
+    if not err <= GRAPH_TOL:
+        raise AssertionError(f"trainer A/B {name}: graphed and eager losses differ by {err:.3e}")
+    return err
+
+
+def natural_inputs(model, X, Y, device, dtype):
+    """The kron_joint step's inputs on the flagship pair at its state: the
+    stacked (m, C_q, ∂L/∂m, ∂L/∂C_q) of f and g from one batch, computed on
+    the card in float32 and moved to ``device`` and ``dtype``."""
+    from zigp_tpu_torch.training import NaturalGradientTrainer
+
+    tr = NaturalGradientTrainer(model, kron_joint=True)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(DEVICE)
+    tr.adam.zero_grad()
+    tr.natural.zero_()
+    model.loss(t(X), t(Y)).backward()
+    gps = (model.f, model.g)
+    mv = lambda ts: torch.stack([x.detach() for x in ts]).to(device=device, dtype=dtype)
+    P = len(model.f.Zs)
+    return (mv(gp.q_mu.raw for gp in gps), [mv(torch.tril(gp.q_sqrt_factors[q].raw) for gp in gps) for q in range(P)],
+            mv(gp.q_mu.raw.grad for gp in gps), [mv(gp.q_sqrt_factors[q].raw.grad for gp in gps) for q in range(P)])
+
+
+def phase_natural_step(model, cfg, split) -> None:
+    """The joint natural step (``natgrad_update_block_kron``, f and g
+    stacked, every factorization through chol_inv.cu) on the card in float32
+    against the same step on the CPU in float64, on the same (m, C_p,
+    gradients) from the trained kron_joint model, for each p: each output
+    within max(3 × the CPU float32 run's error, 1e-5), 4 launches a step.
+    Then a step forced out of the positive-definite cone (γ past the point
+    where A + (2γ/M_rest)·D has a negative eigenvalue, KL budget off) keeps
+    the previous (m, C_p) to the bit on the card, as on the CPU."""
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.training import natgrad_update_block_kron
+
+    X, Y = split.Xtrain[:cfg.batch_size], split.Ytrain[:cfg.batch_size]
+    ins = {dt: natural_inputs(model, X, Y, dev, dt) for dev, dt in (("cpu", torch.float64), ("cpu", torch.float32))}
+    ins["card"] = natural_inputs(model, X, Y, DEVICE, torch.float32)
+    gamma = torch.tensor(cfg.natgrad_gamma, dtype=torch.float32)
+    kw = dict(max_mean_step=10.0, kl_cap=cfg.natgrad_kl_cap)
+    sizes = [C.shape[-1] for C in ins["card"][1]]
+    for p in range(len(sizes)):
+        outs = {}
+        for key, (m, Cs, gm, gC) in ins.items():
+            if key == "card":
+                zero_counts()
+            outs[key] = natgrad_update_block_kron(m, Cs, p, gm, gC[p], gamma.to(m.device), **kw)
+            if key == "card":
+                torch.cuda.synchronize()
+                launches = read_counts()["chol_inv_by_n"]
+                if launches != {sizes[p]: 4}:
+                    raise AssertionError(f"natural step p={p}: chol_inv launches {launches}, expected {{{sizes[p]}: 4}}")
+        for i, what in enumerate(("m", f"C_{p}")):
+            e_card = rel(outs["card"][i].cpu(), outs[torch.float64][i])
+            e_cpu = rel(outs[torch.float32][i], outs[torch.float64][i])
+            tol = max(3.0 * e_cpu, 1e-5)
+            log(f"natural step p={p} (n={sizes[p]}, G=2): {what:4s} card f32 vs cpu f64 {e_card:.3e}, cpu f32 vs cpu "
+                f"f64 {e_cpu:.3e} (tol {tol:.3e}); chol_inv.cu launches 4")
+            if not e_card <= tol:
+                raise AssertionError(f"natural step p={p}: {what} card error {e_card:.3e} > {tol:.3e}")
+    # out of the cone: pick γ from the float64 step so the raw update is indefinite
+    m, Cs, gm, gC = ins[torch.float64]
+    p = len(sizes) - 1
+    Sig = Cs[p] @ Cs[p].transpose(-1, -2)
+    L, Li = linalg.chol_inv_forward(Sig)
+    d = torch.sign(torch.diagonal(Cs[p], dim1=-2, dim2=-1))
+    D = linalg.chol_vjp(L, Li, torch.tril(gC[p]) * d[..., None, :])
+    D = 0.5 * (D + D.transpose(-1, -2))
+    A = Li.transpose(-1, -2) @ Li
+    Mrest = math.prod(sizes) // sizes[p]
+    # D is linear in the gradient: flip it where D has no negative eigenvalue
+    flip = torch.where(torch.linalg.eigvalsh(D)[..., 0] < 0, 1.0, -1.0).to(torch.float64)
+    lam_D, lam_A = torch.linalg.eigvalsh(D * flip[:, None, None])[..., 0], torch.linalg.eigvalsh(A)[..., -1]
+    if not (lam_D < 0).all():
+        raise AssertionError(f"non-PD step: D has no eigenvalue of either sign ({lam_D})")
+    big = float((100 * lam_A * Mrest / (2 * -lam_D)).max())
+    for key, (m, Cs, gm, gC) in ins.items():
+        if key == torch.float32:
+            continue
+        new_m, new_C = natgrad_update_block_kron(m, Cs, p, gm, gC[p] * flip.to(gC[p])[:, None, None],
+                                                 torch.tensor(big, dtype=torch.float32).to(m.device),
+                                                 max_mean_step=10.0, kl_cap=None)
+        if not (torch.equal(new_m, m) and torch.equal(new_C, Cs[p])):
+            raise AssertionError(f"non-PD step on {key}: the previous (m, C_{p}) was not kept")
+    log(f"natural step out of the cone (p={p}, γ={big:.3e}, KL budget off): the previous (m, C_{p}) kept to the bit "
+        f"on the card and on the CPU")
+
+
+def time_trainer_paths(name, cases, X, Y, card, blocks=1, inner=50) -> dict:
+    """Steps/s of each case's blocks of ``inner`` device-sampled steps, one
+    replay of its captured block each (a warm-up block on a side stream
+    first), in turns: median of 3 passes of ``blocks`` blocks, host clock
+    around work that ends in a synchronise; each graph's capture and
+    instantiate times and pool."""
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, capture_block
+    from zigp_tpu_torch.training.scan import StagedBlocks
+
+    runs = {}
+    for label, (cfg, make_model, every) in cases.items():
+        m = make_model()
+        st = StagedBlocks(DataSet(X, Y), "device", cfg.batch_size, inner, device=DEVICE, dtype=torch.float32)
+        body, _ = trainer_body(cfg, m, every)
+        st.fill(0)
+        on_side_stream(lambda: body(st.Xs, st.Ys))
+        runs[label] = (st, capture_block(lambda body=body, st=st: body(st.Xs, st.Ys)), [])
+    labels = list(runs)
+    for rep in range(3):
+        for label in (labels if rep % 2 == 0 else labels[::-1]):
+            st, step, rates = runs[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in range(blocks):
+                st.fill(1 + blocks * rep + b)
+                losses = step()
+            torch.cuda.synchronize()
+            rates.append(blocks * inner / (time.perf_counter() - t0))
+            if not torch.isfinite(losses).all():
+                raise AssertionError(f"time {name} {label}: non-finite losses")
+    out = {}
+    for label, (_, step, rates) in runs.items():
+        g = step.graph
+        out[label] = {"steps_per_s": float(np.median(rates)), "capture_ms": g.capture_ms,
+                      "instantiate_ms": g.instantiate_ms, "pool_mib": g.pool_bytes / 2**20}
+        log(f"time {name}: {label}: {out[label]['steps_per_s']:.1f} steps/s {[round(v, 1) for v in rates]} (graphed "
+            f"blocks of {inner}, median of 3 passes of {blocks * inner} steps, in turns); block graph: {g.describe()}; "
+            f"{card}")
+    return out
+
+
+def time_trainers(split, card) -> dict:
+    """On the flagship (B = 1000), in turns: joint Adam, hyper_every 50 and
+    the diagonal natural gradients on the flagship default, joint Adam and
+    kron_joint on its whitened Kronecker-q twin; on the 105 × 250 grid
+    (B = 8192) joint Adam against hyper_every 50."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+
+    cfgs = trainer_cfgs()
+    build = lambda cfg: (lambda: build_onoff_pptr(cfg, split, device=DEVICE))
+    adam = lambda cfg: dataclasses.replace(cfg, optimizer="adam", hyper_every=0)
+    X, Y = split.Xtrain, split.Ytrain
+    alt, scale = cfgs["alternating flagship"], cfgs["alternating scale 105x250 B=8192"]
+    ng_diag, ng_joint = cfgs["natgrad diag"], cfgs["natgrad kron_joint"]
+    return {
+        "flagship": time_trainer_paths("the trainers, flagship B=1000", {
+            "joint Adam, diagonal q": (adam(alt), build(alt), 0), "hyper_every 50": (alt, build(alt), 50),
+            "natgrad diagonal": (ng_diag, build(ng_diag), 0),
+            "joint Adam, kron q whitened": (adam(ng_joint), build(ng_joint), 0),
+            "natgrad kron_joint": (ng_joint, build(ng_joint), 0)}, X, Y, card),
+        "scale": time_trainer_paths("joint vs hyper_every 50, 105x250 B=8192", {
+            "joint Adam": (adam(scale), build(scale), 0), "hyper_every 50": (scale, build(scale), 50)}, X, Y, card),
+    }
+
+
+def trainer_rows(ci, trainers: dict, card) -> list:
+    """The kernels-line rows of the other trainers' paths: chol_inv.cu at
+    each (2, n, n) and the cluster kernel at each n > MAX_N, with their
+    launches on those paths (the runs of ``phase_trainer``)."""
+    by_shape = {}
+    for name, run in trainers.items():
+        for (kernel, n), k in counted_by_kernel(run["counts"]).items():
+            by_shape.setdefault((kernel, n), {})[name] = k
+    rows = []
+    for (kernel, n), paths in sorted(by_shape.items()):
+        launches = sum(paths.values())
+        where = ", ".join(f"{name} {k}" for name, k in paths.items())
+        if kernel == "chol_inv_blocked":
+            rows += blocked_rows(ci, {n: launches}, {}, card, f"trainers: {where}")
+            continue
+        ms, device_ms, plain_ms, lib_ms, err = time_chol_inv(ci, n, 2)
+        b_ms, b_by = bound_ms(n, 2)
+        kname = f"chol_inv n={n} G=2 (trainers: {where})"
+        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg "
+            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; "
+            f"{card}")
+        rows.append({
+            "name": kname, "route": "cuda", "source": "zigp_tpu_torch/ops/cuda/csrc/chol_inv.cu",
+            "replaces": "zigp_tpu/ops/pallas/chol_inv.py:339", "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        })
+    return rows
+
+
 def family_rows(ci, rg, families: dict, card) -> list:
     """The kernels-line rows of the families' paths: chol_inv.cu at each
     (G, n, n) with its training and serving launches on those paths, and
@@ -1977,6 +2415,11 @@ def main() -> int:
     mark("training phases")
     families = {name: phase_family(name, split) for name in FAMILIES}
     mark("family phases")
+    trainers = {name: phase_trainer(name, cfg, split) for name, cfg in trainer_cfgs().items()}
+    trainer_ab = {name: phase_trainer_ab(name, cfg, split, trainers[name]["model"])
+                  for name, cfg in trainer_cfgs().items()}
+    phase_natural_step(trainers["natgrad kron_joint"]["model"], trainer_cfgs()["natgrad kron_joint"], split)
+    mark("other trainers' phases")
 
     pts = {name: time_predict(name, m, X, batch, card, ref) for name, (m, X, _, ref, batch) in runs.items()}
     pts["scale 105x250 by solve route"] = time_serving_kron_mv(scale_model, scale_X, 4096, card)
@@ -1994,6 +2437,8 @@ def main() -> int:
             family_targets(name, split.Ytrain), 1, card, f"gram kernel {'on' if FAMILIES[name][1] else 'off'}")
         pts[f"family {name}"] = time_family_serving(name, fam["model"], fam["method"], fam["X"], card)
     mark("family times")
+    trainer_rates = time_trainers(split, card)
+    mark("other trainers' times")
     fold_wall = phase_fold_protocol(split, card)
     mark("fold protocol")
 
@@ -2026,10 +2471,12 @@ def main() -> int:
     kernels += gram_rows(rg, train_counts, card)
     kernels += ab_rows(route_counts, serve_counts, card)
     kernels += family_rows(ci, rg, families, card)
+    kernels += trainer_rows(ci, trainers, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
-        f"by chol_inv forward route: {json.dumps(route_rates)}; fold protocol {fold_wall:.1f} s; "
+        f"by chol_inv forward route: {json.dumps(route_rates)}; other trainers' steps/s {json.dumps(trainer_rates)}, "
+        f"graph A/B {json.dumps(trainer_ab)}; fold protocol {fold_wall:.1f} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

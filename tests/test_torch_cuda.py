@@ -780,3 +780,102 @@ def test_family_serving_keeps_its_graph_across_calls(cuda, name):
     assert list(runners._CHUNK_GRAPHS[model].values()) == [graph]
     for k in first:
         assert np.array_equal(first[k], again[k]) and np.isfinite(first[k]).all(), k
+
+
+# --- the other trainers: the block-coordinate schedule and natural gradients ---
+
+
+def _natural_case(cuda, sizes=(10, 100), seed=0):
+    """A stacked pair's (m, C_q, ∂L/∂m, ∂L/∂C_q) in float32 on the card: C_q
+    the Cholesky factors of seeded SPD matrices scaled to O(1)."""
+    rng = np.random.RandomState(seed)
+    M = int(np.prod(sizes))
+    Cs = [torch.as_tensor(np.linalg.cholesky(_spd(n, seed=seed + n).astype(np.float64) / n).astype(np.float32),
+                          device=cuda) for n in sizes]
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    gC = [t(0.3 * rng.randn(2, n, n)) for n in sizes]
+    return t(rng.randn(2, M, 1)), Cs, t(0.3 * rng.randn(2, M, 1)), gC
+
+
+@pytest.mark.parametrize("kl_cap", [None, 10.0])
+def test_natural_block_step_through_chol_inv_kernel_matches_its_plain_path(cuda, kl_cap):
+    """The joint natural step on the card, every factorization through
+    ``chol_inv.cu`` (4 launches a step with the KL budget, 3 without),
+    against the same step with ``ops.linalg.chol_inv_forward`` on the
+    kernel's plain version, for each p: within 1e-5 relative."""
+    from zigp_tpu_torch.training import natgrad_update_block_kron
+
+    m, Cs, gm, gC = _natural_case(cuda)
+    gamma = torch.tensor(0.1, device=cuda)
+    forward = linalg.chol_inv_forward
+
+    def plain(K):
+        return ci.chol_inv_plain(K.contiguous(), ci.NB)
+
+    for p in range(2):
+        before = ci.chol_inv_cuda.launches
+        got = natgrad_update_block_kron(m, Cs, p, gm, gC[p], gamma, max_mean_step=10.0, kl_cap=kl_cap)
+        torch.cuda.synchronize()
+        assert ci.chol_inv_cuda.launches - before == (4 if kl_cap else 3)
+        linalg.chol_inv_forward = plain
+        try:
+            want = natgrad_update_block_kron(m, Cs, p, gm, gC[p], gamma, max_mean_step=10.0, kl_cap=kl_cap)
+        finally:
+            linalg.chol_inv_forward = forward
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all() and _rel(a, b) < 1e-5
+
+
+def test_natural_step_out_of_the_cone_keeps_the_previous_state_on_card(cuda):
+    """A γ that takes A′ = A + (2γ/M_rest)·D out of the positive-definite
+    cone (D with a negative eigenvalue, computed in float64; no KL budget,
+    no growth limit): ``chol_inv.cu``'s NaN from the failing pivot makes the
+    step keep the previous (m, C_p) to the bit; the opposite step moves."""
+    from zigp_tpu_torch.training import natgrad_update_block_kron
+
+    m, Cs, gm, gC = _natural_case(cuda, sizes=(6, 8), seed=3)
+    C = Cs[1].double().cpu().expand(2, 8, 8)
+    L, Li = linalg.chol_inv_forward(C @ C.transpose(-1, -2))
+    D = linalg.chol_vjp(L, Li, torch.tril(gC[1].double().cpu()))
+    lam = torch.linalg.eigvalsh(0.5 * (D + D.transpose(-1, -2)))
+    A_max = torch.linalg.eigvalsh(Li.transpose(-1, -2) @ Li)[..., -1]
+    sign = torch.where(lam[..., 0] < 0, 1.0, -1.0)  # a negative eigenvalue for each of the pair
+    lam_neg = torch.linalg.eigvalsh(0.5 * (D + D.transpose(-1, -2)) * sign[:, None, None])[..., 0]
+    gamma = float((100 * A_max * 6 / (2 * -lam_neg)).max())
+    g = gC[1] * sign.to(gC[1])[:, None, None]
+    kw = dict(max_mean_step=0.0, max_var_growth=1e30)
+    new_m, new_C = natgrad_update_block_kron(m, Cs, 1, gm, g, torch.tensor(gamma, device=cuda), **kw)
+    assert torch.equal(new_m, m) and torch.equal(new_C, torch.tril(Cs[1]).expand(2, 8, 8))
+    moved, _ = natgrad_update_block_kron(m, Cs, 1, gm, 1e-3 * g, torch.tensor(0.1, device=cuda), **kw)
+    assert torch.isfinite(moved).all() and not torch.equal(moved, m)
+
+
+def test_captured_alternating_block_makes_no_chol_inv_launch_in_its_q_only_steps(cuda):
+    """10 steps in two groups of 5 captured as one graph: its replay launches
+    ``chol_inv.cu`` 4 times a group (the hyper step's and the factor
+    state's, one a factor for the stacked pair) and never in the 8 q-only
+    steps; equal to the eager block on a twin within GRAPH_TOL."""
+    import copy
+
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import capture_block, init_alt_optimizers, make_alternating_block
+
+    model, _, blocks = _graph_setup(cuda)
+    twin = copy.deepcopy(model)
+    body = make_alternating_block(model, init_alt_optimizers(model, learning_rate=1e-2), 5)
+    tbody = make_alternating_block(twin, init_alt_optimizers(twin, learning_rate=1e-2), 5)
+    Xs, Ys = (b.clone() for b in blocks[0])
+    on_side_stream(lambda: body(Xs, Ys))
+    tbody(Xs, Ys)
+    graphed = capture_block(lambda: body(Xs, Ys))
+    assert graphed.graph.launches == {(ci.chol_inv_cuda, "launches"): 4 * 2,
+                                      (ci.chol_inv_cuda, "launches_by_n"): {6: 4, 20: 4},
+                                      (rg.rbf_gram_cuda, "launches"): 2 * (4 + 2) + 8 * 2,
+                                      (rg.rbf_gram_cuda, "launches_by_shape"):
+                                          graphed.graph.launches[(rg.rbf_gram_cuda, "launches_by_shape")]}
+    Xs.copy_(blocks[1][0])
+    Ys.copy_(blocks[1][1])
+    got = graphed()
+    want = tbody(*blocks[1])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and _rel_max(got, want) <= GRAPH_TOL

@@ -395,3 +395,40 @@ def test_a_warm_step_turns_no_host_value_into_a_tensor(monkeypatch, what):
     monkeypatch.setattr(torch, "as_tensor", guarded)
     monkeypatch.setattr(torch, "tensor", lambda *a, **k: pytest.fail("torch.tensor inside the step"))
     model.loss(X, Y).backward()
+
+
+def test_capture_block_keeps_its_body_alive(monkeypatch):
+    """A captured block reads and writes the storage its body's closure holds
+    (the model, the optimizer): ``capture_block`` keeps the body, so a
+    caller that lets them go cannot leave the graph writing into freed
+    memory (a later graph's replay crashed the card's process that way).
+    The graph is faked here; the card's test replays a real one."""
+    import contextlib
+    import gc
+    import weakref
+
+    from zigp_tpu_torch.ops.cuda import graphs
+    from zigp_tpu_torch.training import capture_block, make_scan_train_step
+
+    class FakeGraph:
+        @contextlib.contextmanager
+        def capture(self):
+            yield
+
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(graphs, "CountedGraph", FakeGraph)
+
+    def make():
+        _, tm = _pair_models()
+        train = make_scan_train_step(make_optimizer(tm, default_lr=LR))
+        X, Y = (torch.as_tensor(a[:B]) for a in _data())
+        return capture_block(lambda: train(tm, X[None], Y[None])), weakref.ref(tm)
+
+    step, alive = make()  # the caller keeps no model, optimizer or body
+    gc.collect()
+    assert alive() is not None
+    del step
+    gc.collect()
+    assert alive() is None

@@ -182,20 +182,13 @@ def test_make_cv_splits_equals_jax():
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
-NATGRAD = {"natgrad_gamma", "natgrad_warmup", "natgrad_adam_warmup", "natgrad_kron_joint", "natgrad_kl_cap"}
-
-
 def _configs_match(got, want):
     """The port's config equal to the JAX one, field for field, but for the
-    kernel-zoo fields (``KernelInit.period``, ``alpha``) the port lacks and
-    the natural-gradient options of the on/off config."""
+    kernel-zoo fields (``KernelInit.period``, ``alpha``) the port lacks."""
     def drop(d):
         return {k: drop(v) for k, v in d.items() if k not in ("period", "alpha")} if isinstance(d, dict) else d
 
-    g, w = drop(dataclasses.asdict(got)), drop(dataclasses.asdict(want))
-    if isinstance(got, tconfigs.OnOffPptrConfig):
-        w = {k: v for k, v in w.items() if k not in NATGRAD}
-    assert g == w
+    assert drop(dataclasses.asdict(got)) == drop(dataclasses.asdict(want))
 
 
 @pytest.mark.parametrize("name", ["OnOffPptrConfig", "SvgpPptrConfig", "ClassifierPptrConfig", "HurdleJointConfig",

@@ -23,6 +23,11 @@ class Bijector:
     def inverse(self, y) -> np.ndarray:
         raise NotImplementedError
 
+    def inverse_tensor(self, y: torch.Tensor) -> torch.Tensor:
+        """``inverse`` on a tensor, in its dtype and on its device: for an
+        update that writes a constrained value back inside a step."""
+        raise NotImplementedError(f"{self.name}: no tensor inverse")
+
     def __repr__(self):
         return self.name
 
@@ -51,6 +56,10 @@ class Softplus(Bijector):
     def inverse(self, y):
         ys = np.asarray(y, dtype=np.float64) - self.lower
         return ys + np.log(-np.expm1(-ys))
+
+    def inverse_tensor(self, y):
+        ys = y - self.lower
+        return ys + torch.log(-torch.expm1(-ys))
 
 
 class Exp(Bijector):

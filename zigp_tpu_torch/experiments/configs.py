@@ -2,9 +2,8 @@
 configs.py`` (``KronGridConfig``, ``KernelInit``, the on/off, SVGP,
 classifier and joint-hurdle configs, ``best_onoff_config``, the tuned
 configs and ``preset_configs``) with the JAX package's fields and defaults.
-The options of trainers the port does not have yet (natural gradients, the
-block-coordinate schedule, meshes) are kept so that a config that sets them
-fails loudly in ``experiments.runners._fit_auto``."""
+The mesh options the port does not have yet are kept so that a config that
+sets them fails loudly in ``experiments.runners._fit_auto``."""
 
 from __future__ import annotations
 
@@ -64,11 +63,21 @@ class OnOffPptrConfig:
     scan_inner: int = 50  # optimizer steps per block of fit_scanned; 0 = the per-step fit
     lr_schedule: str = ""  # "" = constant; "cosine" = cosine decay over num_iter
     sampler: str = "host"  # "host" (shuffled epochs) | "device" (uniform, on the device)
-    optimizer: str = "adam"  # "natgrad" is not ported
-    hyper_every: int = 0  # > 0: block-coordinate schedule, not ported
+    optimizer: str = "adam"  # "adam" | "natgrad" (natural step on q, Adam on the rest)
+    # > 0: block-coordinate schedule (training.alternating): the hypers update
+    # once per hyper_every steps, q-only steps between on one factorization
+    # (sampler "device"; must divide scan_inner). 0 = joint training
+    hyper_every: int = 0
     # post-hoc likelihood-variance recalibration by train-residual moment
     # matching (runners.recalibrate_noise); point metrics unchanged
     recalibrate_noise: bool = False
+    natgrad_gamma: float = 0.1
+    natgrad_warmup: int = 2000  # γ ramp length (steps)
+    natgrad_adam_warmup: int = 1000  # all-raw Adam steps before the natural phase
+    # q_cov="kron" only: the joint natural step on (mean, one Σ factor), the
+    # factor alternating by step, instead of the mean step + Adam on factors
+    natgrad_kron_joint: bool = False
+    natgrad_kl_cap: float = 10.0  # per-step KL(q′‖q) budget (nats); 0 disables
     g_mean_shift: float = 0.0  # constant prior-mean shift on g at predict
     q_cov: str = "diag"  # "diag" | "kron" (factored full covariance)
     mesh_data: int = 0  # multi-device training, not ported
@@ -103,11 +112,11 @@ class SvgpPptrConfig:
     lr_schedule: str = ""
     q_cov: str = "diag"
     sampler: str = "host"
-    hyper_every: int = 0  # not ported
+    hyper_every: int = 0  # block-coordinate cadence (see OnOffPptrConfig)
     recalibrate_noise: bool = False
     mesh_data: int = 0  # not ported
     mesh_model: int = 0
-    optimizer: str = "adam"  # "natgrad" is not ported
+    optimizer: str = "adam"  # "adam" | "natgrad"
     natgrad_gamma: float = 0.1
     natgrad_warmup: int = 2000
     natgrad_adam_warmup: int = 1000

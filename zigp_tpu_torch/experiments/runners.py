@@ -8,10 +8,12 @@ Counterpart of ``zigp_tpu/experiments/runners.py``:
   blocks pass bound methods of the model (``model.predict``,
   ``KronSVGP.predict_latent``, ``KronSVGP.predict_class``), never a new
   closure per call;
-- ``_fit_auto`` (:83-290): the scanned or per-step production loop with
-  ``kind``-scoped artifacts (``ckpt_{kind}``, ``metrics_{kind}.jsonl``), so
-  the five variants share one fold workdir; ``train_onoff_pptr`` is its
-  on/off entry;
+- ``_fit_auto`` (:83-290): the scanned or per-step production loop, the
+  natural-gradient trainer (``optimizer="natgrad"``) and the
+  block-coordinate schedule (``hyper_every``), with ``kind``-scoped
+  artifacts (``ckpt_{kind}``, ``metrics_{kind}.jsonl``), so the five
+  variants share one fold workdir; ``train_onoff_pptr`` is its on/off
+  entry;
 - ``run_onoff``, ``run_svgp``, ``run_classifier``, ``run_hurdle`` (the
   two-stage hurdle), ``run_hurdle_joint`` and ``run_zero_inflated``
   (:299-1083), with ``recalibrate_noise`` and the metric blocks.
@@ -41,7 +43,16 @@ from ..io.checkpoint import CheckpointManager
 from ..io.datasets import Split
 from ..likelihoods import Gamma, Gaussian, LogNormal
 from ..models import hurdle_combine, hurdle_on_indices, zero_inflated_combine
-from ..training import DataSet, FitResult, cosine_adam, fit, fit_scanned, make_optimizer
+from ..training import (
+    DataSet,
+    FitResult,
+    cosine_adam,
+    fit,
+    fit_natgrad_scanned,
+    fit_scanned,
+    init_alt_optimizers,
+    make_optimizer,
+)
 from ..utils import metrics
 from ..utils.logging import MetricLogger
 from .builders import (
@@ -87,23 +98,20 @@ def _fit_auto(
     on the uninterrupted run's trajectory; a checkpoint at or past
     ``cfg.num_iter`` returns without training.
 
-    What the port does not have raises ``NotImplementedError``: natural
-    gradients, the block-coordinate schedule (``hyper_every``) and meshes."""
-    unported = [
-        what
-        for what, on in (
-            ("optimizer='natgrad'", cfg.optimizer == "natgrad"),
-            ("hyper_every > 0", cfg.hyper_every > 0),
-            ("mesh_data/mesh_model", bool(cfg.mesh_data or cfg.mesh_model)),
-        )
-        if on
-    ]
-    if unported:
-        raise NotImplementedError(f"{kind} training: {unported} not ported to zigp_tpu_torch yet")
-    if cfg.optimizer != "adam":
+    ``cfg.optimizer == "natgrad"``: ``training.fit_natgrad_scanned`` with
+    the config's γ, warm-up, Adam warm-start, ``natgrad_kron_joint`` and KL
+    budget, and ``cfg.hyper_every`` groups (device sampler only), with the
+    same artifacts; it resumes by itself. ``cfg.hyper_every`` > 0 with Adam:
+    the block-coordinate schedule through ``fit_scanned(alternating=...)``,
+    a pair of per-partition optimizers (cosine over each partition's own
+    update count when ``lr_schedule`` is "cosine") that the checkpoints
+    hold; it needs the device sampler and the scanned path. The JAX
+    runner's guard rails stop the run with its messages (``SystemExit``).
+    Meshes are not ported: a config with one raises ``NotImplementedError``."""
+    if cfg.mesh_data or cfg.mesh_model:
+        raise NotImplementedError(f"{kind} training: ['mesh_data/mesh_model'] not ported to zigp_tpu_torch yet")
+    if cfg.optimizer not in ("adam", "natgrad"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    schedule = cosine_adam(cfg.num_iter) if cfg.lr_schedule == "cosine" else None
-    optimizer = make_optimizer(model, default_lr=learning_rate, schedule=schedule)
 
     ckpt = metric = None
     if workdir:
@@ -112,6 +120,22 @@ def _fit_auto(
             ckpt = CheckpointManager(os.path.join(workdir, f"ckpt_{kind}"), every=cfg.ckpt_every)
         metric = MetricLogger(os.path.join(workdir, f"metrics_{kind}.jsonl"))
     try:
+        if cfg.optimizer == "natgrad":
+            return _fit_natgrad(model, ds, cfg, learning_rate=learning_rate, log_fn=log_fn, ckpt=ckpt,
+                                metric=metric, resume=resume)
+        hyper_every = cfg.hyper_every or 0
+        if hyper_every:
+            if cfg.sampler != "device":
+                raise SystemExit("error: --hyper-every requires --sampler device (the alternating q-scan needs "
+                                 "HBM-resident data)")
+            facs = None
+            if cfg.lr_schedule == "cosine":  # each partition's own update count
+                facs = (cosine_adam(cfg.num_iter * (hyper_every - 1) // hyper_every),
+                        cosine_adam(max(1, cfg.num_iter // hyper_every)))
+            optimizer = init_alt_optimizers(model, learning_rate=learning_rate, opt_factories=facs)
+        else:
+            schedule = cosine_adam(cfg.num_iter) if cfg.lr_schedule == "cosine" else None
+            optimizer = make_optimizer(model, default_lr=learning_rate, schedule=schedule)
         start_step = 0
         if resume and ckpt is not None:
             restored = ckpt.restore_latest(model, optimizer)
@@ -129,7 +153,11 @@ def _fit_auto(
         if remaining <= 0:
             log_fn("checkpoint is already at or past num_iter; nothing to train")
             return FitResult(model=model, optimizer=optimizer)
-        if cfg.scan_inner and remaining >= cfg.scan_inner:
+        scanned = cfg.scan_inner and remaining >= cfg.scan_inner
+        if hyper_every and not scanned:
+            raise SystemExit("error: --hyper-every requires the scanned path (scan_inner > 0 and num_iter >= "
+                             "scan_inner)")
+        if scanned:
             return fit_scanned(
                 model,
                 ds,
@@ -137,6 +165,7 @@ def _fit_auto(
                 batch_size=cfg.batch_size,
                 num_inner=cfg.scan_inner,
                 optimizer=optimizer,
+                alternating=hyper_every,
                 # log_every 0: no loss is read mid-run
                 log_every_blocks=max(1, cfg.log_every // cfg.scan_inner) if cfg.log_every else 0,
                 log_fn=log_fn,
@@ -163,6 +192,37 @@ def _fit_auto(
     finally:
         if metric is not None:
             metric.close()
+
+
+def _fit_natgrad(model, ds: DataSet, cfg, *, learning_rate: float, log_fn, ckpt, metric, resume: bool) -> FitResult:
+    """The natural-gradient route of ``_fit_auto`` (JAX :123-184)."""
+    hyper_every = cfg.hyper_every or 0
+    if hyper_every and cfg.sampler != "device":
+        raise SystemExit("error: --hyper-every with --optimizer natgrad requires --sampler device")
+    if cfg.natgrad_kron_joint and cfg.q_cov != "kron":
+        log_fn("warning: --natgrad-joint requires q_cov='kron'; taking the diagonal-family natural step instead")
+    scan_inner = cfg.scan_inner or 50
+    return fit_natgrad_scanned(
+        model,
+        ds,
+        num_iter=cfg.num_iter,
+        batch_size=cfg.batch_size,
+        num_inner=scan_inner,
+        gamma=cfg.natgrad_gamma,
+        gamma_warmup=cfg.natgrad_warmup,
+        adam_warmup=cfg.natgrad_adam_warmup,
+        kron_joint=cfg.natgrad_kron_joint,
+        kl_cap=cfg.natgrad_kl_cap,  # ≤ 0 disables
+        adam_lr=learning_rate,
+        log_every_blocks=max(1, (cfg.log_every or 200) // scan_inner),
+        log_fn=log_fn,
+        ckpt_manager=ckpt,
+        metric_logger=metric,
+        resume=resume,
+        sampler=cfg.sampler,
+        sampler_seed=cfg.seed,
+        hyper_every=hyper_every,
+    )
 
 
 def train_onoff_pptr(

@@ -4,8 +4,9 @@ Counterpart of ``zigp_tpu/io/checkpoint.py`` (Orbax there, ``torch.save``
 here), with its layout: a checkpoint is the directory ``step_{step:010d}``
 under the manager's directory, holding one ``checkpoint.pt`` of plain
 tensors: ``{"model": {raw name: tensor}, "opt_state": {raw name: {"step",
-"exp_avg", "exp_avg_sq"}} or None, "step": int}``. It is read back with
-``weights_only=True``.
+"exp_avg", "exp_avg_sq"}} or None, "step": int}``; the alternating
+schedule's pair of optimizers nests one such dict under "h" and one under
+"q". It is read back with ``weights_only=True``.
 
 A restore writes into the storage that exists: every parameter, and every
 Adam tensor with the step counts, is ``copy_``-ed in place
@@ -27,16 +28,22 @@ from .convert import jax_key, load_jax_arrays
 FILE = "checkpoint.pt"
 
 
+def _to_cpu(tree):
+    """A nested dict of tensors, each detached and copied to the host."""
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.detach().cpu().clone() for k, v in tree.items()}
+
+
 def save(path: str, model, opt_state=None, step: Optional[int] = None) -> str:
-    """Save ``model``'s raws and ``opt_state``'s (a ``GroupedAdam``) state to
-    the directory ``path``, replacing what is there; the files are written
-    beside it and renamed into place."""
+    """Save ``model``'s raws and ``opt_state``'s state to the directory
+    ``path``, replacing what is there; the files are written beside it and
+    renamed into place. ``opt_state`` is anything with ``state_tensors()``
+    and ``load_state``: a ``GroupedAdam`` (the joint Adam, or the
+    natural-gradient trainer's), or the alternating schedule's
+    ``AdamPair``."""
     path = os.path.abspath(path)
     payload = {
         "model": {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
-        "opt_state": None if opt_state is None else {
-            n: {k: t.detach().cpu().clone() for k, t in ts.items()} for n, ts in opt_state.state_tensors().items()
-        },
+        "opt_state": None if opt_state is None else _to_cpu(opt_state.state_tensors()),
         "step": int(step or 0),
     }
     tmp = f"{path}.tmp-{os.getpid()}"
@@ -50,7 +57,7 @@ def save(path: str, model, opt_state=None, step: Optional[int] = None) -> str:
 
 def restore(path: str, like, opt_state_like=None) -> Tuple[Any, Any, Optional[int]]:
     """Restore the checkpoint at ``path`` into ``like`` (the model) and, when
-    given, ``opt_state_like`` (its ``GroupedAdam``), in place; returns
+    given, ``opt_state_like`` (its ``GroupedAdam`` or ``AdamPair``), in place; returns
     (like, opt_state_like, step). With ``opt_state_like=None`` only the model
     and the step are read: a partial restore for prediction, whatever
     optimizer wrote the checkpoint."""

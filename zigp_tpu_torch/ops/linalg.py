@@ -52,13 +52,19 @@ def chol_inv_route(n: int, dtype: torch.dtype, device_type: str) -> str:
     return "library"
 
 
-def _chol_inv_forward(K: torch.Tensor):
+def chol_inv_forward(K: torch.Tensor):
+    """(L, L⁻¹) of (..., n, n) ``K`` by the route of ``chol_inv_route``,
+    forward only (no autograd). A matrix that is not positive definite
+    gives NaN, as the JAX package's Cholesky does, and never raises or waits
+    on the device: the kernels give NaN from the failing pivot on, the
+    library route the whole matrix."""
     route = chol_inv_route(K.shape[-1], K.dtype, K.device.type)
     if route == "kernel":
         return chol_inv_cuda(K.contiguous())
     if route == "cluster":
         return chol_inv_blocked(K.contiguous())
-    L = torch.linalg.cholesky(K)
+    L, info = torch.linalg.cholesky_ex(K)
+    L = torch.where((info == 0)[..., None, None], L, torch.nan)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
@@ -68,15 +74,25 @@ def _phi_half_diag(X: torch.Tensor) -> torch.Tensor:
     return torch.tril(X) - 0.5 * torch.diag_embed(torch.diagonal(X, dim1=-2, dim2=-1))
 
 
+def chol_vjp(L: torch.Tensor, Linv: torch.Tensor, dL: torch.Tensor) -> torch.Tensor:
+    """The pullback of L = chol(K) (K read symmetrically, as the JAX
+    package's Cholesky reads it) at cotangent ``dL``, by matmuls only with
+    L⁻¹ in hand: K̄ = sym(L⁻ᵀ Φ(Lᵀ dL) L⁻¹), Φ the lower triangle with its
+    diagonal halved (Murray 2016)."""
+    mT = lambda A: A.transpose(-1, -2)
+    P = _phi_half_diag(mT(L) @ dL)
+    return 0.5 * (mT(Linv) @ (P + mT(P)) @ Linv)
+
+
 class _CholInv(torch.autograd.Function):
     """(L, L⁻¹) = chol_inv(K) with the matmul-only backward of
     ``zigp_tpu/ops/linalg.py:177-211`` (reverse-mode Cholesky with L⁻¹ in
-    hand, Murray 2016), on every route: the forward's kernel, cluster kernel
-    or library call sees a detached K, and the backward needs no solve."""
+    hand), on every route: the forward's kernel, cluster kernel or library
+    call sees a detached K, and the backward needs no solve."""
 
     @staticmethod
     def forward(ctx, K):
-        L, Linv = _chol_inv_forward(K.detach())
+        L, Linv = chol_inv_forward(K.detach())
         ctx.save_for_backward(L, Linv)
         return L, Linv
 
@@ -88,8 +104,7 @@ class _CholInv(torch.autograd.Function):
         if dLinv is not None:
             # pullback through L⁻¹ (lower-triangular dof only): −tril(L⁻ᵀ dLinv L⁻ᵀ)
             dL_tot = dL_tot - torch.tril(mT(Linv) @ dLinv @ mT(Linv))
-        P = _phi_half_diag(mT(L) @ dL_tot)
-        return 0.5 * (mT(Linv) @ (P + mT(P)) @ Linv)
+        return chol_vjp(L, Linv, dL_tot)
 
 
 def chol_inv(K: torch.Tensor):

@@ -111,13 +111,14 @@ def fit(
     and nothing else (0 in the JAX package, which names a resumed run's
     checkpoints from 0)."""
     from .optim import make_optimizer
-    from .scan import BlockRunner, StagedBlocks
+    from .scan import BlockRunner, StagedBlocks, make_scan_train_step
 
     if optimizer is None:
         optimizer = make_optimizer(model, default_lr=learning_rate)
     p0 = next(model.parameters())
     batches = StagedBlocks(data, "host", batch_size, 1, device=p0.device, dtype=p0.dtype)
-    runner = BlockRunner(optimizer, model, batches.Xs, batches.Ys, loss_fn)
+    body = make_scan_train_step(optimizer, loss_fn)
+    runner = BlockRunner(lambda: body(model, batches.Xs, batches.Ys), batches.Xs)
 
     check_every = log_every or 0
     if ckpt_manager is not None and recover_on_nan:

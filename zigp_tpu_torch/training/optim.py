@@ -32,7 +32,7 @@ It is one ``nan_to_num_`` over the flat buffer.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -40,6 +40,43 @@ from torch import nn
 from ..core.parameters import collect_lrs, lr_labels
 
 STATE_KEYS = ("step", "exp_avg", "exp_avg_sq")
+
+
+class GradBuffer:
+    """The gradients of ``params`` as views of one flat buffer ``flat``:
+    zeroing them is one fill, and a backward accumulates into the views in
+    place, so the storage a captured step reads stays the same."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        p0 = self.params[0]
+        self.flat = torch.zeros(sum(p.numel() for p in self.params), dtype=p0.dtype, device=p0.device)
+        self.views = []
+        offset = 0
+        for p in self.params:
+            self.views.append(self.flat[offset : offset + p.numel()].view_as(p))
+            offset += p.numel()
+        self.bind()
+
+    def bind(self) -> None:
+        """Point every ``.grad`` at its view of the flat buffer. A gradient
+        that was put in its place (by an assignment, or a backward after
+        ``zero_grad(set_to_none=True)`` on the model) is copied in; a
+        missing one is zero."""
+        for p, v in zip(self.params, self.views):
+            g = p.grad
+            if g is None:
+                v.zero_()
+            elif g.data_ptr() != v.data_ptr():
+                v.copy_(g)
+            else:
+                continue
+            p.grad = v
+
+    def zero_(self) -> None:
+        """Zero every gradient in place: the views stay bound."""
+        self.bind()
+        self.flat.zero_()
 
 
 class GroupedAdam:
@@ -61,12 +98,7 @@ class GroupedAdam:
         capturable = device.type == "cuda"  # torch's capturable Adam runs on the card only
         self.schedule = schedule
         self.zero_nans = zero_nans
-        self._flat = torch.zeros(sum(p.numel() for p in self.params), dtype=dtype, device=device)
-        self._views = []
-        offset = 0
-        for p in self.params:
-            self._views.append(self._flat[offset : offset + p.numel()].view_as(p))
-            offset += p.numel()
+        self.grads = GradBuffer(self.params)
         self.adam = torch.optim.Adam(
             [{"params": [p for _, p in g["params"]], "lr": torch.tensor(g["lr"], dtype=dtype, device=device),
               "base_lr": g["lr"], "label": g["label"]} for g in groups if g["params"]],
@@ -81,7 +113,6 @@ class GroupedAdam:
                 exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
                 exp_avg_sq=torch.zeros_like(p, memory_format=torch.preserve_format),
             )
-        self._bind_grads()
         self._set_lrs()
 
     @property
@@ -90,53 +121,34 @@ class GroupedAdam:
         parameter), a 0-d float32 tensor."""
         return self.adam.state[self.params[0]]["step"]
 
-    def _bind_grads(self) -> None:
-        """Point every ``.grad`` at its view of the flat buffer. A gradient
-        that was put in its place (by an assignment, or a backward after
-        ``zero_grad(set_to_none=True)`` on the model) is copied in; a
-        missing one is zero."""
-        for p, v in zip(self.params, self._views):
-            g = p.grad
-            if g is None:
-                v.zero_()
-            elif g.data_ptr() != v.data_ptr():
-                v.copy_(g)
-            else:
-                continue
-            p.grad = v
-
     def _set_lrs(self) -> None:
         """Each group's lr for the next update: its base lr times the
         schedule at the number of updates taken, computed on the device."""
         if self.schedule is None:
             return
-        scale = self.schedule(self.step_count.to(self._flat.dtype))
+        scale = self.schedule(self.step_count.to(self.grads.flat.dtype))
         for g in self.adam.param_groups:
             torch.mul(scale, g["base_lr"], out=g["lr"])
 
     def step(self) -> None:
         with torch.no_grad():
-            self._bind_grads()
+            self.grads.bind()
             if self.zero_nans:
-                torch.nan_to_num_(self._flat, nan=0.0, posinf=math.inf, neginf=-math.inf)
+                torch.nan_to_num_(self.grads.flat, nan=0.0, posinf=math.inf, neginf=-math.inf)
             self.adam.step()
             self._set_lrs()
 
     def zero_grad(self) -> None:
         """Zero every gradient in place: the views stay bound."""
-        self._bind_grads()
-        self._flat.zero_()
+        self.grads.zero_()
 
     def state_tensors(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """{parameter name: {"step", "exp_avg", "exp_avg_sq"}}: the live
         state tensors, for a checkpoint."""
         return {n: {k: self.adam.state[p][k] for k in STATE_KEYS} for n, p in zip(self.names, self.params)}
 
-    def load_state(self, state: Dict[str, Dict[str, torch.Tensor]]) -> None:
-        """Copy ``state`` (``state_tensors``'s layout, any device) into the
-        live state tensors in place, then set the lrs from the restored step
-        count. Raises on a missing or unknown name or a shape mismatch before
-        anything is written."""
+    def check_state(self, state: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Raise unless ``state`` has ``state_tensors``'s names and shapes."""
         live = self.state_tensors()
         if set(state) != set(live):
             raise KeyError(f"load_state: missing {sorted(set(live) - set(state))}, "
@@ -146,8 +158,15 @@ class GroupedAdam:
                 if tuple(state[n][k].shape) != tuple(t.shape):
                     raise ValueError(f"load_state: {n}.{k} has shape {tuple(state[n][k].shape)}, "
                                      f"expected {tuple(t.shape)}")
+
+    def load_state(self, state: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Copy ``state`` (``state_tensors``'s layout, any device) into the
+        live state tensors in place, then set the lrs from the restored step
+        count. Raises on a missing or unknown name or a shape mismatch before
+        anything is written (``check_state``)."""
+        self.check_state(state)
         with torch.no_grad():
-            for n, ts in live.items():
+            for n, ts in self.state_tensors().items():
                 for k, t in ts.items():
                     t.copy_(state[n][k])
             self._set_lrs()
@@ -198,15 +217,20 @@ def make_optimizer(
     default_lr: float = 1e-3,
     schedule: Optional[Callable] = None,
     zero_nans: bool = True,
+    names: Optional[Iterable[str]] = None,
 ) -> GroupedAdam:
     """Adam over ``model``'s trainable raws, one param group per lr label
     ("default" at ``default_lr``, "lr:<value>" at that value), each group's
-    learning rate multiplied by ``schedule(step)`` when one is given."""
+    learning rate multiplied by ``schedule(step)`` when one is given.
+    ``names``: only these raws (a partition of the model, as the JAX
+    package's ``make_optimizer`` takes a list of its leaves); the labels and
+    lrs are those of the raws taken."""
+    keep = None if names is None else set(names)
     lrs = collect_lrs(model, default_lr)
     labels = lr_labels(model)
     members: dict[str, list] = {label: [] for label in lrs}
     for name, raw in model.named_parameters():
-        if labels[name] != "frozen":
+        if labels[name] != "frozen" and (keep is None or name in keep):
             members[labels[name]].append((name, raw))
     groups = [{"label": label, "lr": lrs[label], "params": ps} for label, ps in members.items() if ps]
     return GroupedAdam(groups, schedule, zero_nans)

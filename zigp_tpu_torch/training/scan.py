@@ -10,7 +10,10 @@ counterpart of ``lax.scan``'s one dispatch. Parameters, gradients and the
 optimizer's state live in storage allocated before the capture
 (``training.optim``), and each block's minibatches are copied into one static
 (K, B, ·) pair, so a replay reads what an eager block would. The losses stay
-on the device until the caller reads them.
+on the device until the caller reads them. ``BlockRunner`` takes the block
+body as a callable, so the joint block, the block-coordinate schedule's
+(``training.alternating``) and the natural-gradient trainer's
+(``training.natgrad``) share one capture path.
 
 Two sources of minibatches, as in the JAX package:
 
@@ -51,41 +54,53 @@ def make_scan_train_step(optimizer, loss_fn: Optional[Callable] = None):
     return scan_step
 
 
-def make_graphed_scan_step(optimizer, model, Xs, Ys, loss_fn: Optional[Callable] = None):
-    """Capture one block of K optimizer steps over the static CUDA blocks
-    Xs (K, B, D), Ys (K, B, L): the counterpart of the JAX package's jitted
-    ``lax.scan`` block. Returns ``step() -> losses``: one replay on whatever
-    the caller has copied into Xs and Ys, the block's (K,) losses copied out
-    of the graph's pool (the next replay overwrites it); ``step.graph`` is
-    the ``ops.cuda.graphs.CountedGraph`` (capture and instantiate times,
-    pool size, launches a replay). An eager block of the same shapes must
-    have run first, on a side stream (``ops.cuda.graphs.on_side_stream``):
-    it builds and loads the kernels. A capture that fails raises."""
+def capture_block(body: Callable[[], torch.Tensor]):
+    """Capture ``body()`` (a block of steps on static CUDA tensors that
+    returns its (K,) losses) in one CUDA graph: the counterpart of the JAX
+    package's jitted ``lax.scan`` block. Returns ``step() -> losses``: one
+    replay on whatever the caller has copied into the block's static inputs,
+    the losses copied out of the graph's pool (the next replay overwrites
+    it); ``step.graph`` is the ``ops.cuda.graphs.CountedGraph`` (capture
+    and instantiate times, pool size, launches a replay). An eager run of
+    ``body`` must have come first, on a side stream
+    (``ops.cuda.graphs.on_side_stream``): it builds and loads the kernels.
+    A capture that fails raises. ``step.body`` keeps ``body``, and with it
+    the model and optimizer storage the graph reads and writes, alive as
+    long as the graph: a graph replayed after its caller let them go would
+    write into freed memory."""
     from ..ops.cuda.graphs import CountedGraph
 
     graph = CountedGraph()
-    body = make_scan_train_step(optimizer, loss_fn)
     with graph.capture():
-        losses = body(model, Xs, Ys)
+        losses = body()
 
     def step() -> torch.Tensor:
         graph.replay()
         return losses.clone()
 
     step.graph = graph
+    step.body = body
     return step
 
 
-class BlockRunner:
-    """The blocks of a run on one static (K, B, ·) pair. On the CPU each call
-    runs the eager block. On the card the first ⌈WARMUP_STEPS / K⌉ calls run
-    it on a side stream, as a capture's warm-up (real steps of the run); then
-    ``capture()`` (when ``wants_capture``) and every later call is one
-    replay."""
+def make_graphed_scan_step(optimizer, model, Xs, Ys, loss_fn: Optional[Callable] = None):
+    """``capture_block`` of K optimizer steps over the static CUDA blocks
+    Xs (K, B, D), Ys (K, B, L)."""
+    body = make_scan_train_step(optimizer, loss_fn)
+    return capture_block(lambda: body(model, Xs, Ys))
 
-    def __init__(self, optimizer, model, Xs, Ys, loss_fn: Optional[Callable] = None):
-        self.optimizer, self.model, self.Xs, self.Ys, self.loss_fn = optimizer, model, Xs, Ys, loss_fn
-        self.eager = make_scan_train_step(optimizer, loss_fn)
+
+class BlockRunner:
+    """The blocks of a run: ``body()`` runs one block of K steps on static
+    tensors (``Xs``, (K, B, ·), tells the device and K) and returns its
+    losses. The joint, alternating and natural-gradient blocks all run
+    through it. On the CPU each call runs ``body``. On the card the first
+    ⌈WARMUP_STEPS / K⌉ calls run it on a side stream, as a capture's warm-up
+    (real steps of the run); then ``capture()`` (when ``wants_capture``) and
+    every later call is one replay."""
+
+    def __init__(self, body: Callable[[], torch.Tensor], Xs: torch.Tensor):
+        self.body = body
         self.cuda = Xs.device.type == "cuda"
         self.warm = math.ceil(WARMUP_STEPS / Xs.shape[0]) if self.cuda else 0
         self.graphed = None
@@ -95,12 +110,12 @@ class BlockRunner:
         return self.cuda and self.warm == 0 and self.graphed is None
 
     def capture(self):
-        self.graphed = make_graphed_scan_step(self.optimizer, self.model, self.Xs, self.Ys, self.loss_fn)
+        self.graphed = capture_block(self.body)
         return self.graphed
 
     def __call__(self) -> torch.Tensor:
         if not self.cuda:
-            return self.eager(self.model, self.Xs, self.Ys)
+            return self.body()
         if self.graphed is None:
             if self.warm == 0:
                 self.capture()
@@ -108,7 +123,7 @@ class BlockRunner:
                 self.warm -= 1
                 from ..ops.cuda.graphs import on_side_stream
 
-                return on_side_stream(lambda: self.eager(self.model, self.Xs, self.Ys))
+                return on_side_stream(self.body)
         return self.graphed()
 
 
@@ -168,9 +183,6 @@ class StagedBlocks:
             self.Ys.copy_(torch.from_numpy(ys))
 
 
-_NOT_PORTED = ("mesh", "alternating")
-
-
 def _loss_of(loss_fn):
     return (lambda m, X, Y: loss_fn(m, X, Y)) if loss_fn is not None else (lambda m, X, Y: m.loss(X, Y))
 
@@ -214,6 +226,7 @@ def fit_scanned(
     sampler_seed: int = 0,
     mesh=None,
     alternating: int = 0,
+    alt_opt_factories=None,
 ) -> FitResult:
     """Train ``model`` in place for ``num_iter`` steps in this call, rounded
     up to whole blocks of ``num_inner``, on minibatches of ``batch_size``
@@ -245,27 +258,47 @@ def fit_scanned(
     - Ctrl-C between blocks checkpoints the state and returns with
       ``interrupted``; one inside a block re-raises (``block_for_interrupt``).
 
+    ``alternating`` > 0: the block-coordinate schedule
+    (``training.alternating``): the hyperparameters update once per that
+    many steps by their own Adam, and the q-only steps between take the
+    factorization computed once after it. It needs ``sampler="device"``, the
+    model's own loss, and ``alternating`` dividing ``num_inner``;
+    ``optimizer`` is then the pair of ``init_alt_optimizers`` (by default
+    made here, with ``alt_opt_factories``: the (q, h) schedules), and the
+    checkpoints hold both.
+
     The host reads a loss only at the log points and checkpoint boundaries
     (and once at the end). The run's step rate counts the blocks after the
     first and, on the card, after the capture. A non-finite loss at the end
     raises ``FloatingPointError``, unless the last block was restored.
-    Meshes and the block-coordinate schedule (``alternating``) are not
-    ported: setting either raises ``NotImplementedError``."""
-    given = {"mesh": mesh, "alternating": alternating}
-    unported = [name for name in _NOT_PORTED if given[name]]
-    if unported:
-        raise NotImplementedError(f"fit_scanned: {unported} not ported to zigp_tpu_torch yet")
+    Meshes are not ported: passing one raises ``NotImplementedError``."""
+    if mesh is not None:
+        raise NotImplementedError("fit_scanned: mesh not ported to zigp_tpu_torch yet")
     if sampler not in ("host", "device"):
         raise ValueError(f"fit_scanned: unknown sampler {sampler!r}")
-    if optimizer is None:
-        from .optim import make_optimizer
+    if alternating:
+        from .alternating import init_alt_optimizers, make_alternating_block
 
-        optimizer = make_optimizer(model, default_lr=learning_rate)
+        if sampler != "device" or loss_fn is not None:
+            raise ValueError(
+                "alternating training requires sampler='device' and the model's own loss (loss_fn=None)")
+        if num_inner % alternating:
+            raise ValueError(f"scan_inner ({num_inner}) must divide by hyper_every ({alternating})")
+        if optimizer is None:
+            optimizer = init_alt_optimizers(model, learning_rate=learning_rate, opt_factories=alt_opt_factories)
+        step = make_alternating_block(model, optimizer, alternating)
+    else:
+        if optimizer is None:
+            from .optim import make_optimizer
+
+            optimizer = make_optimizer(model, default_lr=learning_rate)
+        train = make_scan_train_step(optimizer, loss_fn)
+        step = lambda Xs, Ys: train(model, Xs, Ys)
 
     p0 = next(model.parameters())
     blocks = StagedBlocks(data, sampler, batch_size, num_inner, device=p0.device, dtype=p0.dtype,
                           sampler_seed=sampler_seed)
-    runner = BlockRunner(optimizer, model, blocks.Xs, blocks.Ys, loss_fn)
+    runner = BlockRunner(lambda: step(blocks.Xs, blocks.Ys), blocks.Xs)
     loss = _loss_of(loss_fn)
     kl_fn = model.prior_kl if hasattr(model, "prior_kl") else None
     hist = metric_logger is not None and hist_every
