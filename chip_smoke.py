@@ -174,11 +174,42 @@ so any failure exits non-zero):
    plain version's; each family's steps/s eager against graphed (median of
    3 passes of 50 steps, in turns) and its serving points/s (graphed,
    median of 5), and the fold protocol's wall time.
-14. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
+14. The batched member stack (``training.batched``, ``experiments.
+   cv_batched``, ``experiments.ensemble``) on the synthetic set's five CV
+   folds (``make_cv_splits``: five equal train sizes). After phase 11: the
+   vmap rule's one ``chol_inv`` launch against per-member launches, bit for
+   bit (``chol_inv.cu`` at n = 100, batches 10 and 80, and 200; the cluster
+   kernel at n = 250, batches 10 and 50); the flagship F = 5 stack's losses
+   and stacked gradients at perturbed raws within max(3 × CPU f32's error,
+   1e-5) of the stack on the CPU in float64; each member of a 50-step
+   flagship F = 5 stack against its own graphed sequential
+   ``fit_scanned(sampler="device", sampler_seed=f)``, losses and raws within
+   max(3 × the gap between that sequential run and the same run on the CPU
+   in float32, 1e-4); each stack path (flagship F = 5, champion F = 5, the
+   flagship ensemble 5 × 4, ``hyper_every`` 50 F = 5, natgrad ``kron_joint``
+   F = 5, the 105 × 250 grid at B = 8192 F = 5) through
+   ``fit_batched_scanned`` or ``fit_natgrad_batched``, two blocks of 50:
+   every ``chol_inv.cu`` and cluster-kernel launch by n exactly a single
+   member's run's, at batch 2 × the members. In phase 13's times: each path's
+   steps/s against the single model, graphed blocks of 50 in turns (median
+   of 3), as stack steps/s and fold-steps/s; ``predict_batched_stacked``
+   over 5 × 65,536 rows (one launch per factor and chunk for the five
+   members, each member within the serving gate of CPU float64; points/s,
+   median of 5). After phase 12: the batched studies on the five folds of the
+   rain field, each test set cut to 500 rows (``study_folds``: the host's
+   scoring of an on/off mixture grows with the square of its components):
+   ``run_cv_batched`` of all six variants (the fold
+   protocol's configurations and steps, the gram kernel on),
+   ``run_cv_batched(["onoff"], ensemble=2)`` and ``run_ensemble("onoff",
+   size=4)`` on fold 1: every aggregate finite, training and scoring walls
+   apart.
+15. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
    launches) (the kron_mv_2 rows with the serving path's
-   launches by the instance the library ran), then the card's name and power limit,
+   launches by the instance the library ran; the stack's ``chol_inv.cu`` and
+   cluster-kernel rows at each batch (G, n) its paths launched, and its
+   ``rbf_gram`` rows), then the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
 The script needs one CUDA device, the repository checkout around it, and
@@ -538,15 +569,18 @@ def zero_counts() -> None:
     for fn in counted_wrappers().values():
         fn.launches = 0
         getattr(fn, "launches_by_shape", getattr(fn, "launches_by_n", None)).clear()
-        if hasattr(fn, "launches_by_instance"):
-            fn.launches_by_instance.clear()
+        for attr in ("launches_by_instance", "launches_by_batch"):
+            if hasattr(fn, attr):
+                getattr(fn, attr).clear()
 
 
 def read_counts() -> dict:
     """{name: launches, name_by_shape: {shape: launches}} for every wrapper;
     the chol_inv wrappers' by-shape keys are ``chol_inv_by_n`` and
-    ``chol_inv_blocked_by_n`` (the cluster kernel), and kron_mv_2 also has
-    ``kron_mv_2_by_instance`` ({(G, Ma, Mb, transpose, instance): launches})."""
+    ``chol_inv_blocked_by_n`` (the cluster kernel), both also by batch
+    (``chol_inv_by_batch``, ``chol_inv_blocked_by_batch``: {(G, n):
+    launches}), and kron_mv_2 also has ``kron_mv_2_by_instance`` ({(G, Ma,
+    Mb, transpose, instance): launches})."""
     from zigp_tpu_torch.ops.cuda.graphs import counted_wrappers
 
     out = {}
@@ -554,8 +588,9 @@ def read_counts() -> dict:
         out[name] = fn.launches
         by = getattr(fn, "launches_by_shape", None)
         out[f"{name}_by_n" if by is None else f"{name}_by_shape"] = dict(by if by is not None else fn.launches_by_n)
-        if hasattr(fn, "launches_by_instance"):
-            out[f"{name}_by_instance"] = dict(fn.launches_by_instance)
+        for attr in ("instance", "batch"):
+            if hasattr(fn, f"launches_by_{attr}"):
+                out[f"{name}_by_{attr}"] = dict(getattr(fn, f"launches_by_{attr}"))
     return out
 
 
@@ -841,11 +876,12 @@ def blocked_rows(ci, blocked: dict, rows_ab: dict, card, path: str = "scale 105x
     return rows
 
 
-def gram_bound_ms(G, N, M, D, shared: bool) -> tuple[float, str]:
+def gram_bound_ms(G, N, M, D, shared: bool, per_kernel: bool = False) -> tuple[float, str]:
     """Least time of a (G, N, M) gram: X, Z, ell and var read once, K written
     once; 3D + 3 f32 operations per entry (D differences, squares and
-    scaled sums, the scale by −½, the exponential and σ²)."""
-    z_elems = M * D if shared else 0  # K(X, X) reads X only
+    scaled sums, the scale by −½, the exponential and σ²). Z is one (M, D)
+    block shared by the G kernels, or with ``per_kernel`` one a kernel."""
+    z_elems = M * D if shared else G * M * D if per_kernel else 0  # K(X, X) reads X only
     t_bytes = 4 * (G * N * D + z_elems + G * D + G + G * N * M) / PEAK_BYTES_PER_S
     t_ops = G * N * M * (3 * D + 3) / PEAK_F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -854,22 +890,25 @@ def gram_bound_ms(G, N, M, D, shared: bool) -> tuple[float, str]:
 GRAM_VS_PLAIN_TOL = 1e-5  # relative Frobenius distance, as tests/test_torch_cuda.py
 
 
-def gram_rows(rg, path_counts: dict, card) -> list:
+def gram_rows(rg, path_counts: dict, card, stacked: bool = False) -> list:
     """One kernels-line row per rbf_gram shape launched on each training
     path: the kernel's ms per call (CUDA events, host included), its device
     ms (CUDA graph), the plain version's ms, the bound, and the kernel's
     largest difference from the plain version. The
     kernel's output must be within GRAM_VS_PLAIN_TOL relative of the plain
-    version's at every shape."""
+    version's at every shape. On a member stack's paths (``stacked``) each
+    member's minibatch is expanded to its kernels, so K_mn's Z is one block
+    a kernel there."""
     rows = []
     for path, counts in path_counts.items():
         for (G, N, M, D), launches in sorted(counts["rbf_gram_by_shape"].items()):
             shared = N != M  # K_mn shares the minibatch; K_mm is K(Z, Z)
             rng = np.random.RandomState(N * M)
             X = torch.as_tensor(T_SPAN[0] + rng.rand(G, N, D), dtype=torch.float32, device=DEVICE)
-            Z = torch.as_tensor(T_SPAN[0] + rng.rand(M, D), dtype=torch.float32, device=DEVICE) if shared else X
+            Z = torch.as_tensor(T_SPAN[0] + rng.rand(*((G,) if stacked else ()), M, D), dtype=torch.float32,
+                                device=DEVICE) if shared else X
             ell = torch.full((G, D), 0.05, device=DEVICE)
-            var = torch.tensor([20.0, 10.0][:G], device=DEVICE)
+            var = torch.tensor(np.resize([20.0, 10.0], G), dtype=torch.float32, device=DEVICE)
             with torch.inference_mode():
                 ms = cuda_ms(lambda: rg.rbf_gram_cuda(X, Z, ell, var), reps=200)
                 device_ms = graph_ms(lambda: rg.rbf_gram_cuda(X, Z, ell, var))
@@ -877,7 +916,7 @@ def gram_rows(rg, path_counts: dict, card) -> list:
                 K, Kp = rg.rbf_gram_cuda(X, Z, ell, var), rg.rbf_gram_plain(X, Z, ell, var)
                 err = float((K - Kp).abs().max())
                 dist = rel(K.cpu().numpy(), Kp.cpu().numpy())
-            b_ms, b_by = gram_bound_ms(G, N, M, D, shared)
+            b_ms, b_by = gram_bound_ms(G, N, M, D, shared and not stacked, per_kernel=shared and stacked)
             kname = f"rbf_gram ({G},{N},{M}) D={D} {'K_mn' if shared else 'K_mm'} ({path})"
             log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {b_ms:.6f} ms ({b_by}), "
@@ -2350,6 +2389,533 @@ def family_rows(ci, rg, families: dict, card) -> list:
     return rows
 
 
+# --- the batched member stack: CV folds and ensemble members as one stack ----
+
+STACK_F = 5  # the protocol's five folds
+STACK_GATE_STEPS = 50  # the member gate: two blocks of 25, one eager, one replay
+STACK_INNER = 50  # the timed and the counted blocks
+STUDY_TEST_ROWS = 500  # the batched studies' test rows a fold (their training sets are the folds' own)
+BATCH_GATE = ((100, 10), (100, 80), (200, 10), (250, 10), (250, 50))  # (n, F·G) of the folded-launch gate
+
+
+def cv_folds(split):
+    """``make_cv_splits`` of the synthetic set (its time column is already
+    ÷ 1000): five folds of equal train size, as the pptr protocol's."""
+    from zigp_tpu_torch.io.datasets import make_cv_splits
+
+    folds = make_cv_splits(split, time_scale=1.0)
+    if len(folds) != STACK_F or len({f.Xtrain.shape[0] for f in folds}) != 1:
+        raise AssertionError(f"cv folds: {[f.Xtrain.shape for f in folds]}")
+    return folds
+
+
+def batched_grams(n: int, G: int) -> np.ndarray:
+    """G float32 SPD grams of n time knots: ``spd_grams``' pair repeated,
+    each copy scaled by its own factor."""
+    base = spd_grams(n)
+    return np.stack([base[g % 2] * np.float32(1.0 + 0.01 * (g // 2)) for g in range(G)])
+
+
+def phase_stack_chol_gate(ci):
+    """The vmap rule's one launch of (F·G, n, n) against one launch per
+    member, bit for bit: ``chol_inv.cu`` at n = 100 (batches 10 and 80, the
+    natural step's largest stack 4·F·E) and 200, the cluster kernel at
+    n = 250 (batches 10 and 50)."""
+    from zigp_tpu_torch.ops import linalg
+
+    for n, batch in BATCH_GATE:
+        K = torch.as_tensor(batched_grams(n, batch), device=DEVICE).reshape(batch // 2, 2, n, n)
+        wrapper = ci.chol_inv_cuda if n <= ci.MAX_N else ci.chol_inv_blocked
+        with torch.inference_mode():
+            before = wrapper.launches
+            L, Linv = torch.func.vmap(linalg.chol_inv)(K)
+            torch.cuda.synchronize()
+            folded = wrapper.launches - before
+            same = all(torch.equal(a, b) for f in range(K.shape[0])
+                       for a, b in zip((L[f], Linv[f]), linalg.chol_inv(K[f])))
+        log(f"gate stacked chol_inv n={n}: {K.shape[0]} members x 2 in {folded} launch of {wrapper.__name__}, "
+            f"bit-identical to {K.shape[0]} per-member launches: {same}")
+        if folded != 1 or not same or not torch.isfinite(L).all():
+            raise AssertionError(f"stacked chol_inv n={n}: {folded} launches, equal bits {same}")
+
+
+_BUILT = {}  # (config, fold rows, E, gram kernel, perturbation): the members built once
+
+
+def stack_members(cfg, folds, E=1, use_kernel=False, perturb=None):
+    """F×E models of ``cfg`` on the card (member f·E + e on fold f with seed
+    cfg.seed + e), their sampler seeds and training sets: fresh copies of
+    the members built at the first call."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+
+    key = (repr(cfg), folds[0].Xtrain.shape[0], E, use_kernel, perturb)
+    if key in _BUILT:
+        models, seeds, datas = _BUILT[key]
+        return [copy.deepcopy(m) for m in models], list(seeds), list(datas)
+    models, seeds, datas = [], [], []
+    for f, fold in enumerate(folds):
+        for e in range(E):
+            m = build_onoff_pptr(dataclasses.replace(cfg, seed=cfg.seed + e), fold, device=DEVICE,
+                                 use_kernel=use_kernel)
+            models.append(m if perturb is None else perturbed(m, perturb + f * E + e))
+            seeds.append(cfg.seed + e)
+            datas.append((fold.Xtrain, fold.Ytrain))
+    _BUILT[key] = ([copy.deepcopy(m) for m in models], seeds, datas)
+    return models, list(seeds), list(datas)
+
+
+def stack_loss_and_grads(stack, X, Y):
+    """Each member's loss and every trainable raw's gradient (stacked) of the
+    members' summed loss on one batch each, float64 numpy."""
+    from zigp_tpu_torch.training.batched import stacked_loss
+
+    p0 = next(stack.parameters())
+    t = lambda a: torch.as_tensor(a, dtype=p0.dtype).to(p0.device)
+    stack.zero_grad(set_to_none=True)
+    losses = stacked_loss(stack, t(X), t(Y))
+    losses.sum().backward()
+    grads = {n: p.grad.detach().cpu().double().numpy() for n, p in stack.named_parameters() if p.requires_grad}
+    stack.zero_grad(set_to_none=True)
+    return losses.detach().cpu().double().numpy(), grads
+
+
+def phase_stack_f32_gate(folds):
+    """The flagship F = 5 stack at perturbed raws: every member's loss and
+    every stacked gradient on the card against the stack on the CPU in
+    float64, each within max(3 × the CPU float32 stack's error, 1e-5)."""
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+    from zigp_tpu_torch.training import stack_models
+
+    cfg = OnOffPptrConfig()
+    models, _, _ = stack_members(cfg, folds, perturb=11)
+    stack = stack_models(models)
+    B = cfg.batch_size
+    X = np.stack([f.Xtrain[:B] for f in folds])
+    Y = np.stack([f.Ytrain[:B] for f in folds])
+    card = stack_loss_and_grads(stack, X, Y)
+    cpu64, cpu32 = (stack_loss_and_grads(copy.deepcopy(stack).to(device="cpu", dtype=dt), X, Y)
+                    for dt in (torch.float64, torch.float32))
+    rows = [(f"loss of member {f}", abs(card[0][f] - cpu64[0][f]) / abs(cpu64[0][f]),
+             abs(cpu32[0][f] - cpu64[0][f]) / abs(cpu64[0][f]), abs(card[0][f] - cpu32[0][f]) / abs(cpu32[0][f]))
+            for f in range(STACK_F)]
+    rows += [(f"d {n}", rel(card[1][n], cpu64[1][n]), rel(cpu32[1][n], cpu64[1][n]), rel(card[1][n], cpu32[1][n]))
+             for n in cpu64[1]]
+    worst = 0.0
+    for what, e_card, e_cpu, e_32 in rows:
+        tol = max(3.0 * e_cpu, 1e-5)
+        worst = max(worst, e_card / tol)
+        log(f"gate stack flagship F={STACK_F}: {what:34s} card f32 vs cpu f64 {e_card:.3e}, cpu f32 vs cpu f64 "
+            f"{e_cpu:.3e} (tol {tol:.3e}); card f32 vs cpu f32 {e_32:.3e}")
+        if not e_card <= tol:
+            raise AssertionError(f"stack f32 gate: {what} card error {e_card:.3e} > {tol:.3e}")
+    log(f"gate stack flagship F={STACK_F}: {STACK_F} losses and {len(rows) - STACK_F} stacked gradients within bound "
+        f"(largest share of its tolerance {worst:.2f})")
+
+
+def cpu_f32_run(model, cfg, fold, seed, steps, inner):
+    """The member's sequential run repeated on the CPU in float32 on the rows
+    the card's device sampler draws for it: (losses at the block ends, raws)."""
+    from zigp_tpu_torch.training import DataSet, make_scan_train_step
+    from zigp_tpu_torch.training.scan import StagedBlocks
+
+    m = copy.deepcopy(model).to(device="cpu", dtype=torch.float32)
+    train = make_scan_train_step(optimizer_for(m, cfg))
+    st = StagedBlocks(DataSet(fold.Xtrain, fold.Ytrain), "device", cfg.batch_size, inner, device=DEVICE,
+                      dtype=torch.float32, sampler_seed=seed)
+    losses = []
+    for b in range(steps // inner):
+        st.fill(b)
+        losses.append(float(train(m, st.Xs.cpu(), st.Ys.cpu())[-1]))
+    return np.array(losses), [p.detach().double().numpy() for p in m.parameters()]
+
+
+def phase_stack_members(folds) -> dict:
+    """Each member of a 50-step flagship F = 5 stack (``fit_batched_scanned``,
+    two blocks of 25: one eager, one replay; counts zeroed just before and
+    read just after) against its own graphed sequential
+    ``fit_scanned(sampler="device", sampler_seed=f)``: the losses at the
+    block ends and every raw. The two differ only in the order of
+    summation (a batched product against F single ones), as the card's
+    sequential run and the same run on the CPU in float32 do: each is held
+    to max(3 × that CPU f32 gap, 1e-4), the graph A/B's floor."""
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+    from zigp_tpu_torch.training import DataSet, fit_batched_scanned, fit_scanned
+
+    cfg = OnOffPptrConfig()
+    inner = STACK_GATE_STEPS // 2
+    models, seeds, datas = stack_members(cfg, folds)
+    seeds = list(range(STACK_F))
+    starts = [copy.deepcopy(m) for m in models]
+    kw = dict(num_iter=STACK_GATE_STEPS, batch_size=cfg.batch_size, num_inner=inner, learning_rate=cfg.indp_lr,
+              log_every_blocks=1, log_fn=lambda s: None)
+    zero_counts()
+    res = fit_batched_scanned(models, datas, seeds=seeds, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    gaps = {"stack": ([], []), "cpu f32": ([], [])}
+    for f in range(STACK_F):
+        seq = fit_scanned(copy.deepcopy(starts[f]), DataSet(*datas[f]), sampler="device", sampler_seed=f, **kw)
+        seq_losses = np.array(seq.losses)
+        seq_raws = [p.detach().cpu().double().numpy() for p in seq.model.parameters()]
+        cpu_losses, cpu_raws = cpu_f32_run(starts[f], cfg, folds[f], f, STACK_GATE_STEPS, inner)
+        for path, losses, raws in (("stack", np.array(res[f].losses),
+                                    [p.detach().cpu().double().numpy() for p in res[f].model.parameters()]),
+                                   ("cpu f32", cpu_losses, cpu_raws)):
+            gaps[path][0].append(float(np.max(np.abs(losses - seq_losses) / np.abs(seq_losses))))
+            gaps[path][1].append(max(rel(a, b) for a, b in zip(raws, seq_raws)))
+    worst = {path: (max(l), max(r)) for path, (l, r) in gaps.items()}
+    tol = tuple(max(3.0 * e, 1e-4) for e in worst["cpu f32"])
+    log(f"gate stack members: {STACK_F} members of a {STACK_GATE_STEPS}-step flagship stack against their graphed "
+        f"sequential runs: losses {['%.3e' % v for v in gaps['stack'][0]]}, raws "
+        f"{['%.3e' % v for v in gaps['stack'][1]]}; the sequential runs repeated on the CPU in float32: losses "
+        f"{['%.3e' % v for v in gaps['cpu f32'][0]]}, raws {['%.3e' % v for v in gaps['cpu f32'][1]]} "
+        f"(tolerance losses {tol[0]:.3e}, raws {tol[1]:.3e}); launches {counted_by_kernel(counts)}, by batch "
+        f"{counts['chol_inv_by_batch']}")
+    if not (worst["stack"][0] <= tol[0] and worst["stack"][1] <= tol[1]):
+        raise AssertionError(f"stack members left their sequential runs: {worst['stack']} > {tol}")
+    return counts
+
+
+def stack_cases() -> dict:
+    """The timed and counted stack paths: name: (config, E, hyper_every,
+    the gram kernel on). Blocks of STACK_INNER; the natural gradients after
+    their Adam warm-up of 50 steps."""
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig, best_onoff_config
+
+    flagship = OnOffPptrConfig()
+    trainers = trainer_cfgs()
+    return {
+        "flagship F=5": (flagship, 1, 0, True),
+        "champion F=5": (best_onoff_config(), 1, 0, True),
+        "flagship ensemble 5x4": (flagship, 4, 0, True),
+        "hyper_every 50 F=5": (dataclasses.replace(trainers["alternating flagship"], scan_inner=STACK_INNER), 1, 50,
+                               False),
+        "natgrad kron_joint F=5": (dataclasses.replace(trainers["natgrad kron_joint"], num_iter=150), 1, 0, False),
+        "scale 105x250 B=8192 F=5": (scale_train_cfg(), 1, 0, True),
+    }
+
+
+def stack_body(cfg, stack, hyper_every):
+    """``trainer_body`` on a member stack: the stacked Adam, alternating or
+    natural-gradient block at the γ of the ramp's first steps."""
+    from zigp_tpu_torch.training import (
+        StackedNaturalGradientTrainer,
+        cosine_adam,
+        init_alt_optimizers,
+        make_batched_alternating_step,
+        make_batched_block,
+        make_optimizer,
+    )
+
+    if cfg.optimizer == "natgrad":
+        tr = StackedNaturalGradientTrainer(stack, gamma=cfg.natgrad_gamma, adam_lr=cfg.indp_lr,
+                                           gamma_warmup=cfg.natgrad_warmup, kron_joint=cfg.natgrad_kron_joint,
+                                           kl_cap=cfg.natgrad_kl_cap)
+        gammas = torch.from_numpy(tr.gamma_at(np.arange(STACK_INNER))).to(DEVICE)
+        return lambda Xs, Ys: tr.block(Xs, Ys, gammas, 0, hyper_every)
+    if hyper_every:
+        return make_batched_alternating_step(stack, init_alt_optimizers(stack, learning_rate=cfg.indp_lr),
+                                             hyper_every)
+    schedule = cosine_adam(cfg.num_iter) if cfg.lr_schedule == "cosine" else None
+    return make_batched_block(stack, make_optimizer(stack, default_lr=cfg.indp_lr, schedule=schedule))
+
+
+def phase_stack_paths(folds) -> dict:
+    """Each stack path through its entry point (``fit_batched_scanned`` or
+    ``fit_natgrad_batched``, two blocks of 50 after any warm-up: one eager,
+    one replay), the counts zeroed just before and read just after: finite
+    losses, and every ``chol_inv.cu`` and cluster-kernel launch by n exactly
+    a single member's run's (``per_step_launches``, ``expected_run_launches``):
+    the count does not grow with the members, whose matrices go in one
+    launch of F·E·2."""
+    from zigp_tpu_torch.training import fit_batched_scanned, fit_natgrad_batched
+
+    out = {}
+    for name, (cfg, E, hyper_every, use_kernel) in stack_cases().items():
+        models, seeds, datas = stack_members(cfg, folds, E, use_kernel)
+        sizes = [Z.shape[0] for Z in models[0].f.Zs]
+        members = len(models)
+        lines = []
+        zero_counts()
+        t0 = time.perf_counter()
+        if cfg.optimizer == "natgrad":
+            res = fit_natgrad_batched(
+                models, datas, num_iter=cfg.num_iter, batch_size=cfg.batch_size, num_inner=STACK_INNER,
+                gamma=cfg.natgrad_gamma, gamma_warmup=cfg.natgrad_warmup, adam_warmup=cfg.natgrad_adam_warmup,
+                kron_joint=cfg.natgrad_kron_joint, kl_cap=cfg.natgrad_kl_cap, adam_lr=cfg.indp_lr, seeds=seeds,
+                log_every_blocks=1, log_fn=lines.append)
+            steps, want = expected_run_launches(dataclasses.replace(cfg, scan_inner=STACK_INNER), sizes)
+        else:
+            steps = 2 * STACK_INNER
+            res = fit_batched_scanned(models, datas, num_iter=steps, batch_size=cfg.batch_size,
+                                      num_inner=STACK_INNER, learning_rate=cfg.indp_lr, seeds=seeds,
+                                      hyper_every=hyper_every, log_every_blocks=1, log_fn=lines.append)
+            want = by_kernel(trainer_launches(sizes, steps, hyper_every=hyper_every))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        got = counted_by_kernel(counts)
+        batches = {G for G, _ in (*counts["chol_inv_by_batch"], *counts["chol_inv_blocked_by_batch"])}
+        log(f"stack {name}: {members} members, {steps} steps at B={cfg.batch_size} in {wall:.1f} s; launches {got} "
+            f"(a single member's run: {want}), batches {sorted(batches)}; gram kernel "
+            f"{'on' if use_kernel else 'off'}, rbf_gram {counts['rbf_gram_by_shape']}; "
+            f"{[s for s in lines if 'graph' in s or 'losses' in s][-2:]}")
+        finals = np.array([r.final_loss for r in res])
+        if not np.isfinite(finals).all() or len(res) != members:
+            raise AssertionError(f"stack {name}: final losses {finals}")
+        if got != want or batches != {2 * members}:
+            raise AssertionError(f"stack {name}: launches {got} (expected {want}), batches {batches}")
+        out[name] = counts
+    return out
+
+
+def phase_stack_serving(folds, card) -> tuple:
+    """``predict_batched_stacked`` of the flagship F = 5 stack (perturbed
+    raws) over 5 × 65,536 rows at batch 4096, the counts zeroed just before
+    and read just after: one ``chol_inv.cu`` launch per factor and chunk for
+    all five members, finite outputs with gfvar ≥ 0, each member's first
+    4096 rows within max(3 × CPU f32's error, 1e-5) of that member on the
+    CPU in float64 (phase 5's gate). Then points/s, every chunk one replay of
+    the stack's chunk graph, median of 5. Returns (points/s, the counts)."""
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+    from zigp_tpu_torch.experiments.cv_batched import _onoff_predict
+    from zigp_tpu_torch.experiments.runners import predict_batched
+    from zigp_tpu_torch.training import predict_batched_stacked, stack_models, unstack_model
+
+    batch = 4096
+    models, _, _ = stack_members(OnOffPptrConfig(), folds, perturb=21)
+    stack = stack_models(models)
+    Xs = np.stack([np.resize(f.Xtest, (ROWS, 3)) for f in folds])
+    chunks = math.ceil(ROWS / batch)
+    zero_counts()
+    out = predict_batched_stacked(_onoff_predict, stack, Xs, batch)
+    counts = read_counts()
+    if counts["chol_inv_by_batch"] != {(2 * STACK_F, Z.shape[0]): chunks for Z in models[0].f.Zs}:
+        raise AssertionError(f"stack serving: launches {counts['chol_inv_by_batch']}")
+    for f in range(STACK_F):
+        if not all(np.isfinite(v).all() and v.shape[0] == ROWS for v in out[f].values()) or (out[f]["gfvar"] < 0).any():
+            raise AssertionError(f"stack serving: member {f} non-finite or negative gfvar")
+        member = unstack_model(stack, f)
+        for k in ("gfmean", "gfvar", "fmean", "gmean"):
+            ref = {dt: predict_batched(copy.deepcopy(member).to(device="cpu", dtype=dt).predict, Xs[f, :CHECK_ROWS],
+                                       batch=CHECK_ROWS, device="cpu", dtype=dt)[k] for dt in (torch.float64,
+                                                                                           torch.float32)}
+            e_card, e_cpu = rel(out[f][k][:CHECK_ROWS], ref[torch.float64]), rel(ref[torch.float32],
+                                                                               ref[torch.float64])
+            if not e_card <= max(3.0 * e_cpu, 1e-5):
+                raise AssertionError(f"stack serving member {f} {k}: card {e_card:.3e}, cpu f32 {e_cpu:.3e}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_batched_stacked(_onoff_predict, stack, Xs, batch)
+        times.append(time.perf_counter() - t0)
+    pts = STACK_F * ROWS / float(np.median(times))
+    log(f"stack serving flagship F={STACK_F}: {STACK_F} x {ROWS} rows in {chunks} chunks of {STACK_F} x {batch}: "
+        f"chol_inv.cu launches {counts['chol_inv_by_batch']}, members within the serving gate of CPU f64; "
+        f"{pts:.1f} points/s {[round(STACK_F * ROWS / t) for t in times]} (graphed, median of 5); {card}")
+    return pts, counts
+
+
+def time_stack_paths(folds, card) -> dict:
+    """Steps/s of each stack path against the single model (member 0 alone,
+    its fold and seed), graphed blocks of 50 device-sampled steps, in turns:
+    median of 3 passes of one block each, after a warm-up block on a side
+    stream and the capture; host clock around work that ends in a
+    synchronise. Fold-steps/s = members × the stack's steps/s."""
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, StackedBlocks, capture_block, stack_models
+    from zigp_tpu_torch.training.scan import StagedBlocks
+
+    out = {}
+    for name, (cfg, E, hyper_every, use_kernel) in stack_cases().items():
+        models, seeds, datas = stack_members(cfg, folds, E, use_kernel)
+        single = copy.deepcopy(models[0])
+        stack = stack_models(models)
+        st1 = StagedBlocks(DataSet(*datas[0]), "device", cfg.batch_size, STACK_INNER, device=DEVICE,
+                           dtype=torch.float32, sampler_seed=seeds[0])
+        stF = StackedBlocks(datas, cfg.batch_size, STACK_INNER, seeds=seeds, device=DEVICE, dtype=torch.float32)
+        runs = {}
+        for path, body, st in (("single", trainer_body(cfg, single, hyper_every)[0], st1),
+                               ("stack", stack_body(cfg, stack, hyper_every), stF)):
+            st.fill(0)
+            on_side_stream(lambda body=body, st=st: body(st.Xs, st.Ys))
+            runs[path] = (st, capture_block(lambda body=body, st=st: body(st.Xs, st.Ys)), [])
+        for rep in range(3):
+            for path in (("single", "stack") if rep % 2 == 0 else ("stack", "single")):
+                st, step, rates = runs[path]
+                st.fill(1 + rep)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = step()
+                torch.cuda.synchronize()
+                rates.append(STACK_INNER / (time.perf_counter() - t0))
+                if not torch.isfinite(losses).all():
+                    raise AssertionError(f"time stack {name} {path}: non-finite losses")
+        members = len(models)
+        single_rate, stack_rate = (float(np.median(runs[p][2])) for p in ("single", "stack"))
+        g = runs["stack"][1].graph
+        out[name] = {"members": members, "single_steps_per_s": single_rate, "stack_steps_per_s": stack_rate,
+                     "fold_steps_per_s": members * stack_rate, "fold_steps_ratio": members * stack_rate / single_rate,
+                     "stack_ms_per_step": 1e3 / stack_rate, "single_ms_per_step": 1e3 / single_rate,
+                     "capture_ms": g.capture_ms, "instantiate_ms": g.instantiate_ms, "pool_mib": g.pool_bytes / 2**20}
+        log(f"time stack {name}, B={cfg.batch_size}, blocks of {STACK_INNER}: single {single_rate:.1f} steps/s "
+            f"{[round(v, 1) for v in runs['single'][2]]}, stack of {members} {stack_rate:.1f} steps/s "
+            f"{[round(v, 1) for v in runs['stack'][2]]} = {members * stack_rate:.1f} fold-steps/s, "
+            f"{members * stack_rate / single_rate:.2f} x the single model (median of 3, in turns); stack graph: "
+            f"{g.describe()}; {card}")
+    return out
+
+
+def study_folds(split):
+    """The five CV folds of ``rain_split(split)`` with every test set cut to
+    its first ``STUDY_TEST_ROWS`` rows: the training sets are the
+    protocol's, and the host's float64 scoring, which grows with the test
+    rows (an on/off mixture's CRPS with the square of its components),
+    stays within the script's time."""
+    from zigp_tpu_torch.io.datasets import Split
+
+    return [Split(f.Xtrain, f.Ytrain, f.Xtest[:STUDY_TEST_ROWS], f.Ytest[:STUDY_TEST_ROWS])
+            for f in cv_folds(rain_split(split))]
+
+
+def undefined_ok(results, Ytest) -> list:
+    """The non-finite entries of a runner's results, less the exceedance AUCs
+    of thresholds the test rows never (or always) exceed, which are
+    undefined."""
+    y = np.asarray(Ytest).reshape(-1)
+    skip = {f"test_exceedance.{tau}.auc" for tau in results.get("test_exceedance", {})
+            if (y > float(tau)).all() or not (y > float(tau)).any()}
+    return [k for k in non_finite({k: v for k, v in results.items() if k not in ("models", "pred_test")})
+            if k not in skip]
+
+
+def phase_stack_studies(split, card) -> dict:
+    """The batched studies end to end on ``study_folds``' five folds, in one
+    workdir, the counts zeroed just before and read just after:
+    ``run_cv_batched`` of all six variants (``preset_configs("best")`` at
+    100 steps, the classifier at its FOLD_CLASSIFIER_STEPS; the gram kernel
+    on), ``run_cv_batched(["onoff"], ensemble=2)`` and
+    ``run_ensemble("onoff", size=4)`` on fold 1. Every aggregate finite,
+    every ensemble result finite (an exceedance AUC with one class aside),
+    ``cv_summary.json`` written; training and scoring walls apart (the
+    studies' log lines)."""
+    import tempfile
+
+    from zigp_tpu_torch.experiments.configs import preset_configs
+    from zigp_tpu_torch.experiments.cv_batched import run_cv_batched
+    from zigp_tpu_torch.experiments.ensemble import run_ensemble
+
+    best = preset_configs("best")
+    short = lambda cfg: dataclasses.replace(cfg, num_iter=100, scan_inner=50, log_every=50)
+    cfgs = dict(onoff_cfg=short(best["onoff"]), svgp_cfg=short(best["svgp"]), hurdlej_cfg=short(best["hurdlej"]),
+                clf_cfg=dataclasses.replace(best["classifier"], num_iter=FOLD_CLASSIFIER_STEPS, log_every=1000))
+    folds = study_folds(split)
+    lines = []
+    walls = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        summary = run_cv_batched(["onoff", "svgp", "classifier", "hurdle", "hurdlej", "zi"], splits=folds,
+                                 workdir=wd, log_fn=lines.append, use_kernel=True, **cfgs)
+        walls["run_cv_batched six variants"] = time.perf_counter() - t0
+        written = os.path.exists(os.path.join(wd, "cv_summary.json"))
+        t1 = time.perf_counter()
+        mixed = run_cv_batched(["onoff"], splits=folds, onoff_cfg=cfgs["onoff_cfg"], ensemble=2, log_fn=lines.append)
+        walls["run_cv_batched onoff ensemble=2"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ens = run_ensemble(folds[0], "onoff", cfgs["onoff_cfg"], size=4, workdir=wd, log_fn=lines.append)
+        walls["run_ensemble onoff size 4"] = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    counts = read_counts()
+    stage = lambda word: {line.split("]")[0] + "]": float(line.rsplit(" in ", 1)[1].split()[0]) for line in lines
+                          if word in line and line.startswith("[")}
+    trained, scored = stage("trained in"), stage("scored in")
+    bad = {m: [k for k, a in per.items() if not np.isfinite(a["mean"])] for m, per in (*summary.items(),
+                                                                                      *mixed.items())}
+    bad = {m: v for m, v in bad.items() if v}
+    bad_ens = undefined_ok(ens, folds[0].Ytest)
+    log(f"stack studies on the rain field's five folds ({folds[0].Xtrain.shape[0]} train rows a fold, the first "
+        f"{folds[0].Xtest.shape[0]} of its test rows; wet {np.mean(folds[0].Ytrain > 0):.3f}): onoff rmse {summary['onoff']['test_rmse']['mean']:.4f}, crps "
+        f"{summary['onoff']['test_crps']['mean']:.4f}; svgp rmse {summary['svgp']['test_rmse']['mean']:.4f}; "
+        f"classifier auc {summary['classifier']['test_auc']['mean']:.4f}; hurdle rmse "
+        f"{summary['hurdle']['test_rmse']['mean']:.4f}; hurdlej rmse {summary['hurdlej']['test_rmse']['mean']:.4f}; "
+        f"zi rmse {summary['zi']['test_rmse_prob']['mean']:.4f}; onoff x2 rmse "
+        f"{mixed['onoff']['test_rmse']['mean']:.4f}; ensemble of 4 rmse {ens['test_rmse']:.4f} (members "
+        f"{[round(v, 4) for v in ens['member_test_rmse']]}); walls {json.dumps({k: round(v, 1) for k, v in walls.items()})}"
+        f", training {json.dumps(trained)}, serving and scoring {json.dumps(scored)}; summary written {written}; "
+        f"chol_inv launches by batch {counts['chol_inv_by_batch']}; {card}")
+    if bad or bad_ens or not written:
+        raise AssertionError(f"stack studies: non-finite {bad}, ensemble {bad_ens}, summary written {written}")
+    return {"counts": counts, "walls": walls, "trained": trained, "scored": scored}
+
+
+CHOL_INV_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/chol_inv.cu"
+CHOL_INV_REPLACES = "zigp_tpu/ops/pallas/chol_inv.py:339"
+
+
+def stacked_chol_rows(ci, path_counts: dict, card) -> list:
+    """The kernels-line rows of ``chol_inv.cu`` and the cluster kernel at each
+    stacked batch (G, n) launched on the stack's paths, with the launches of
+    each path: ms per call with the host, device ms (CUDA graph), the plain
+    version's ms, torch.linalg's, the bound, the largest difference from the
+    plain version."""
+    shapes = {}
+    for path, counts in path_counts.items():
+        for key, kernel in (("chol_inv_by_batch", "chol_inv"), ("chol_inv_blocked_by_batch", "chol_inv_blocked")):
+            for (G, n), k in counts[key].items():
+                if G > 2:  # the stacked batches; G <= 2 are the single models' rows
+                    shapes.setdefault((kernel, G, n), {})[path] = k
+    rows = []
+    for (kernel, G, n), paths in sorted(shapes.items()):
+        K = torch.as_tensor(batched_grams(n, G), device=DEVICE)
+        if kernel == "chol_inv":
+            kern, source, replaces, label = (lambda: ci.chol_inv_cuda(K)), CHOL_INV_SOURCE, CHOL_INV_REPLACES, "chol_inv"
+        else:
+            kern, source, replaces = (lambda: ci.chol_inv_blocked(K)), CLUSTER_SOURCE, CLUSTER_REPLACES
+            label = f"chol_inv_cluster {ci.blocked_route(n)}"
+        plain = lambda: ci.chol_inv_plain(K, ci.NB)
+        with torch.inference_mode():
+            ms, device_ms = cuda_ms(kern, reps=200), graph_ms(kern)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            lib_ms = cuda_ms(lambda: library_chol_inv(K), reps=200)
+            err = max(float((a - b).abs().max()) for a, b in zip(kern(), plain()))
+        b_ms, b_by = bound_ms(n, G)
+        launches = sum(paths.values())
+        where = ", ".join(f"{p} {k}" for p, k in paths.items())
+        kname = f"{label} n={n} G={G} (stack: {where})"
+        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg "
+            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; "
+            f"{card}")
+        rows.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
+def memoize_inducing_init() -> None:
+    """Memoize the builders' ``kron_inducing_init`` for this script: a pure
+    function of the training rows, the grid and the seed (it seeds numpy
+    itself), whose scipy kmeans (twenty restarts) takes 1–2 s of host time
+    on a 90,720-row fold. The script builds the same fold's grid dozens of
+    times; every build gets a fresh copy of the same arrays."""
+    import hashlib
+
+    from zigp_tpu_torch.experiments import builders
+
+    init, memo = builders.kron_inducing_init, {}
+
+    def memoized(Xtrain, *args, **kw):
+        X = np.ascontiguousarray(Xtrain)
+        key = (hashlib.blake2b(X.view(np.uint8), digest_size=16).hexdigest(), X.shape, X.dtype.str, args,
+               tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = init(X, *args, **kw)
+        return [np.array(Z) for Z in memo[key]]
+
+    builders.kron_inducing_init = memoized
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2362,6 +2928,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     mark = lambda what: log(f"elapsed {time.perf_counter() - t_start:.1f} s: {what} done")
+    memoize_inducing_init()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2420,6 +2987,14 @@ def main() -> int:
                   for name, cfg in trainer_cfgs().items()}
     phase_natural_step(trainers["natgrad kron_joint"]["model"], trainer_cfgs()["natgrad kron_joint"], split)
     mark("other trainers' phases")
+    folds = cv_folds(split)
+    phase_stack_chol_gate(ci)
+    phase_stack_f32_gate(folds)
+    mark("member stack gates")
+    stack_counts = {"member gate": phase_stack_members(folds)}
+    mark("member stack against the sequential runs")
+    stack_counts.update(phase_stack_paths(folds))
+    mark("member stack paths")
 
     pts = {name: time_predict(name, m, X, batch, card, ref) for name, (m, X, _, ref, batch) in runs.items()}
     pts["scale 105x250 by solve route"] = time_serving_kron_mv(scale_model, scale_X, 4096, card)
@@ -2439,8 +3014,14 @@ def main() -> int:
     mark("family times")
     trainer_rates = time_trainers(split, card)
     mark("other trainers' times")
+    stack_rates = time_stack_paths(folds, card)
+    pts["stack flagship F=5"], stack_counts["serving"] = phase_stack_serving(folds, card)
+    mark("member stack times")
     fold_wall = phase_fold_protocol(split, card)
     mark("fold protocol")
+    studies = phase_stack_studies(split, card)
+    stack_counts["studies"] = studies["counts"]
+    mark("the stack's studies")
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
@@ -2472,11 +3053,15 @@ def main() -> int:
     kernels += ab_rows(route_counts, serve_counts, card)
     kernels += family_rows(ci, rg, families, card)
     kernels += trainer_rows(ci, trainers, card)
+    kernels += stacked_chol_rows(ci, stack_counts, card)
+    kernels += gram_rows(rg, {f"stack {name}": counts for name, counts in stack_counts.items() if counts["rbf_gram"]},
+                         card, stacked=True)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
         f"by chol_inv forward route: {json.dumps(route_rates)}; other trainers' steps/s {json.dumps(trainer_rates)}, "
         f"graph A/B {json.dumps(trainer_ab)}; fold protocol {fold_wall:.1f} s; "
+        f"member stacks {json.dumps(stack_rates)}; the stack's studies {json.dumps(studies['walls'])}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -60,6 +60,7 @@ from zigp_tpu_torch.utils.logging import MetricLogger
 
 from .test_torch_runners import _jsplit, _tiny, _tiny_split
 from .test_torch_train import _jraws
+from .torch_helpers import jax_rows, jax_rows_as_port  # noqa: F401 (a fixture)
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 LR = 1e-2
@@ -101,12 +102,6 @@ def close_to_jax(tm, jm, rtol=1e-8):
     for key, a in got.items():
         np.testing.assert_allclose(a, want[key], rtol=rtol, atol=rtol * 1e-3 * max(np.abs(want[key]).max(), 1e-300),
                                    err_msg=key)
-
-
-def jax_rows(key_pair, count, N):
-    """The rows JAX's device sampler draws for block key ``key_pair``."""
-    key = jnp.asarray(np.array(key_pair, dtype=np.uint32))
-    return np.asarray(jax.random.randint(key, (count,), 0, N))
 
 
 @pytest.mark.parametrize("kind", ["onoff", "onoff kron", "svgp", "hurdlej"])
@@ -240,18 +235,6 @@ def _run(fn, model, ds, directory, Mgr, Logger, **kw):
     logger.close()
     records = [json.loads(line) for line in open(os.path.join(directory, "m.jsonl"))]
     return res, logs, sorted(os.listdir(mgr.directory)), records, mgr
-
-
-@pytest.fixture
-def jax_rows_as_port(monkeypatch):
-    """The port's device sampler draws JAX's rows for each block: the two
-    generators differ by design."""
-    from zigp_tpu_torch.training import scan as tscan
-
-    def draw(generator, seed, N, count):
-        return torch.from_numpy(jax_rows([seed >> 32, seed & 0xFFFFFFFF], count, N).copy())
-
-    monkeypatch.setattr(tscan, "_draw", draw)
 
 
 @pytest.mark.parametrize("poison", [False, True], ids=["clean", "NaN restored"])

@@ -870,6 +870,7 @@ def test_captured_alternating_block_makes_no_chol_inv_launch_in_its_q_only_steps
     graphed = capture_block(lambda: body(Xs, Ys))
     assert graphed.graph.launches == {(ci.chol_inv_cuda, "launches"): 4 * 2,
                                       (ci.chol_inv_cuda, "launches_by_n"): {6: 4, 20: 4},
+                                      (ci.chol_inv_cuda, "launches_by_batch"): {(2, 6): 4, (2, 20): 4},
                                       (rg.rbf_gram_cuda, "launches"): 2 * (4 + 2) + 8 * 2,
                                       (rg.rbf_gram_cuda, "launches_by_shape"):
                                           graphed.graph.launches[(rg.rbf_gram_cuda, "launches_by_shape")]}
@@ -879,3 +880,90 @@ def test_captured_alternating_block_makes_no_chol_inv_launch_in_its_q_only_steps
     want = tbody(*blocks[1])
     torch.cuda.synchronize()
     assert torch.isfinite(got).all() and _rel_max(got, want) <= GRAPH_TOL
+
+
+# --- the batched member stack ---
+
+
+@pytest.mark.parametrize("n", [100, 200, 250])
+def test_folded_chol_inv_equals_per_member_launches_bit_for_bit(cuda, n):
+    """Under ``torch.func.vmap`` the member dim folds into one launch of
+    (F·G, n, n) (``chol_inv.cu`` to 238, the cluster kernel above); the
+    kernels run one CTA or one cluster per matrix, so each member's factors
+    are the bits of its own launch."""
+    F = 5
+    K = torch.as_tensor(np.stack([_spd(n, seed=n + f) for f in range(F)]), device=cuda)
+    wrapper = ci.chol_inv_cuda if n <= ci.MAX_N else ci.chol_inv_blocked
+    before = wrapper.launches
+    with torch.inference_mode():
+        L, Linv = torch.func.vmap(linalg.chol_inv)(K)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        for f in range(F):
+            Lf, Linvf = linalg.chol_inv(K[f])
+            assert torch.equal(L[f], Lf) and torch.equal(Linv[f], Linvf)
+
+
+def _stack_setup(cuda, F, K=10, B=256):
+    """F small on/off models (one per seed) with both kernels on, stacked,
+    their Adam, and the stack's blocks on the card."""
+    import dataclasses
+
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+    from zigp_tpu_torch.training import StackedBlocks, make_optimizer, stack_models
+
+    split = synthetic_pptr(12, 120, seed=0)
+    cfg = configs.OnOffPptrConfig(grid=configs.KronGridConfig(6, 20), batch_size=B)
+    stack = stack_models([build_onoff_pptr(dataclasses.replace(cfg, seed=f), split, use_kernel=True)
+                          for f in range(F)])
+    blocks = StackedBlocks([(split.Xtrain, split.Ytrain)] * F, B, K, seeds=list(range(F)), device=cuda,
+                           dtype=torch.float32)
+    return stack, make_optimizer(stack, default_lr=1e-2), blocks
+
+
+def test_graphed_stacked_block_matches_eager_stacked_block(cuda):
+    """10 stacked steps (F = 3) by one replay of the captured block against
+    10 eager stacked steps on a twin, on the same rows: losses (10, F) and
+    raws within GRAPH_TOL."""
+    import copy
+
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import capture_block, make_batched_block, make_optimizer
+
+    stack, opt, blocks = _stack_setup(cuda, 3)
+    twin = copy.deepcopy(stack)
+    topt = make_optimizer(twin, default_lr=1e-2)
+    body, tbody = make_batched_block(stack, opt), make_batched_block(twin, topt)
+    blocks.fill(0)
+    on_side_stream(lambda: body(blocks.Xs, blocks.Ys))
+    tbody(blocks.Xs, blocks.Ys)
+    graphed = capture_block(lambda: body(blocks.Xs, blocks.Ys))
+    blocks.fill(1)
+    got = graphed()
+    want = tbody(blocks.Xs, blocks.Ys)
+    torch.cuda.synchronize()
+    assert got.shape == (10, 3) and torch.isfinite(got).all() and _rel_max(got, want) <= GRAPH_TOL
+    for (n, a), b in zip(stack.named_parameters(), twin.parameters()):
+        assert torch.allclose(a, b, rtol=GRAPH_TOL, atol=GRAPH_TOL * float(b.abs().max())), n
+
+
+@pytest.mark.parametrize("F", [1, 2, 5])
+def test_stacked_step_launches_do_not_grow_with_members(cuda, F):
+    """A captured stacked step launches ``chol_inv.cu`` once per factor (two
+    a step for the f/g pair's two factors) and ``rbf_gram`` four times,
+    whatever F."""
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import capture_block, make_batched_block
+
+    stack, opt, blocks = _stack_setup(cuda, F, K=2)
+    body = make_batched_block(stack, opt)
+    blocks.fill(0)
+    on_side_stream(lambda: body(blocks.Xs, blocks.Ys))
+    graphed = capture_block(lambda: body(blocks.Xs, blocks.Ys))
+    launches = graphed.graph.launches
+    assert launches[(ci.chol_inv_cuda, "launches")] == 2 * 2
+    assert launches[(ci.chol_inv_cuda, "launches_by_batch")] == {(2 * F, 6): 2, (2 * F, 20): 2}
+    assert launches[(rg.rbf_gram_cuda, "launches")] == 2 * 4
+    assert all(G == 2 * F for G, *_ in launches[(rg.rbf_gram_cuda, "launches_by_shape")])

@@ -470,7 +470,9 @@ def _eval_onoff(model, split: Split, log_fn) -> dict:
 def _onoff_metrics(model, pred_test: dict, split: Split, log_fn) -> dict:
     """Point metrics of the clipped gated mean and of the hard gate, the
     moment-matched NLPD, the exact gated CRPS (and its 256-draw cross-check)
-    and the exceedance scores."""
+    and the exceedance scores. An ensemble's mixture (``pred_test`` with
+    ``member_preds``, ``experiments.ensemble.mix_onoff_preds``) is scored
+    as the mixture of its members' gated predictives."""
     pred_test_clip = np.maximum(pred_test["gfmean"], 0)
     test_rmse = metrics.rmse(pred_test_clip, split.Ytest, clip_at_zero=False)
     test_mae = metrics.mae(pred_test_clip, split.Ytest, clip_at_zero=False)
@@ -486,10 +488,15 @@ def _onoff_metrics(model, pred_test: dict, split: Split, log_fn) -> dict:
         pred_test["gfmean"], pred_test["gfvar"] + pred_test["gfmeanu"], split.Ytest, noise_var=noise
     )
     log_fn(f"test nlpd: {test_nlpd}")
-    samples = metrics.sample_gated_predictive(pred_test, noise_var=noise, num_samples=256, seed=0)
-    test_crps = metrics.crps_gated(pred_test, split.Ytest, noise_var=noise)
+    if "member_preds" in pred_test:  # an ensemble's mixture: score the members' mixture exactly
+        samples = metrics.sample_gated_mixture(pred_test["member_preds"], noise_var=noise, num_samples=256, seed=0)
+        exc_pred = list(pred_test["member_preds"])
+    else:
+        samples = metrics.sample_gated_predictive(pred_test, noise_var=noise, num_samples=256, seed=0)
+        exc_pred = pred_test
+    test_crps = metrics.crps_gated(exc_pred, split.Ytest, noise_var=noise)
     test_crps_mc = metrics.crps_from_samples(samples, split.Ytest)
-    test_exceedance = metrics.exceedance_summary_gated(pred_test, split.Ytest, noise_var=noise)
+    test_exceedance = metrics.exceedance_summary_gated(exc_pred, split.Ytest, noise_var=noise)
     log_fn(f"test crps: {test_crps} (mc cross-check {test_crps_mc})")
     return {
         "test_rmse": test_rmse,

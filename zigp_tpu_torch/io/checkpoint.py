@@ -13,6 +13,11 @@ Adam tensor with the step counts, is ``copy_``-ed in place
 (``training.optim.GroupedAdam.load_state``). A CUDA graph captured over that
 storage stays valid after a restore, where ``load_state_dict`` (which
 allocates new tensors) would leave it training stale ones.
+
+A member stack (``training.batched.stack_models``) is a module like any
+other: its checkpoint holds every raw with its leading member axis and the
+stack's optimizer state, in the JAX package's directory ``ckpt_{kind}_stack``
+(``experiments.cv_batched``), and restores in place the same way.
 """
 
 from __future__ import annotations

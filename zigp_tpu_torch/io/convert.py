@@ -53,3 +53,29 @@ def load_jax_arrays(model: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
         for key, name in expected.items():
             p = params[name]
             p.copy_(torch.as_tensor(np.asarray(arrays[key]), dtype=p.dtype))
+
+
+def stack_size(stack: nn.Module) -> int:
+    """The member count of a member stack (``training.batched.stack_models``);
+    raises for anything else."""
+    size = getattr(stack, "stack_size", None)
+    if size is None:
+        raise TypeError(f"{type(stack).__name__} is not a member stack (training.batched.stack_models)")
+    return size
+
+
+def dump_stack(stack: nn.Module) -> Dict[str, np.ndarray]:
+    """A member stack's raws (``training.batched.stack_models``) as numpy,
+    keyed by JAX path, each with the leading member axis F: the layout of
+    the JAX package's stacked pytree (``stack_pytrees``)."""
+    stack_size(stack)
+    return dump_arrays(stack)
+
+
+def load_jax_stack(stack: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
+    """Copy the JAX package's stacked pytree (a leading F on every leaf, as
+    numpy, keyed by JAX path) into ``stack``'s raws, in place. Raises on a
+    missing or unknown key, or a shape mismatch (the member count
+    included), before anything is written."""
+    stack_size(stack)
+    load_jax_arrays(stack, arrays)

@@ -181,7 +181,8 @@ def chol_inv_cuda(K: torch.Tensor):
     ``NB`` columns a step (float32, contiguous, n ≤ ``MAX_N``; anything else
     raises, as does a device whose shared memory cannot hold n); a CPU tensor
     goes to ``chol_inv_plain``. Each kernel launch adds one to
-    ``chol_inv_cuda.launches`` and to ``chol_inv_cuda.launches_by_n[n]``."""
+    ``chol_inv_cuda.launches``, to ``chol_inv_cuda.launches_by_n[n]`` and to
+    ``chol_inv_cuda.launches_by_batch[(G, n)]`` (G matrices in the launch)."""
     if K.device.type == "cpu":
         return chol_inv_plain(K)
     n = K.shape[-1]
@@ -190,11 +191,13 @@ def chol_inv_cuda(K: torch.Tensor):
     L, Linv = launch_chol_inv(K)
     chol_inv_cuda.launches += 1
     chol_inv_cuda.launches_by_n[n] += 1
+    chol_inv_cuda.launches_by_batch[(K.numel() // (n * n), n)] += 1
     return L, Linv
 
 
 chol_inv_cuda.launches = 0
 chol_inv_cuda.launches_by_n = Counter()
+chol_inv_cuda.launches_by_batch = Counter()
 
 
 def block_offsets(n: int) -> list[int]:
@@ -459,8 +462,8 @@ def launch_chol_inv_cluster(K: torch.Tensor, C: int | None = None, who: str = "c
     """(L, L⁻¹) of (..., n, n) CUDA float32 ``K`` from one launch of
     ``csrc/chol_inv_cluster.cu`` with ``plan(n, C)``'s clusters, for any n
     the plan fits; raises on anything the kernel cannot take and on a launch
-    the device refuses. Each launch adds one to ``chol_inv_blocked.launches``
-    and to ``chol_inv_blocked.launches_by_n[n]``."""
+    the device refuses. Each launch adds one to ``chol_inv_blocked.launches``,
+    to ``chol_inv_blocked.launches_by_n[n]`` and to ``launches_by_batch[(G, n)]``."""
     _check_cuda_f32(K, who)
     n = K.shape[-1]
     p = plan(n, C)
@@ -478,6 +481,7 @@ def launch_chol_inv_cluster(K: torch.Tensor, C: int | None = None, who: str = "c
                            f"C={p.C}, {p.bytes} bytes a CTA)")
     chol_inv_blocked.launches += 1
     chol_inv_blocked.launches_by_n[n] += 1
+    chol_inv_blocked.launches_by_batch[(G, n)] += 1
     return L, Linv
 
 
@@ -500,8 +504,8 @@ def blocked_route(n: int) -> str:
 def launch_chol_inv_pair(K: torch.Tensor, who: str = "chol_inv_blocked"):
     """(L, L⁻¹) of (..., n, n) CUDA float32 ``K`` from one launch of the
     cluster kernel's pair instance (n ≤ 320 on an H100); raises on anything
-    it cannot take. Each launch adds one to ``chol_inv_blocked.launches`` and
-    to ``launches_by_n[n]``."""
+    it cannot take. Each launch adds one to ``chol_inv_blocked.launches``, to
+    ``launches_by_n[n]`` and to ``launches_by_batch[(G, n)]``."""
     _check_cuda_f32(K, who)
     n = K.shape[-1]
     if pair_bytes(n) > SMEM_BYTES:
@@ -521,6 +525,7 @@ def launch_chol_inv_pair(K: torch.Tensor, who: str = "chol_inv_blocked"):
         raise RuntimeError(f"{who}: chol_inv_cluster pair launch failed: cudaError {err} (n={n}, G={G})")
     chol_inv_blocked.launches += 1
     chol_inv_blocked.launches_by_n[n] += 1
+    chol_inv_blocked.launches_by_batch[(G, n)] += 1
     return L, Linv
 
 
@@ -540,6 +545,7 @@ def chol_inv_blocked(K: torch.Tensor):
 
 chol_inv_blocked.launches = 0
 chol_inv_blocked.launches_by_n = Counter()
+chol_inv_blocked.launches_by_batch = Counter()
 
 
 def chol_cuda(K: torch.Tensor, rank: int = 4) -> torch.Tensor:

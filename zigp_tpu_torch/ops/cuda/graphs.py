@@ -22,7 +22,7 @@ from contextlib import contextmanager
 
 import torch
 
-COUNTER_ATTRS = ("launches_by_n", "launches_by_shape", "launches_by_instance")
+COUNTER_ATTRS = ("launches_by_n", "launches_by_shape", "launches_by_instance", "launches_by_batch")
 
 
 def counted_wrappers() -> dict:

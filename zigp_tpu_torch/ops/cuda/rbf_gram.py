@@ -135,11 +135,33 @@ rbf_gram_cuda.launches_by_shape = Counter()
 
 
 class _RBFGram(torch.autograd.Function):
+    """The differentiable gram. Under ``torch.func.vmap`` (the batched
+    member stack) the ``vmap`` rule folds the member dim into the kernels'
+    dim G, a member's X or Z shared by its G kernels expanded to each, and
+    makes one call: one launch for every member's G grams."""
+
     @staticmethod
-    def forward(ctx, X, Z, ell, var):
-        K = rbf_gram_cuda(X.detach(), Z.detach(), ell.detach().contiguous(), var.detach().contiguous())
-        ctx.save_for_backward(X, Z, ell, var, K)
-        return K
+    def forward(X, Z, ell, var):
+        return rbf_gram_cuda(X.detach(), Z.detach(), ell.detach().contiguous(), var.detach().contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def vmap(info, in_dims, X, Z, ell, var):
+        from ..linalg import fold_member_dim
+
+        F = info.batch_size
+        X, Z, ell, var = (fold_member_dim(t, d, F) for t, d in zip((X, Z, ell, var), in_dims))
+        G = ell.shape[1]
+
+        def per_kernel(T):  # (F, G, n, D) from (F, G, n, D) or a shared (F, n, D)
+            return T if T.ndim == 4 else T.unsqueeze(1).expand(F, G, *T.shape[1:])
+
+        X, Z = (per_kernel(T).reshape(F * G, *T.shape[-2:]) for T in (X, Z))
+        K = _RBFGram.apply(X, Z, ell.reshape(F * G, -1), var.reshape(F * G))
+        return K.reshape(F, G, *K.shape[-2:]), 0
 
     @staticmethod
     def backward(ctx, gK):

@@ -84,17 +84,32 @@ def chol_vjp(L: torch.Tensor, Linv: torch.Tensor, dL: torch.Tensor) -> torch.Ten
     return 0.5 * (mT(Linv) @ (P + mT(P)) @ Linv)
 
 
+def fold_member_dim(x: torch.Tensor, in_dim, size: int) -> torch.Tensor:
+    """The physical tensor of a ``torch.func.vmap`` input with its vmapped
+    dim moved to the front, an unbatched one (``in_dim`` None) expanded to
+    ``size`` there: the layout a Function's ``vmap`` rule folds into its
+    leading batch."""
+    return x.unsqueeze(0).expand(size, *x.shape) if in_dim is None else x.movedim(in_dim, 0)
+
+
 class _CholInv(torch.autograd.Function):
     """(L, L⁻¹) = chol_inv(K) with the matmul-only backward of
     ``zigp_tpu/ops/linalg.py:177-211`` (reverse-mode Cholesky with L⁻¹ in
     hand), on every route: the forward's kernel, cluster kernel or library
-    call sees a detached K, and the backward needs no solve."""
+    call sees a detached K, and the backward needs no solve.
+
+    Under ``torch.func.vmap`` (the batched member stack,
+    ``training.batched``) the ``vmap`` rule folds the member dim into the
+    leading batch and factors every member's matrices in one call, so a
+    stack of F members launches the kernel as often as one member does."""
 
     @staticmethod
-    def forward(ctx, K):
-        L, Linv = chol_inv_forward(K.detach())
-        ctx.save_for_backward(L, Linv)
-        return L, Linv
+    def forward(K):
+        return chol_inv_forward(K.detach())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*output)
 
     @staticmethod
     def backward(ctx, dL, dLinv):
@@ -105,6 +120,12 @@ class _CholInv(torch.autograd.Function):
             # pullback through L⁻¹ (lower-triangular dof only): −tril(L⁻ᵀ dLinv L⁻ᵀ)
             dL_tot = dL_tot - torch.tril(mT(Linv) @ dLinv @ mT(Linv))
         return chol_vjp(L, Linv, dL_tot)
+
+    @staticmethod
+    def vmap(info, in_dims, K):
+        K = fold_member_dim(K, in_dims[0], info.batch_size)
+        L, Linv = _CholInv.apply(K.reshape(-1, *K.shape[-2:]))
+        return (L.reshape(K.shape), Linv.reshape(K.shape)), (0, 0)
 
 
 def chol_inv(K: torch.Tensor):

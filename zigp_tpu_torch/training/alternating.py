@@ -17,8 +17,11 @@ checkpoints save and restore in place. A step takes the gradients of its own
 partition alone (``loss.backward(inputs=...)``), so a q-only step never runs
 the backward through the grams into a kernel raw.
 
-The batched member stack's alternating step (``make_batched_alternating_step``)
-waits for ``training/batched.py``.
+``make_batched_alternating_step`` runs the same groups on a member stack
+(``training.batched``): every member's loss under ``torch.func.vmap``, the
+factor state of all members computed at once (one ``chol_inv`` launch per
+factor for the whole stack), one ``AdamPair`` over the stacked raws, whose
+update is elementwise and so each member's own.
 """
 
 from __future__ import annotations
@@ -98,19 +101,18 @@ def init_alt_optimizers(model: nn.Module, *, learning_rate: float = 1e-3, opt_fa
     )
 
 
-def make_alternating_block(model: nn.Module, opt: AdamPair, hyper_every: int) -> Callable:
-    """A block step ``(Xs, Ys) -> losses`` of the schedule, the counterpart
-    of ``_alternating_dispatch``: Xs (K, B, D), Ys (K, B, L) with K a
-    multiple of ``hyper_every``, in groups of ``hyper_every`` steps: one
-    hyper step on the group's first minibatch, ``model.factor_state()``
-    under ``torch.no_grad()``, then ``hyper_every − 1`` q-only steps that
-    take it. Losses (K,) stay on the device. Like the joint block it
-    allocates no lasting storage, so it can be captured in a CUDA graph."""
+def _check_schedule(model: nn.Module, hyper_every: int) -> None:
     if hyper_every < 2:
         raise ValueError(f"hyper_every must be >= 2 (got {hyper_every})")
     if not (hasattr(model, "factor_state") and hasattr(model, "loss")):
         raise ValueError(
             "alternating training needs a model with factor_state()/loss(factor_state=...) — the Kronecker families")
+
+
+def _group_block(model: nn.Module, opt: AdamPair, hyper_every: int, loss: Callable, factor_state: Callable):
+    """The block of the schedule over ``loss(X, Y, factor_state=None)`` (a
+    scalar, or one loss per member of a stack, whose sum is differentiated)
+    and ``factor_state()``; the losses (K,) or (K, F) stay on the device."""
     q, h = partition_model(model)
     q_in = [raw for _, raw in q if raw.requires_grad]
     h_in = [raw for _, raw in h if raw.requires_grad]
@@ -122,21 +124,53 @@ def make_alternating_block(model: nn.Module, opt: AdamPair, hyper_every: int) ->
         losses = []
         for g0 in range(0, K, hyper_every):
             opt.h.zero_grad()
-            loss = model.loss(Xs[g0], Ys[g0])
-            loss.backward(inputs=h_in)
+            value = loss(Xs[g0], Ys[g0])
+            (value.sum() if value.ndim else value).backward(inputs=h_in)
             opt.h.step()
-            losses.append(loss.detach())
+            losses.append(value.detach())
             with torch.no_grad():  # factorize once, at the new hypers
-                state = model.factor_state()
+                state = factor_state()
             for k in range(g0 + 1, g0 + hyper_every):
                 opt.q.zero_grad()
-                loss = model.loss(Xs[k], Ys[k], factor_state=state)
-                loss.backward(inputs=q_in)
+                value = loss(Xs[k], Ys[k], factor_state=state)
+                (value.sum() if value.ndim else value).backward(inputs=q_in)
                 opt.q.step()
-                losses.append(loss.detach())
+                losses.append(value.detach())
         return torch.stack(losses)
 
     return block
 
 
-__all__ = ["AdamPair", "init_alt_optimizers", "make_alternating_block", "partition_model"]
+def make_alternating_block(model: nn.Module, opt: AdamPair, hyper_every: int) -> Callable:
+    """A block step ``(Xs, Ys) -> losses`` of the schedule, the counterpart
+    of ``_alternating_dispatch``: Xs (K, B, D), Ys (K, B, L) with K a
+    multiple of ``hyper_every``, in groups of ``hyper_every`` steps: one
+    hyper step on the group's first minibatch, ``model.factor_state()``
+    under ``torch.no_grad()``, then ``hyper_every − 1`` q-only steps that
+    take it. Losses (K,) stay on the device. Like the joint block it
+    allocates no lasting storage, so it can be captured in a CUDA graph."""
+    _check_schedule(model, hyper_every)
+
+    def loss(X, Y, factor_state=None):
+        return model.loss(X, Y) if factor_state is None else model.loss(X, Y, factor_state=factor_state)
+
+    return _group_block(model, opt, hyper_every, loss, model.factor_state)
+
+
+def make_batched_alternating_step(stack: nn.Module, opt: AdamPair, hyper_every: int) -> Callable:
+    """The schedule's block on a member stack (``training.batched.
+    stack_models``), the counterpart of ``zigp_tpu/training/alternating.py:
+    256-323``: Xs (K, F, B, D), Ys (K, F, B, L); each step's losses of the F
+    members under ``torch.func.vmap``, the sum differentiated, and
+    ``factor_state()`` of every member under ``torch.no_grad()`` in one
+    vmapped call, so each factor is one ``chol_inv`` launch for the stack.
+    ``opt`` is ``init_alt_optimizers(stack)``. Losses (K, F) on the device.
+    Member f follows its own ``make_alternating_block`` run."""
+    from .batched import stacked_factor_state, stacked_loss
+
+    _check_schedule(stack, hyper_every)
+    return _group_block(stack, opt, hyper_every, lambda X, Y, factor_state=None: stacked_loss(
+        stack, X, Y, factor_state), lambda: stacked_factor_state(stack))
+
+
+__all__ = ["AdamPair", "init_alt_optimizers", "make_alternating_block", "make_batched_alternating_step", "partition_model"]

@@ -13,7 +13,10 @@ Where the port differs in mechanism:
 
 - The steps run batched over a leading dimension G. The trainer stacks the
   f and g GPs of a pair (G = 2) where their shapes match, so each
-  factorization of the joint step is one ``chol_inv`` launch for both.
+  factorization of the joint step is one ``chol_inv`` launch for both. On a
+  member stack (``training.batched``) every raw carries the members' dim
+  too, and the joint step's batch is the pair's GPs times the members: one
+  launch for 2F matrices, every KL budget per matrix, so per member.
 - Every Cholesky of the joint step (chol Σ_p with its inverse, chol A′ with
   its inverse, chol Σ′) is ``ops.linalg.chol_inv_forward``: on the card
   ``chol_inv.cu`` (n ≤ 238) or the cluster kernel, L⁻¹ in the same launch,
@@ -325,8 +328,8 @@ class NaturalGradientTrainer:
                 return
             for gp in self.gps:
                 m = gp.q_mu.raw
-                if gp.q_sqrt_factors is not None:
-                    m.copy_(natgrad_update_mean_kron(m, [C.value for C in gp.q_sqrt_factors], m.grad, gamma,
+                if gp.q_sqrt_factors is not None:  # the step takes the lower triangles of the raws
+                    m.copy_(natgrad_update_mean_kron(m, [C.raw for C in gp.q_sqrt_factors], m.grad, gamma,
                                                      max_mean_step=self.max_mean_step, kl_cap=self.kl_cap))
                     continue
                 sq = gp.q_sqrt
@@ -336,7 +339,8 @@ class NaturalGradientTrainer:
                 sq.raw.copy_(sq.bijector.inverse_tensor(s_new))
 
     def _joint_step(self, unit, gamma, p: int) -> None:
-        stack = lambda ts: torch.stack(list(ts))
+        # one batch of every GP of the unit: (U·F, ·) on a stack of F members
+        stack = lambda ts: (lambda t: t.reshape(-1, *t.shape[-2:]))(torch.stack(list(ts)))
         m_new, Cp_new = natgrad_update_block_kron(
             stack(gp.q_mu.raw for gp in unit),
             [stack(torch.tril(gp.q_sqrt_factors[q].raw) for gp in unit) for q in range(len(unit[0].factor_sizes))],
@@ -345,18 +349,29 @@ class NaturalGradientTrainer:
             stack(gp.q_sqrt_factors[p].raw.grad for gp in unit),
             gamma, max_mean_step=self.max_mean_step, kl_cap=self.kl_cap,
         )
+        m_new = m_new.reshape(len(unit), *unit[0].q_mu.raw.shape)
+        Cp_new = Cp_new.reshape(len(unit), *unit[0].q_sqrt_factors[p].raw.shape)
         for i, gp in enumerate(unit):
             gp.q_mu.raw.copy_(m_new[i])
             for q, C in enumerate(gp.q_sqrt_factors):
                 C.raw.copy_(Cp_new[i] if q == p else torch.tril(C.raw))  # the JAX step writes back C.value
+
+    def _loss(self, X, Y, factor_state=None) -> torch.Tensor:
+        """The loss a step differentiates: the model's, or on a member
+        stack one per member (``training.batched``), whose sum is
+        differentiated."""
+        return self.model.loss(X, Y) if factor_state is None else self.model.loss(X, Y, factor_state=factor_state)
+
+    def _factor_state(self):
+        return self.model.factor_state()
 
     def full_step(self, X, Y, gamma, step: int = 0) -> torch.Tensor:
         """One step: the loss's gradients, Adam on its raws, then the natural
         step (which reads the factors after Adam, as the JAX step does)."""
         self.adam.zero_grad()
         self.natural.zero_()
-        loss = self.model.loss(X, Y)
-        loss.backward()
+        loss = self._loss(X, Y)
+        (loss.sum() if loss.ndim else loss).backward()
         self.adam.step()
         self.natural_step(gamma, step)
         return loss.detach()
@@ -365,8 +380,8 @@ class NaturalGradientTrainer:
         """The natural step alone at frozen hypers: gradients of the
         variational raws only, the factorization injected, Adam untouched."""
         self.natural.zero_()
-        loss = self.model.loss(X, Y, factor_state=factor_state)
-        loss.backward(inputs=self.natural.params)
+        loss = self._loss(X, Y, factor_state)
+        (loss.sum() if loss.ndim else loss).backward(inputs=self.natural.params)
         self.natural_step(gamma, step)
         return loss.detach()
 
@@ -384,7 +399,7 @@ class NaturalGradientTrainer:
         for g0 in range(0, K, hyper_every):
             losses.append(self.full_step(Xs[g0], Ys[g0], gammas[g0], start + g0))
             with torch.no_grad():
-                state = self.model.factor_state()
+                state = self._factor_state()
             for k in range(g0 + 1, g0 + hyper_every):
                 losses.append(self.q_only_step(Xs[k], Ys[k], gammas[k], start + k, state))
         return torch.stack(losses)
