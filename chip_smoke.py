@@ -203,13 +203,36 @@ so any failure exits non-zero):
    ``run_cv_batched(["onoff"], ensemble=2)`` and ``run_ensemble("onoff",
    size=4)`` on fold 1: every aggregate finite, training and scoring walls
    apart.
-15. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
+15. The command line (``zigp_tpu_torch.experiments.cli.main``, in process)
+   on ``rain_split``'s rows written as a pptr pickle (``save_pptr``), fold
+   1, each configuration in its own workdir, the gram kernel on (the CLI's
+   rule on the card): ``onoff`` with the reference preset (the flagship),
+   the best preset (the champion) and ``--grid 105x250 --batch 8192``, and
+   ``classifier --preset best``, 100 steps each (two blocks of 50);
+   ``predict --samples 256`` on the flagship: y_samples (256, N, 1) finite,
+   its sample mean summed over the rows within 5 standard errors of the
+   sampler's mean Φ(z)·fmean and of gfmean (whose gate is clipped); ``export`` of each, loaded by ``load_predictor``
+   and served on 65,536 rows in one call: one ``chol_inv.cu`` launch per
+   factor (the cluster kernel for n = 250) and K_mm and K_mn of each factor
+   by ``rbf_gram.cu``, counted by shape for the call, every field within
+   the phase-5 serving gate of the restored model on the CPU in float64 and
+   within 1e-5 of each field's largest value of its ``predict_batched``, a
+   second call on 10,000 rows with the same launches and rows (a symbolic
+   batch), and points/s against ``predict_batched``'s graphed path (median
+   of 5, in turns); ``cv --split forecast --covariates --origins 2`` of
+   the classifier and the joint hurdle at 200 steps: every aggregate finite,
+   ``rbf_gram.cu`` launched at D = 5 (the exogenous factor), the wall
+   time.
+16. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
    launches) (the kron_mv_2 rows with the serving path's
    launches by the instance the library ran; the stack's ``chol_inv.cu`` and
    cluster-kernel rows at each batch (G, n) its paths launched, and its
-   ``rbf_gram`` rows), then the card's name and power limit,
+   ``rbf_gram`` rows; the command line's ``chol_inv.cu`` and cluster-kernel
+   rows at each (G, n) of the exported programs' served calls and of its
+   training, export and forecast runs, and its ``rbf_gram`` rows of the
+   served calls and at D = 5), then the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
 The script needs one CUDA device, the repository checkout around it, and
@@ -2850,30 +2873,280 @@ def phase_stack_studies(split, card) -> dict:
     return {"counts": counts, "walls": walls, "trained": trained, "scored": scored}
 
 
+# --- the command line on the card: training, predict, export, the forecast protocol ---
+
+CLI_RUNS = {  # name: the training command's own flags (the predict and export commands repeat them)
+    "flagship": ("onoff", ["--preset", "reference"]),
+    "champion": ("onoff", ["--preset", "best"]),
+    "scale 105x250": ("onoff", ["--grid", "105x250", "--batch", "8192"]),
+    "classifier": ("classifier", ["--preset", "best"]),
+}
+CLI_STEPS = 100  # two blocks of 50: one eager, one replay
+CLI_SAMPLES = 256
+CLI_SECOND_ROWS = 10_000  # the second served call's rows: another batch through the same program
+CLI_FORECAST_STEPS = 200
+# The classifier (one GP) and the joint hurdle (a stacked pair): the second
+# origin's window runs to the end of the range (56,700 test rows in all),
+# where the on/off model's exact gated CRPS would take the host about 75 s.
+CLI_FORECAST = ["cv", "--models", "classifier,hurdlej", "--split", "forecast", "--covariates", "--origins", "2",
+                "--iters", str(CLI_FORECAST_STEPS), "--scan-inner", "50"]
+
+
+def cli_config(name):
+    """The model config ``cli.main`` builds from a CLI_RUNS entry's flags."""
+    from zigp_tpu_torch.experiments.cli import _parse_grid
+    from zigp_tpu_torch.experiments.configs import preset_configs
+
+    kind, flags = CLI_RUNS[name]
+    opts = dict(zip(flags[::2], flags[1::2]))
+    cfg = preset_configs(opts.get("--preset", "reference"))[kind]
+    kw = {"grid": _parse_grid(opts["--grid"])} if "--grid" in opts else {}
+    if "--batch" in opts:
+        kw["batch_size"] = int(opts["--batch"])
+    return dataclasses.replace(cfg, **kw)
+
+
+def served_fields(kind, out) -> dict:
+    """An artifact's fields as ``predict_batched``'s methods name them: the
+    classifier's pair ``p`` is (pfmean, pfvar)."""
+    out = dict(out)
+    if kind == "classifier":
+        p = out.pop("p")
+        out.update(pfmean=p[0], pfvar=p[1])
+    return out
+
+
+def cli_live(kind, model, X) -> dict:
+    """The restored model's predictions on the card, ``predict_batched``'s
+    graphed path: the on/off model's ``predict``, the classifier's
+    ``predict_latent`` and ``predict_class``."""
+    from zigp_tpu_torch.experiments.runners import predict_batched
+
+    methods = [model.predict] if kind == "onoff" else [model.predict_latent, model.predict_class]
+    out = {}
+    for m in methods:
+        out.update(predict_batched(m, X, batch=4096, device=DEVICE))
+    return out
+
+
+def check_artifact(name, kind, model, served, X) -> dict:
+    """One artifact against the restored model: served once on all rows with
+    the counts zeroed just before (one launch per factor of chol_inv.cu, or
+    of the cluster kernel above MAX_N, and K_mm and K_mn of every factor by
+    rbf_gram.cu), finite; every field within the serving gate of the same
+    model on the CPU in float64 on the first CHECK_ROWS rows, and within
+    1e-5 of each field's largest value of ``predict_batched``'s on all rows;
+    a second call on CLI_SECOND_ROWS rows with the same launches and the same
+    rows. Returns the served call's counts."""
+    from zigp_tpu_torch.io.export import _predict_dict_fn
+    from zigp_tpu_torch.ops.cuda import chol_inv as ci
+
+    sizes = [Z.shape[0] for Z in first_gp(model).Zs]
+    want = {"chol_inv_by_n": {n: 1 for n in sizes if n <= ci.MAX_N},
+            "chol_inv_blocked_by_n": {n: 1 for n in sizes if n > ci.MAX_N}, "rbf_gram": 2 * len(sizes)}
+    calls = []
+    for rows in (X, X[:CLI_SECOND_ROWS]):
+        zero_counts()
+        out = served_fields(kind, served(rows))
+        torch.cuda.synchronize()
+        calls.append((out, read_counts()))
+    for out, counts in calls:
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"exported {name}: launches a call {got}, expected {want}")
+        bad = [k for k, v in out.items() if not np.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"exported {name}: non-finite {bad}")
+    (out, counts), (second, _) = calls
+    Xc = X[:CHECK_ROWS]
+    ref = {}
+    for dt in (torch.float64, torch.float32):
+        cpu = copy.deepcopy(model).to(device="cpu", dtype=dt)
+        with torch.no_grad():
+            ref[dt] = served_fields(kind, {k: (torch.stack(v) if isinstance(v, tuple) else v).numpy() for k, v in
+                                           _predict_dict_fn(cpu, kind)(torch.as_tensor(Xc, dtype=dt)).items()})
+    live = cli_live(kind, model, X)
+    for k in out:
+        e_card = rel(out[k][:CHECK_ROWS], ref[torch.float64][k])
+        e_cpu = rel(ref[torch.float32][k], ref[torch.float64][k])
+        tol = max(3.0 * e_cpu, 1e-5)
+        scale = float(np.abs(live[k]).max())
+        d_live = float(np.abs(out[k] - live[k]).max()) / scale
+        d_second = float(np.abs(second[k] - out[k][:CLI_SECOND_ROWS]).max()) / scale
+        log(f"exported {name}: {k:6s} card f32 vs cpu f64 {e_card:.3e}, cpu f32 vs cpu f64 {e_cpu:.3e} (tol "
+            f"{tol:.3e}); vs predict_batched {d_live:.3e} of the field's largest value (tol 1e-5); second call at "
+            f"{CLI_SECOND_ROWS} rows {d_second:.3e} (bits equal {bool((second[k] == out[k][:CLI_SECOND_ROWS]).all())})")
+        if not (e_card <= tol and d_live <= 1e-5 and d_second <= 1e-5):
+            raise AssertionError(f"exported {name}: {k} off (cpu f64 {e_card:.3e}, predict_batched {d_live:.3e}, "
+                                 f"second call {d_second:.3e})")
+    log(f"exported {name}: {X.shape[0]} rows in one call: chol_inv.cu by n {counts['chol_inv_by_n']}, "
+        f"chol_inv_cluster.cu by n {counts['chol_inv_blocked_by_n']}, rbf_gram {counts['rbf_gram_by_shape']}; "
+        f"the call at {CLI_SECOND_ROWS} rows the same launches")
+    return counts
+
+
+def time_artifact(name, kind, model, served, X, card) -> dict:
+    """Points/s of one served call on all rows against ``predict_batched``'s
+    graphed path on the same rows (both ending in the copy to the host),
+    median of 5, in turns."""
+    paths = {"artifact": lambda: served(X), "predict_batched": lambda: cli_live(kind, model, X)}
+    for fn in paths.values():
+        fn()
+    times = {path: [] for path in paths}
+    for rep in range(5):
+        for path in (paths if rep % 2 == 0 else list(paths)[::-1]):
+            t0 = time.perf_counter()
+            paths[path]()
+            times[path].append(time.perf_counter() - t0)
+    pts = {path: X.shape[0] / float(np.median(t)) for path, t in times.items()}
+    log(f"time exported {name}: {X.shape[0]} rows, artifact {pts['artifact']:.1f} points/s "
+        f"{[round(X.shape[0] / t) for t in times['artifact']]}, predict_batched graphed "
+        f"{pts['predict_batched']:.1f} points/s {[round(X.shape[0] / t) for t in times['predict_batched']]} "
+        f"(median of 5, in turns; {card})")
+    return pts
+
+
+def phase_cli(split, card) -> dict:
+    """The port's command line in process (``cli.main``) on the card, on
+    ``rain_split(split)`` written as a pptr pickle (``save_pptr``), fold 1
+    of its KFold protocol, each configuration in a workdir of its own:
+    ``onoff`` with the reference preset (the flagship), the best preset (the
+    champion) and ``--grid 105x250 --batch 8192``, and ``classifier
+    --preset best``, CLI_STEPS steps each (the gram kernel on: the CLI's
+    rule on the card); ``predict --samples 256`` on the flagship (y_samples
+    (256, N, 1) finite, its sample mean summed over the rows within 5
+    standard errors of the sampler's mean and of gfmean); ``export`` of each, loaded and
+    served (``check_artifact``), timed against ``predict_batched``; then
+    ``cv --split forecast --covariates --origins 2`` of the classifier and
+    the joint hurdle at CLI_FORECAST_STEPS steps (every aggregate finite,
+    ``rbf_gram.cu`` launched at D = 5 on the exogenous factor). The counts
+    are zeroed before the trainings and read after the forecast run; each
+    served call is counted on its own. Returns the counts, the served calls'
+    counts, the points/s and the walls."""
+    import argparse
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    from zigp_tpu_torch.experiments import cli, runners
+    from zigp_tpu_torch.io.datasets import save_pptr
+    from zigp_tpu_torch.io.export import load_predictor
+
+    quiet = lambda s: None
+    walls, served_counts, pts = {}, {}, {}
+    X = np.asarray(split.Xtrain[:ROWS])
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = save_pptr(rain_split(split), os.path.join(tmp, "pptr.pickle"))
+        fold = cli._load_fold(argparse.Namespace(data=data, fold=1))
+        wd = lambda name: os.path.join(tmp, name.replace(" ", "_"))
+        logs = io.StringIO()  # the CLI logs to stdout: kept out of the script's output
+
+        def run(name, argv):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(logs):
+                rc = cli.main(argv + ["--data", data])
+            torch.cuda.synchronize()
+            walls[name] = round(time.perf_counter() - t0, 1)
+            if rc != 0:
+                raise AssertionError(f"cli {name}: exit code {rc}")
+
+        zero_counts()
+        for name, (kind, flags) in CLI_RUNS.items():
+            run(f"{kind} {name}", [kind, *flags, "--workdir", wd(name), "--iters", str(CLI_STEPS), "--scan-inner",
+                                   "50"])
+        run("predict flagship", ["predict", "--model", "onoff", *CLI_RUNS["flagship"][1], "--samples",
+                                 str(CLI_SAMPLES), "--workdir", wd("flagship")])
+        for name, (kind, flags) in CLI_RUNS.items():
+            run(f"export {name}", ["export", "--model", kind, *flags, "--workdir", wd(name)])
+        t0 = time.perf_counter()
+        run("cv forecast", [*CLI_FORECAST, "--workdir", wd("forecast")])
+        forecast_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with open(os.path.join(wd("flagship"), "1", "predictions_onoff.pickle"), "rb") as f:
+            preds = pickle.load(f)
+        with open(os.path.join(wd("forecast"), "cv_summary.json")) as f:
+            summary = json.load(f)
+
+        # the predictive samples: E[y*] = Φ(z)·fmean, pgmean = Φ̃(z) the clipped gate
+        y, p = preds["y_samples"], preds["pred_test"]
+        N = fold.Xtest.shape[0]
+        if y.shape != (CLI_SAMPLES, N, 1) or not np.isfinite(y).all():
+            raise AssertionError(f"predict: y_samples {y.shape}, expected ({CLI_SAMPLES}, {N}, 1), finite")
+        se = np.sqrt(np.sum(y.var(0, ddof=1)) / CLI_SAMPLES)
+        mean = (p["pgmean"] - 1e-3) / (1 - 2e-3) * p["fmean"]
+        z = float(np.sum(y.mean(0) - mean) / se)
+        z_clipped = float(np.sum(y.mean(0) - p["gfmean"]) / se)
+        log(f"cli predict --samples {CLI_SAMPLES}: y_samples {y.shape}, finite; sum over rows of (sample mean - "
+            f"Φ(z)·fmean) = {z:.2f} standard errors, against gfmean (the clipped gate Φ̃ = Φ·(1 − 2e-3) + 1e-3) "
+            f"{z_clipped:.2f} (gate 5 each)")
+        if not (abs(z) <= 5 and abs(z_clipped) <= 5):
+            raise AssertionError(f"predict: sample mean {z:.2f} standard errors off the sampler's mean, "
+                                 f"{z_clipped:.2f} off gfmean")
+
+        for name, (kind, _) in CLI_RUNS.items():
+            served = load_predictor(os.path.join(wd(name), "1", f"export_{kind}.zigp"))
+            model, step, _ = runners._restore_model(fold, kind, cli_config(name), os.path.join(wd(name), "1"), quiet,
+                                                    use_kernel=True)
+            served_counts[name] = check_artifact(name, kind, model, served, X)
+            pts[name] = time_artifact(name, kind, model, served, X, card)
+            del served, model
+
+    bad = {m: [k for k, a in per.items() if not np.isfinite(a["mean"])] for m, per in summary.items()}
+    bad = {m: v for m, v in bad.items() if v}
+    d5 = {shape: k for shape, k in counts["rbf_gram_by_shape"].items() if shape[3] == 5}
+    log(f"cli cv --split forecast --covariates --origins 2 (classifier, hurdlej; {CLI_FORECAST_STEPS} steps): "
+        f"classifier auc {summary['classifier']['test_auc']['mean']:.4f}; hurdlej rmse "
+        f"{summary['hurdlej']['test_rmse']['mean']:.4f}, crps {summary['hurdlej']['test_crps']['mean']:.4f}; "
+        f"rbf_gram at D = 5 {d5}; wall {forecast_wall:.1f} s; {card}")
+    if bad or not d5:
+        raise AssertionError(f"cli forecast: non-finite aggregates {bad}, rbf_gram launches at D = 5 {d5}")
+    wall = time.perf_counter() - t_start
+    log(f"cli phase: walls {json.dumps(walls)}, total {wall:.1f} s; launches chol_inv.cu by (G, n) "
+        f"{counts['chol_inv_by_batch']}, cluster {counts['chol_inv_blocked_by_batch']}; {card}")
+    return {"counts": counts, "served": served_counts, "pts": pts, "walls": walls, "wall": wall}
+
+
+def cli_rows(ci, rg, res: dict, card) -> list:
+    """The kernels-line rows of the CLI phase's paths: ``chol_inv.cu`` and
+    the cluster kernel at each (G, n) of the exported programs' served calls
+    and of the forecast run; ``rbf_gram`` at each shape of the served calls,
+    and at D = 5 (the exogenous factor) of the forecast run."""
+    served = {f"exported {name}": counts for name, counts in res["served"].items()}
+    rows = stacked_chol_rows(ci, {**served, "cli training, export and forecast": res["counts"]}, card,
+                             label="cli", min_G=1)
+    d5 = {k: v for k, v in res["counts"]["rbf_gram_by_shape"].items() if k[3] == 5}
+    rows += gram_rows(rg, {**served, "cli forecast D=5": {"rbf_gram_by_shape": d5}}, card)
+    return rows
+
+
 CHOL_INV_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/chol_inv.cu"
 CHOL_INV_REPLACES = "zigp_tpu/ops/pallas/chol_inv.py:339"
 
 
-def stacked_chol_rows(ci, path_counts: dict, card) -> list:
+def stacked_chol_rows(ci, path_counts: dict, card, label: str = "stack", min_G: int = 3) -> list:
     """The kernels-line rows of ``chol_inv.cu`` and the cluster kernel at each
-    stacked batch (G, n) launched on the stack's paths, with the launches of
-    each path: ms per call with the host, device ms (CUDA graph), the plain
-    version's ms, torch.linalg's, the bound, the largest difference from the
-    plain version."""
+    batch (G, n) with G >= ``min_G`` launched on the paths (the stack's:
+    G <= 2 are the single models' rows), with the launches of each path: ms
+    per call with the host, device ms (CUDA graph), the plain version's ms,
+    torch.linalg's, the bound, the largest difference from the plain
+    version."""
     shapes = {}
     for path, counts in path_counts.items():
         for key, kernel in (("chol_inv_by_batch", "chol_inv"), ("chol_inv_blocked_by_batch", "chol_inv_blocked")):
             for (G, n), k in counts[key].items():
-                if G > 2:  # the stacked batches; G <= 2 are the single models' rows
+                if G >= min_G:
                     shapes.setdefault((kernel, G, n), {})[path] = k
     rows = []
     for (kernel, G, n), paths in sorted(shapes.items()):
         K = torch.as_tensor(batched_grams(n, G), device=DEVICE)
         if kernel == "chol_inv":
-            kern, source, replaces, label = (lambda: ci.chol_inv_cuda(K)), CHOL_INV_SOURCE, CHOL_INV_REPLACES, "chol_inv"
+            kern, source, replaces, name = (lambda: ci.chol_inv_cuda(K)), CHOL_INV_SOURCE, CHOL_INV_REPLACES, "chol_inv"
         else:
             kern, source, replaces = (lambda: ci.chol_inv_blocked(K)), CLUSTER_SOURCE, CLUSTER_REPLACES
-            label = f"chol_inv_cluster {ci.blocked_route(n)}"
+            name = f"chol_inv_cluster {ci.blocked_route(n)}"
         plain = lambda: ci.chol_inv_plain(K, ci.NB)
         with torch.inference_mode():
             ms, device_ms = cuda_ms(kern, reps=200), graph_ms(kern)
@@ -2883,7 +3156,7 @@ def stacked_chol_rows(ci, path_counts: dict, card) -> list:
         b_ms, b_by = bound_ms(n, G)
         launches = sum(paths.values())
         where = ", ".join(f"{p} {k}" for p, k in paths.items())
-        kname = f"{label} n={n} G={G} (stack: {where})"
+        kname = f"{name} n={n} G={G} ({label}: {where})"
         log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg "
             f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; "
             f"{card}")
@@ -3022,6 +3295,8 @@ def main() -> int:
     studies = phase_stack_studies(split, card)
     stack_counts["studies"] = studies["counts"]
     mark("the stack's studies")
+    cli_res = phase_cli(split, card)
+    mark("the command line")
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
@@ -3056,12 +3331,14 @@ def main() -> int:
     kernels += stacked_chol_rows(ci, stack_counts, card)
     kernels += gram_rows(rg, {f"stack {name}": counts for name, counts in stack_counts.items() if counts["rbf_gram"]},
                          card, stacked=True)
+    kernels += cli_rows(ci, rg, cli_res, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
         f"by chol_inv forward route: {json.dumps(route_rates)}; other trainers' steps/s {json.dumps(trainer_rates)}, "
         f"graph A/B {json.dumps(trainer_ab)}; fold protocol {fold_wall:.1f} s; "
         f"member stacks {json.dumps(stack_rates)}; the stack's studies {json.dumps(studies['walls'])}; "
+        f"the command line's artifacts points/s {json.dumps(cli_res['pts'])}, walls {json.dumps(cli_res['walls'])}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -967,3 +967,68 @@ def test_stacked_step_launches_do_not_grow_with_members(cuda, F):
     assert launches[(ci.chol_inv_cuda, "launches_by_batch")] == {(2 * F, 6): 2, (2 * F, 20): 2}
     assert launches[(rg.rbf_gram_cuda, "launches")] == 2 * 4
     assert all(G == 2 * F for G, *_ in launches[(rg.rbf_gram_cuda, "launches_by_shape")])
+
+
+# --- the registered ops and the exported program ---
+
+
+def test_opcheck_of_the_ops_on_the_card(cuda):
+    """``torch.library.opcheck`` (schema, fake implementation, dynamic
+    shapes) of the three ops on CUDA float32 tensors: chol_inv.cu at n = 100,
+    the cluster kernel's pair (n = 250) and row (n = 400) instances, and the
+    gram with a shared and a batched X, D = 1 and 5."""
+    for fn, n in ((ci.chol_inv_op, 100), (ci.chol_inv_blocked_op, 250), (ci.chol_inv_blocked_op, 400)):
+        torch.library.opcheck(fn, (torch.as_tensor(_spd(n, seed=n), device=cuda),))
+    rng = np.random.RandomState(0)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    for X, Z in ((rng.rand(2, 30, 1), rng.rand(257, 1)), (rng.rand(2, 8, 5), rng.rand(2, 64, 5))):
+        torch.library.opcheck(rg.rbf_gram_op, (t(X), t(Z), t(rng.rand(2, X.shape[-1]) + 0.5), t(rng.rand(2) + 0.5)))
+
+
+def test_an_artifact_exported_on_the_card_launches_the_kernels(cuda, tmp_path):
+    """The on/off model at a 4 x 250 grid with the gram kernel on, exported
+    with a symbolic batch: each served call launches chol_inv.cu once (n =
+    4), the cluster kernel once (n = 250) and rbf_gram.cu four times, at 300
+    rows and at 50, within 1e-5 of each field's largest value of the live
+    model's predict."""
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+    from zigp_tpu_torch.io.export import export_predictor, load_predictor
+
+    split = synthetic_pptr(12, 120, seed=0)
+    model = build_onoff_pptr(configs.OnOffPptrConfig(grid=configs.KronGridConfig(4, 250)), split, use_kernel=True)
+    served = load_predictor(export_predictor(model, "onoff", 3, str(tmp_path / "onoff.zigp")))
+    assert served.meta["device"] == "cuda"
+    for n in (300, 50):
+        X = split.Xtrain[:n]
+        before = (ci.chol_inv_cuda.launches, ci.chol_inv_blocked.launches, rg.rbf_gram_cuda.launches)
+        out = served(X)
+        torch.cuda.synchronize()
+        after = (ci.chol_inv_cuda.launches, ci.chol_inv_blocked.launches, rg.rbf_gram_cuda.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 4)
+        with torch.no_grad():
+            want = model.predict(torch.as_tensor(X, dtype=torch.float32, device=cuda))._asdict()
+        for k, v in want.items():
+            v = v.cpu().numpy()
+            assert np.abs(out[k] - v).max() <= 1e-5 * np.abs(v).max(), k
+
+
+def test_a_captured_block_counts_each_op_launch_once(cuda):
+    """The kernels launched through their registered ops: a captured block
+    of 10 flagship-like steps (both kernels on) counts, per replay, the
+    launches of the same block run eagerly, 2 chol_inv.cu and 4 rbf_gram.cu
+    a step."""
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import make_graphed_scan_step, make_scan_train_step
+
+    model, opt, blocks = _graph_setup(cuda)
+    Xs, Ys = (b.clone() for b in blocks[0])
+    before = (ci.chol_inv_cuda.launches, rg.rbf_gram_cuda.launches)
+    on_side_stream(lambda: make_scan_train_step(opt)(model, Xs, Ys))
+    torch.cuda.synchronize()
+    eager = (ci.chol_inv_cuda.launches - before[0], rg.rbf_gram_cuda.launches - before[1])
+    graphed = make_graphed_scan_step(opt, model, Xs, Ys)
+    per_replay = (graphed.graph.launches[(ci.chol_inv_cuda, "launches")],
+                  graphed.graph.launches[(rg.rbf_gram_cuda, "launches")])
+    assert eager == per_replay == (10 * 2, 10 * 4)

@@ -265,3 +265,11 @@ def preset_configs(preset: str) -> dict:
     if preset != "reference":
         raise ValueError(f"unknown preset: {preset!r}")
     return base
+
+
+REFERENCE_PRESET_WARNING = (
+    "warning: --preset reference runs the reference's unwhitened "
+    "parameterization — fold 3 of the svgp/hurdle protocol is known to "
+    "diverge under it (RESULTS.md footnote). --preset reference-stable is "
+    "the same config with whiten=True only."
+)

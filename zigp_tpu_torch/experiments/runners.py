@@ -16,7 +16,10 @@ Counterpart of ``zigp_tpu/experiments/runners.py``:
   entry;
 - ``run_onoff``, ``run_svgp``, ``run_classifier``, ``run_hurdle`` (the
   two-stage hurdle), ``run_hurdle_joint`` and ``run_zero_inflated``
-  (:299-1083), with ``recalibrate_noise`` and the metric blocks.
+  (:299-1083), with ``recalibrate_noise`` and the metric blocks;
+- ``_restore_model``, ``run_predict`` (restore the latest checkpoint and
+  score without training, with ``samples`` predictive draws) and
+  ``run_export`` (a standalone ``io.export`` artifact) (:1085-1199).
 
 Every runner takes ``device`` (``None`` = the CUDA card), ``dtype`` and
 ``use_kernel`` (the ``rbf_gram`` kernel for the factor grams). Training,
@@ -911,4 +914,112 @@ def run_zero_inflated(
         log_fn(f"zi test crps: {results['test_crps']}")
     log_fn(f"zi prob test rmse: {results['test_zi_prob_reg_rmse']}")
     _maybe_pickle(results, workdir, "results_zi.pickle")
+    return results
+
+
+# --- restore-and-predict and export -------------------------------------------
+
+
+def _restore_model(split: Split, kind: str, cfg, workdir: str, log_fn, *, device=None,
+                   dtype: torch.dtype = torch.float32, use_kernel: bool = False):
+    """Rebuild the ``kind`` model of ``cfg`` (the kind's default config when
+    None; it must match the training run's model shape) on ``device`` and
+    restore the latest checkpoint of ``workdir/ckpt_{kind}`` into it, in
+    place. Returns (model, step, its eval block)."""
+    builders = {
+        "onoff": (build_onoff_pptr, OnOffPptrConfig, _eval_onoff),
+        "svgp": (build_svgp_pptr, SvgpPptrConfig, _eval_svgp),
+        "classifier": (build_classifier_pptr, ClassifierPptrConfig, _eval_classifier),
+        "hurdlej": (build_hurdle_joint_pptr, HurdleJointConfig, _eval_hurdle_joint),
+    }
+    if kind not in builders:
+        raise SystemExit(f"error: unknown predict kind {kind!r} (onoff|svgp|classifier|hurdlej)")
+    build, default_cfg, evaluate = builders[kind]
+    model = build(cfg or default_cfg(), split, device=device, dtype=dtype, use_kernel=use_kernel)
+    ckpt_dir = os.path.join(workdir, f"ckpt_{kind}")
+    restored = CheckpointManager(ckpt_dir).restore_latest(model, None)
+    if restored is None:
+        raise SystemExit(f"error: no checkpoint under {ckpt_dir} — train '{kind}' with this --workdir first")
+    model, _, step = restored
+    log_fn(f"restored {kind} checkpoint at step {step}")
+    _log_hyperparams(model, log_fn)
+    return model, step, evaluate
+
+
+def run_export(
+    split: Split,
+    kind: str,
+    cfg=None,
+    *,
+    workdir: str,
+    out: Optional[str] = None,
+    batch_size: Optional[int] = None,
+    log_fn: Callable[[str], None] = logger.info,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+    use_kernel: bool = False,
+) -> str:
+    """Restore the latest ``kind`` checkpoint and write a standalone serving
+    artifact (``io.export``: ``torch.export`` of the model's predict, the
+    parameters in the program, a symbolic batch unless ``batch_size`` pins
+    it), traced on ``device``: on the card it calls the kernels. Returns the
+    artifact's path (default ``workdir/export_{kind}.zigp``)."""
+    from ..io.export import export_predictor
+
+    model, step, _ = _restore_model(split, kind, cfg, workdir, log_fn, device=device, dtype=dtype,
+                                    use_kernel=use_kernel)
+    out = out or os.path.join(workdir, f"export_{kind}.zigp")
+    export_predictor(model, kind, int(split.Xtrain.shape[1]), out, batch_size=batch_size)
+    log_fn(f"exported {kind} (checkpoint step {step}) to {out}")
+    return out
+
+
+def run_predict(
+    split: Split,
+    kind: str,
+    cfg=None,
+    *,
+    workdir: str,
+    log_fn: Callable[[str], None] = logger.info,
+    samples: int = 0,
+    sample_seed: int = 0,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+    use_kernel: bool = False,
+) -> dict:
+    """Restore the latest ``kind`` checkpoint in ``workdir`` (the model only:
+    checkpoints of any optimizer predict alike) and run the training
+    runner's predict and metric block, without training. ``kind``: "onoff",
+    "svgp", "classifier" or "hurdlej"; ``cfg`` must match the training
+    config's model shape.
+
+    ``samples`` > 0 also draws that many predictive samples per test point
+    into ``results["y_samples"]`` (S, N, 1), from a ``torch.Generator`` on
+    the model's device seeded with ``sample_seed``: the gated y* for onoff and
+    hurdlej, f* pushed through the likelihood's ``sample_y`` for svgp (f* + ε
+    for the Gaussian head, as the JAX runner draws it), Bernoulli labels
+    (uniform < p) for the classifier. Writes ``predictions_<kind>.pickle``
+    into ``workdir``."""
+    model, step, evaluate = _restore_model(split, kind, cfg, workdir, log_fn, device=device, dtype=dtype,
+                                           use_kernel=use_kernel)
+    results = evaluate(model, split, log_fn)
+    results["restored_step"] = step
+    if samples:
+        p = next(model.parameters())
+        gen = torch.Generator(device=p.device)
+        gen.manual_seed(sample_seed)
+        Xte = torch.as_tensor(np.asarray(split.Xtest), dtype=p.dtype, device=p.device)
+        with torch.no_grad():
+            if kind in ("onoff", "hurdlej"):
+                s = model.predict_y_samples(gen, Xte, samples)
+            elif kind == "svgp":
+                s = model.likelihood.sample_y(gen, model.predict_f_samples(gen, Xte, samples))
+            else:  # classifier
+                prob = model.predict_prob(Xte)[0]
+                u = torch.rand((samples, *prob.shape), generator=gen, dtype=prob.dtype, device=prob.device)
+                s = (u < prob[None]).to(prob.dtype)
+        results["y_samples"] = s.cpu().numpy()
+        log_fn(f"drew {samples} predictive samples per point: {results['y_samples'].shape}")
+    _maybe_pickle(results, workdir, f"predictions_{kind}.pickle")
+    results["model"] = model
     return results

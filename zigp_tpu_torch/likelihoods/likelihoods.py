@@ -13,7 +13,12 @@ Counterpart of ``zigp_tpu/likelihoods/likelihoods.py``:
 
 Every constant of a step is a Python float or a tensor cached on the
 device (``ops.quadrature``), so the terms can be captured in a CUDA graph.
-The samplers (``sample_y``) are not ported yet.
+
+The regression heads' samplers (``zigp_tpu/likelihoods/likelihoods.py:50,
+126, 194``) come in two parts: ``sample_draws(generator, F)`` draws the
+standard variates (normals, or standard gammas for ``Gamma``) from a
+``torch.Generator`` on F's device, and ``sample_y_from(F, draws)`` is the
+pure map from them to y. ``sample_y(generator, F)`` is the two in turn.
 """
 
 from __future__ import annotations
@@ -25,6 +30,11 @@ from torch import nn
 from ..core.parameters import positive_param
 from ..ops import quadrature
 from ..ops.probit import normcdf_clipped
+
+
+def _normals(generator, like: torch.Tensor) -> torch.Tensor:
+    """Standard normals of ``like``'s shape, dtype and device."""
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
 class Gaussian(nn.Module):
@@ -42,6 +52,16 @@ class Gaussian(nn.Module):
 
     def predict_mean_and_var(self, Fmu, Fvar):
         return Fmu, Fvar + self.variance.value
+
+    sample_draws = staticmethod(_normals)
+
+    def sample_y_from(self, F, eps):
+        """y = f + σ ε for standard normals ``eps`` (F's shape)."""
+        return F + torch.sqrt(self.variance.value) * eps
+
+    def sample_y(self, generator, F):
+        """One observation draw y ~ N(f, σ²) per latent sample in ``F``."""
+        return self.sample_y_from(F, self.sample_draws(generator, F))
 
 
 class OnOffGaussian(nn.Module):
@@ -96,6 +116,16 @@ class LogNormal(nn.Module):
         logy = torch.log(Y)
         return logy + 0.5 * torch.log(2.0 * np.pi * s2) + 0.5 * torch.square(logy - Fmu) / s2
 
+    sample_draws = staticmethod(_normals)
+
+    def sample_y_from(self, F, eps):
+        """y = exp(f + σ ε) for standard normals ``eps`` (F's shape)."""
+        return torch.exp(F + torch.sqrt(self.variance.value) * eps)
+
+    def sample_y(self, generator, F):
+        """One observation draw y ~ LogNormal(f, σ²) per latent sample."""
+        return self.sample_y_from(F, self.sample_draws(generator, F))
+
 
 class Gamma(nn.Module):
     """y | f ~ Gamma(shape α, mean exp(f)) (rate α e^{−f}). With
@@ -133,6 +163,20 @@ class Gamma(nn.Module):
         logp = (a * torch.log(a) - torch.lgamma(a) + (a - 1.0) * torch.log(Y)[..., None] - a * f
                 - a * Y[..., None] * torch.exp(-f))
         return -torch.logsumexp(logp + torch.log(w), dim=-1)
+
+    def sample_draws(self, generator, F):
+        """Standard Gamma(α) variates of F's shape, dtype and device."""
+        a = self.shape.value.detach().to(F.dtype).expand(F.shape)
+        return torch._standard_gamma(a.contiguous(), generator=generator)
+
+    def sample_y_from(self, F, g):
+        """y = g e^f / α for standard Gamma(α) variates ``g``: a draw from
+        Gamma(α, rate α e^{−f}), whose mean is e^f."""
+        return g * torch.exp(F) / self.shape.value
+
+    def sample_y(self, generator, F):
+        """One draw y ~ Gamma(α, rate α e^{−f}) per latent sample."""
+        return self.sample_y_from(F, self.sample_draws(generator, F))
 
 
 class Bernoulli(nn.Module):

@@ -8,7 +8,7 @@ from .kron import (
     KronSVGP,
     LatentPrediction,
 )
-from .onoff import OnOffPrediction
+from .onoff import OnOffPrediction, gated_y_from, gated_y_samples
 
 __all__ = [
     "ClassPrediction",
@@ -19,6 +19,8 @@ __all__ = [
     "KronSVGP",
     "LatentPrediction",
     "OnOffPrediction",
+    "gated_y_from",
+    "gated_y_samples",
     "hurdle_combine",
     "hurdle_on_indices",
     "zero_inflated_combine",

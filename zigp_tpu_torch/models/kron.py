@@ -6,8 +6,11 @@ Counterpart of ``zigp_tpu/models/kron.py`` (``KronGP`` :41-149,
 :448-639): ``create``, the factor grams and their ``chol_inv`` state,
 ``prior_kl``, ``predict_f`` and ``predict``, ``elbo`` and ``loss``. The KL
 and the conditional of a step share one ``chol_inv`` per factor, as in the
-JAX package. The samplers (``predict_f_samples``, ``predict_y_samples``) are
-not ported yet.
+JAX package. The samplers (``KronGP.predict_f_samples`` with ``full_cov``,
+``KronSVGP.predict_f_samples``, ``KronHurdleSVGP.predict_y_samples``,
+``KronOnOffSVGP.predict_y_samples``) draw from a ``torch.Generator`` on the
+model's device in the JAX package's split order; each is a thin shell around
+a pure ``*_from`` core that takes the standard normals, uniforms or gammas.
 
 The inducing grid is Z = Z_s × Z_t (e.g. 10 spatial kmeans centres × 100
 temporal knots), never formed: the conditional works factor by factor
@@ -36,7 +39,7 @@ from ..core.config import default_jitter
 from ..core.parameters import param, positive_param
 from ..ops import conditionals, gauss_kl, linalg
 from ..ops.probit import probit_expectations
-from .onoff import OnOffPrediction
+from .onoff import OnOffPrediction, gated_y_from, gated_y_samples
 
 
 def gen_input_masks(Zs: Sequence[np.ndarray]) -> Tuple[Tuple[int, ...], ...]:
@@ -180,7 +183,7 @@ class KronGP(nn.Module):
             return gauss_kl.gauss_kl_kron_full(vals.q_mu, vals.q_sqrt_factors, factor_state=factor_state)
         return gauss_kl.gauss_kl_kron(vals.q_mu, vals.q_sqrt, factor_state=factor_state)
 
-    def _predict_f(self, vals: GPValues, Xnew, factor_state=None):
+    def _predict_f(self, vals: GPValues, Xnew, factor_state=None, full_cov: bool = False):
         return conditionals.kron_conditional(
             Xnew,
             vals.kernels,
@@ -193,6 +196,7 @@ class KronGP(nn.Module):
             q_sqrt_factors=vals.q_sqrt_factors,
             factor_state=factor_state if factor_state is not None else self._factor_state(vals),
             use_kernel=self.kernel_flags(),
+            full_cov=full_cov,
         )
 
     def gram_factors(self):
@@ -208,12 +212,32 @@ class KronGP(nn.Module):
             factor_state = _stack([factor_state])
         return self._prior_kl(_stack([self.values()]), factor_state)[0]
 
-    def predict_f(self, Xnew: torch.Tensor, factor_state=None):
-        """Marginal predictive (mean, var), each (B, 1)."""
+    def predict_f(self, Xnew: torch.Tensor, factor_state=None, *, full_cov: bool = False):
+        """Marginal predictive (mean, var), each (B, 1); with ``full_cov``
+        the mean and the joint covariance (B, B, 1)."""
         if factor_state is not None:
             factor_state = _stack([factor_state])
-        mu, var = self._predict_f(_stack([self.values()]), Xnew, factor_state)
+        mu, var = self._predict_f(_stack([self.values()]), Xnew, factor_state, full_cov)
         return mu[0], var[0]
+
+    def predict_f_samples_from(self, Xnew: torch.Tensor, eps: torch.Tensor, *, full_cov: bool = False):
+        """(S, B, 1) posterior samples from standard normals ``eps``: (S, B)
+        drawn jointly through the Cholesky of the jittered (B, B) predictive
+        covariance with ``full_cov``, else (S, B, 1) per-point marginals."""
+        if full_cov:
+            mu, cov = self.predict_f(Xnew, full_cov=True)
+            Lc = torch.linalg.cholesky(linalg.add_jitter(cov[:, :, 0], self.jitter_for(cov.dtype)))
+            return (mu[:, 0][None] + eps @ Lc.transpose(-1, -2))[:, :, None]
+        mu, var = self.predict_f(Xnew)
+        return mu[None] + torch.sqrt(torch.clamp(var, min=0.0))[None] * eps
+
+    def predict_f_samples(self, generator: torch.Generator, Xnew: torch.Tensor, num_samples: int = 1, *,
+                          full_cov: bool = False):
+        """``predict_f_samples_from`` on normals drawn from ``generator``."""
+        shape = (num_samples, Xnew.shape[0]) + (() if full_cov else (1,))
+        raw = self.q_mu.raw
+        eps = torch.randn(shape, generator=generator, dtype=raw.dtype, device=raw.device)
+        return self.predict_f_samples_from(Xnew, eps, full_cov=full_cov)
 
 
 class LatentPrediction(NamedTuple):
@@ -258,10 +282,19 @@ class KronSVGP(nn.Module):
     def prior_kl(self) -> torch.Tensor:
         return self.gp.prior_kl()
 
-    def predict_f(self, Xnew: torch.Tensor):
-        """(fmean, fvar), each (B, 1), the prior mean constant added."""
-        fmean, fvar = self.gp.predict_f(Xnew)
+    def predict_f(self, Xnew: torch.Tensor, *, full_cov: bool = False):
+        """(fmean, fvar), each (B, 1), the prior mean constant added; with
+        ``full_cov`` the joint covariance (B, B, 1)."""
+        fmean, fvar = self.gp.predict_f(Xnew, full_cov=full_cov)
         return self._shift(fmean), fvar
+
+    def predict_f_samples_from(self, Xnew: torch.Tensor, eps: torch.Tensor, *, full_cov: bool = False):
+        """``KronGP.predict_f_samples_from`` with the mean constant added."""
+        return self._shift(self.gp.predict_f_samples_from(Xnew, eps, full_cov=full_cov))
+
+    def predict_f_samples(self, generator: torch.Generator, Xnew: torch.Tensor, num_samples: int = 1, *,
+                          full_cov: bool = False):
+        return self._shift(self.gp.predict_f_samples(generator, Xnew, num_samples, full_cov=full_cov))
 
     def predict_prob(self, Xnew: torch.Tensor):
         """The classifier head: p(y=1|x) = Φ̃(μ/√(1+v)) and p − p²."""
@@ -409,6 +442,27 @@ class KronHurdleSVGP(_KronPair):
             fmean = fmean + self.mean_const.value
         return HurdlePrediction(self.gate_likelihood.predict_prob(gmean, gvar), fmean, fvar, gmean, gvar)
 
+    def predict_y_samples_from(self, Xnew: torch.Tensor, eps, amount_draws, u) -> torch.Tensor:
+        """(S, B, 1) draws from the mixed predictive: f from the amount
+        latent's marginal and standard normals ``eps``, pushed through the
+        amount head's ``sample_y_from`` with its standard variates
+        ``amount_draws``, kept where the uniforms ``u`` fall below p_on and 0
+        elsewhere (zeros with probability 1 − p_on)."""
+        pr = self.predict(Xnew)
+        f = pr.fmean[None] + torch.sqrt(torch.clamp(pr.fvar, min=0.0))[None] * eps
+        y = self.amount_likelihood.sample_y_from(f, amount_draws)
+        return torch.where(u < pr.p_on[None], y, torch.zeros_like(y))
+
+    def predict_y_samples(self, generator: torch.Generator, Xnew: torch.Tensor, num_samples: int = 1):
+        """``predict_y_samples_from`` on variates drawn from ``generator``
+        in the JAX package's order: the latent's normals, the amount head's
+        draws, the gate's uniforms."""
+        raw = self.f.q_mu.raw
+        eps = torch.randn((num_samples, Xnew.shape[0], 1), generator=generator, dtype=raw.dtype, device=raw.device)
+        amount = self.amount_likelihood.sample_draws(generator, eps)
+        u = torch.rand(eps.shape, generator=generator, dtype=raw.dtype, device=raw.device)
+        return self.predict_y_samples_from(Xnew, eps, amount, u)
+
     def elbo(self, X: torch.Tensor, Y: torch.Tensor, *, num_data=None, factor_state=None) -> torch.Tensor:
         """``Y`` carries the raw amounts, zeros included; the gate target
         and the amount mask come from it. ``num_data`` and ``factor_state``
@@ -504,6 +558,17 @@ class KronOnOffSVGP(_KronPair):
             e_phi,
             var_phi,
         )
+
+    def predict_y_samples_from(self, Xnew: torch.Tensor, zf, zg, ze) -> torch.Tensor:
+        """(S, B, 1) samples of y* = Φ(g*)·f* + ε (``onoff.gated_y_from``)
+        from the marginals at ``Xnew`` and the given standard normals."""
+        return gated_y_from(self.predict(Xnew), self.likelihood.variance.value, zf, zg, ze)
+
+    def predict_y_samples(self, generator: torch.Generator, Xnew: torch.Tensor, num_samples: int = 1):
+        """(S, B, 1) per-point samples of the gated predictive, f* and g*
+        from their posterior marginals, ε ~ N(0, likelihood.variance), drawn
+        from ``generator`` (``onoff.gated_y_samples``)."""
+        return gated_y_samples(self.predict(Xnew), self.likelihood.variance.value, generator, num_samples)
 
     def elbo(self, X: torch.Tensor, Y: torch.Tensor, *, num_data=None, factor_state=None) -> torch.Tensor:
         """The minibatch ELBO: (num_data / B) Σ E_q[log p(y | Φ(g) f)] − KL_f − KL_g.

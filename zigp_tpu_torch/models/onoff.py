@@ -1,7 +1,10 @@
-"""The on/off model's prediction record.
+"""The on/off model's prediction record and its gated predictive sampler.
 
-Counterpart of ``zigp_tpu/models/onoff.py:46-57``: the 9-tuple of the
-reference's ``build_predict``, with the same field names and order.
+Counterpart of ``zigp_tpu/models/onoff.py:27-57``: the 9-tuple of the
+reference's ``build_predict``, with the same field names and order, and
+``gated_y_samples``. The sampler's draws come from a ``torch.Generator`` in
+the JAX package's split order (f, then g, then the noise);
+``gated_y_from`` is the pure map from given standard normals.
 """
 
 from __future__ import annotations
@@ -21,3 +24,21 @@ class OnOffPrediction(NamedTuple):
     gvar: torch.Tensor
     pgmean: torch.Tensor  # E[Φ(g)]
     pgvar: torch.Tensor  # Var[Φ(g)]
+
+
+def gated_y_from(pred: OnOffPrediction, noise_var, zf, zg, ze) -> torch.Tensor:
+    """(S, B, 1) samples y* = Φ(g*)·f* + ε from the prediction's marginal
+    moments and three sets of standard normals of shape (S, B, 1): f* from
+    ``zf``, g* from ``zg``, ε ~ N(0, noise_var) from ``ze``."""
+    f = pred.fmean[None] + torch.sqrt(torch.clamp(pred.fvar, min=0.0))[None] * zf
+    g = pred.gmean[None] + torch.sqrt(torch.clamp(pred.gvar, min=0.0))[None] * zg
+    return torch.special.ndtr(g) * f + torch.sqrt(torch.as_tensor(noise_var, dtype=f.dtype)) * ze
+
+
+def gated_y_samples(pred: OnOffPrediction, noise_var, generator: torch.Generator, num_samples: int) -> torch.Tensor:
+    """``gated_y_from`` on normals drawn from ``generator`` (on the
+    prediction's device): zf, zg, ze in that order."""
+    shape = (num_samples, *pred.fmean.shape)
+    zf, zg, ze = (torch.randn(shape, generator=generator, dtype=pred.fmean.dtype, device=pred.fmean.device)
+                  for _ in range(3))
+    return gated_y_from(pred, noise_var, zf, zg, ze)

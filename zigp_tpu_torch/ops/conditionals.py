@@ -1,8 +1,9 @@
 """The Kronecker-structured sparse predictive conditional q(f*) = ∫ p(f*|u) q(u) du.
 
-Counterpart of ``zigp_tpu/ops/conditionals.py:96-249`` (``kron_conditional``
-with marginal variances, and ``_factored_contract``). The inducing grid is
-Z = ⊗_p Z_p; nothing of size (Π M_p)² is formed:
+Counterpart of ``zigp_tpu/ops/conditionals.py:96-267`` (``kron_conditional``
+with marginal variances or, ``full_cov=True``, the joint (B, B) covariance,
+and ``_factored_contract`` and its pairwise ``_factored_contract_pair``). The
+inducing grid is Z = ⊗_p Z_p; nothing of size (Π M_p)² is formed:
 
     V_p = L_p⁻¹ Kmn_p                         (matmul against chol_inv's L⁻¹)
     c1[b] = Π_p ‖V_p[:, b]‖²                  (= diag Kmnᵀ K⁻¹ Kmn, each factor ≥ 0)
@@ -37,8 +38,10 @@ def kron_conditional(
     q_sqrt_factors: Optional[Sequence[torch.Tensor]] = None,
     factor_state=None,
     use_kernel: Sequence[bool] = (),
+    full_cov: bool = False,
 ):
-    """Marginal predictive mean and variance, each (G, B, 1).
+    """Marginal predictive mean and variance, each (G, B, 1), or with
+    ``full_cov`` the mean and the joint covariance (G, B, B, 1).
 
     kernels[p]: an ``RBFValues`` with lengthscales (G, d_p), variance (G,);
     Zs[p]: (G, M_p, d_p); q_mu, q_sqrt_diag: (G, M, 1) with M = Π M_p in
@@ -48,7 +51,13 @@ def kron_conditional(
     factor_state: precomputed (Ls, Linvs) of the jittered factor grams;
     use_kernel[p]: build factor p's grams with ``ops.cuda.rbf_gram`` (all off
     when empty). ``whiten`` reads (q_mu, q_sqrt) as the whitened v with
-    u = (⊗ L_p) v."""
+    u = (⊗ L_p) v.
+
+    ``full_cov``: every term is a Hadamard product of per-factor (B, B)
+    grams (Kmnᵀ(⊗K⁻¹)Kmn = ⊙_p V_pᵀV_p, PᵀSP = ⊙_p (C_pᵀP_p)ᵀ(C_pᵀP_p) for
+    the Kronecker family) or, for the diagonal family, the pairwise
+    contraction ``_factored_contract_pair``; only (B, B) is formed, and the
+    covariance is not clipped."""
     sizes = [Z.shape[-2] for Z in Zs]
     flags = list(use_kernel) or [False] * len(Zs)
     if factor_state is None:
@@ -65,7 +74,7 @@ def kron_conditional(
     V_factors = []
     for k, Z, Li, mask, f in zip(kernels, Zs, Linvs, input_masks, flags):
         xp = Xnew.index_select(-1, torch.as_tensor(mask, device=Xnew.device))
-        kd = k.Kdiag(xp)  # (G, B)
+        kd = k.K(xp, use_kernel=f) if full_cov else k.Kdiag(xp)  # (G, B, B) or (G, B)
         Knn = kd if Knn is None else Knn * kd
         Kmn_p = k.K(Z, xp, use_kernel=f)  # (G, M_p, B)
         Kmn_factors.append(Kmn_p)
@@ -78,6 +87,21 @@ def kron_conditional(
         alpha = linalg.kron_linv_solve(Linvs, q_mu)  # (⊗K_p⁻¹) q_mu, (G, M, 1)
         proj = [Li.transpose(-1, -2) @ V_p for Li, V_p in zip(Linvs, V_factors)]
         mu = _factored_contract(alpha[..., 0], sizes, Kmn_factors)
+
+    if full_cov:
+        if q_sqrt_factors is not None:
+            c2 = None
+            for C, P_p in zip(q_sqrt_factors, proj):
+                CtP = torch.tril(C).transpose(-1, -2) @ P_p  # (G, M_p, B)
+                t = CtP.transpose(-1, -2) @ CtP
+                c2 = t if c2 is None else c2 * t
+        else:
+            c2 = _factored_contract_pair(torch.square(q_sqrt_diag[..., 0]), sizes, proj)
+        c1 = None
+        for V_p in V_factors:
+            t = V_p.transpose(-1, -2) @ V_p
+            c1 = t if c1 is None else c1 * t
+        return mu[..., None], (Knn - c1 + c2)[..., None]
 
     if q_sqrt_factors is not None:
         # S = ⊗ C_p C_pᵀ: diag(PᵀSP)[b] = Π_p ‖C_pᵀ P_p[:, b]‖²
@@ -112,3 +136,18 @@ def _factored_contract(w: torch.Tensor, sizes: Sequence[int], factors: Sequence[
         rest //= sizes[p]
         t = torch.einsum("gbir,gib->gbr", t.reshape(G, B, sizes[p], rest), factors[p])
     return t.reshape(G, B)
+
+
+def _factored_contract_pair(w: torch.Tensor, sizes: Sequence[int], factors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """out[g, b, c] = Σ_{i₁..i_P} w[g, (i₁..i_P)] Π_p factors[p][g, i_p, b]·factors[p][g, i_p, c],
+    the pairwise analog of ``_factored_contract``, one factor at a time:
+    w (G, M), factors[p] (G, M_p, B) -> (G, B, B); (G, B, B, M / M_1) at the
+    peak."""
+    G = w.shape[0]
+    B = factors[0].shape[-1]
+    rest = w.numel() // (G * sizes[0])
+    t = torch.einsum("gir,gib,gic->gbcr", w.reshape(G, sizes[0], rest), factors[0], factors[0])
+    for p in range(1, len(sizes)):
+        rest //= sizes[p]
+        t = torch.einsum("gbcir,gib,gic->gbcr", t.reshape(G, B, B, sizes[p], rest), factors[p], factors[p])
+    return t.reshape(G, B, B)

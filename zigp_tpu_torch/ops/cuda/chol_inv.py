@@ -44,6 +44,14 @@ These are forward functions. Gradients go through ``ops.linalg.chol_inv``, a
 ``torch.autograd.Function`` that calls them on a detached input and whose
 backward is the matmul-only rule of ``zigp_tpu/ops/linalg.py:177-211``.
 
+``chol_inv_op`` (``zigp_tpu_torch::chol_inv``) and ``chol_inv_blocked_op``
+(``zigp_tpu_torch::chol_inv_blocked``) are ``chol_inv_cuda`` and
+``chol_inv_blocked`` registered as ``torch.library`` custom ops, with fake
+implementations that give the output shapes: ``ops.linalg`` launches the
+kernels through them, so ``torch.export`` records each launch as one op
+call, and a program exported on the card calls the kernels when it runs
+(``io.export``). Loading such a program needs this module imported.
+
 The L-only alternatives the JAX package keeps beside ``chol_inv_pallas`` as
 its measured A/B record are here too:
 
@@ -198,6 +206,18 @@ def chol_inv_cuda(K: torch.Tensor):
 chol_inv_cuda.launches = 0
 chol_inv_cuda.launches_by_n = Counter()
 chol_inv_cuda.launches_by_batch = Counter()
+
+
+@torch.library.custom_op("zigp_tpu_torch::chol_inv", mutates_args=(), schema="(Tensor K) -> (Tensor, Tensor)")
+def chol_inv_op(K):
+    """``chol_inv_cuda`` as a registered op: the kernel on a CUDA tensor, the
+    plain version on a CPU one."""
+    return chol_inv_cuda(K)
+
+
+@chol_inv_op.register_fake
+def _chol_inv_fake(K):
+    return torch.empty_like(K), torch.empty_like(K)
 
 
 def block_offsets(n: int) -> list[int]:
@@ -546,6 +566,20 @@ def chol_inv_blocked(K: torch.Tensor):
 chol_inv_blocked.launches = 0
 chol_inv_blocked.launches_by_n = Counter()
 chol_inv_blocked.launches_by_batch = Counter()
+
+
+@torch.library.custom_op("zigp_tpu_torch::chol_inv_blocked", mutates_args=(),
+                         schema="(Tensor K) -> (Tensor, Tensor)")
+def chol_inv_blocked_op(K):
+    """``chol_inv_blocked`` as a registered op: one launch of the cluster
+    kernel (pair or row instance) on a CUDA tensor, the two-level plain
+    routine on a CPU one."""
+    return chol_inv_blocked(K)
+
+
+@chol_inv_blocked_op.register_fake
+def _chol_inv_blocked_fake(K):
+    return torch.empty_like(K), torch.empty_like(K)
 
 
 def chol_cuda(K: torch.Tensor, rank: int = 4) -> torch.Tensor:

@@ -11,6 +11,11 @@ Counterpart of ``zigp_tpu/ops/pallas/rbf_gram.py``:
   take raises.
 - ``rbf_gram_plain`` is the same arithmetic in torch, one input dimension at
   a time: acc += (x_d − z_d)² / ℓ_d², K = σ² exp(−acc / 2).
+- ``rbf_gram_op`` (``zigp_tpu_torch::rbf_gram``) is ``rbf_gram_cuda`` as a
+  registered ``torch.library`` custom op, with a fake implementation that
+  takes a symbolic N: the Function launches the kernel through it, so
+  ``torch.export`` records the launch and an exported program calls the
+  kernel (``io.export``).
 - ``rbf_gram`` is the ``torch.autograd.Function`` around them. Its backward
   reuses the saved K, as the JAX custom VJP does, but computes every
   distance gradient in difference form, with W = gK ⊙ K:
@@ -134,6 +139,19 @@ rbf_gram_cuda.launches = 0
 rbf_gram_cuda.launches_by_shape = Counter()
 
 
+@torch.library.custom_op("zigp_tpu_torch::rbf_gram", mutates_args=(),
+                         schema="(Tensor X, Tensor Z, Tensor ell, Tensor var) -> Tensor")
+def rbf_gram_op(X, Z, ell, var):
+    """``rbf_gram_cuda`` as a registered op: the kernel on CUDA tensors, the
+    plain version on CPU ones."""
+    return rbf_gram_cuda(X, Z, ell, var)
+
+
+@rbf_gram_op.register_fake
+def _rbf_gram_fake(X, Z, ell, var):
+    return X.new_empty((ell.shape[0], X.shape[-2], Z.shape[-2]))
+
+
 class _RBFGram(torch.autograd.Function):
     """The differentiable gram. Under ``torch.func.vmap`` (the batched
     member stack) the ``vmap`` rule folds the member dim into the kernels'
@@ -142,7 +160,7 @@ class _RBFGram(torch.autograd.Function):
 
     @staticmethod
     def forward(X, Z, ell, var):
-        return rbf_gram_cuda(X.detach(), Z.detach(), ell.detach().contiguous(), var.detach().contiguous())
+        return rbf_gram_op(X.detach(), Z.detach(), ell.detach().contiguous(), var.detach().contiguous())
 
     @staticmethod
     def setup_context(ctx, inputs, output):

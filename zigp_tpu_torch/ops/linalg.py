@@ -17,7 +17,7 @@ from typing import Sequence
 
 import torch
 
-from .cuda.chol_inv import BLOCKED_MAX_N, MAX_N, chol_inv_blocked, chol_inv_cuda
+from .cuda.chol_inv import BLOCKED_MAX_N, MAX_N, chol_inv_blocked_op, chol_inv_op
 
 
 def add_jitter(K: torch.Tensor, jitter: float, *, relative_f32: float = 2.0e-4) -> torch.Tensor:
@@ -57,12 +57,14 @@ def chol_inv_forward(K: torch.Tensor):
     forward only (no autograd). A matrix that is not positive definite
     gives NaN, as the JAX package's Cholesky does, and never raises or waits
     on the device: the kernels give NaN from the failing pivot on, the
-    library route the whole matrix."""
+    library route the whole matrix. The kernels are launched through their
+    registered ops (``chol_inv_op``, ``chol_inv_blocked_op``), which is what
+    ``torch.export`` records."""
     route = chol_inv_route(K.shape[-1], K.dtype, K.device.type)
     if route == "kernel":
-        return chol_inv_cuda(K.contiguous())
+        return chol_inv_op(K.contiguous())
     if route == "cluster":
-        return chol_inv_blocked(K.contiguous())
+        return chol_inv_blocked_op(K.contiguous())
     L, info = torch.linalg.cholesky_ex(K)
     L = torch.where((info == 0)[..., None, None], L, torch.nan)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
