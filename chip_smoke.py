@@ -223,7 +223,27 @@ so any failure exits non-zero):
    the classifier and the joint hurdle at 200 steps: every aggregate finite,
    ``rbf_gram.cu`` launched at D = 5 (the exogenous factor), the wall
    time.
-16. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
+16. The kernel zoo on the Kronecker path and the toy (``phase_zoo``,
+   ``phase_toy``), the gram kernel on: the flagship with a ``periodic*rbf``
+   temporal factor on both GPs (period 0.001, the zoo setting of
+   RESULTS.md) through ``train_onoff_pptr``, two blocks of 50 with exact
+   launches (``rbf_gram.cu`` for K_mm and K_mn of each RBF leaf), the
+   trained model's f32 loss and gradients against CPU float64 (phase 7's
+   gate), 10 graphed steps against 10 eager, 65,536 rows served through
+   ``predict_batched`` under phase 5's gate, then exported and served once
+   (every field within 1e-5 of ``predict_batched``); the 105 × 250 grid at
+   B = 8192 with a ``matern32`` temporal factor (the cluster kernel factors
+   its n = 250 gram), two blocks of 50 with exact launches; each path's
+   graphed steps/s against its RBF twin's (median of 3, in turns) and the
+   flagship's serving points/s against its twin's (median of 5). The toy on
+   a seeded synthetic ``toydata.mat``: the CPU float64 run of the command
+   line (``toy --cpu-x64``) started in its own process before the zoo; on
+   the card in float64 the initial ELBO and every gradient within 1e-10 of
+   CPU float64 and the ELBO at the first 50 L-BFGS iterates within 1e-6 of
+   the |ELBO| where they end; ``toy --dtype float64`` through
+   ``ZIGP_DATA_DIR`` and the float32 run, TOY_MAXITER iterations each, with
+   the CPU's: final ELBO, iterations, evaluations, wall time.
+17. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
    launches) (the kron_mv_2 rows with the serving path's
@@ -232,7 +252,8 @@ so any failure exits non-zero):
    ``rbf_gram`` rows; the command line's ``chol_inv.cu`` and cluster-kernel
    rows at each (G, n) of the exported programs' served calls and of its
    training, export and forecast runs, and its ``rbf_gram`` rows of the
-   served calls and at D = 5), then the card's name and power limit,
+   served calls and at D = 5; the zoo paths' ``chol_inv.cu``, cluster-kernel
+   and ``rbf_gram`` rows), then the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
 The script needs one CUDA device, the repository checkout around it, and
@@ -246,6 +267,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -477,27 +499,29 @@ def perturbed(model, seed: int):
     return model
 
 
-def phase_serving(ci, name, cfg, split, batch):
-    """Build on the card, drive predict_batched once with the launch counts
-    zeroed just before, check outputs, counts and the f32 gap to CPU f64."""
+def phase_serving(ci, name, cfg, split, batch, use_kernel=False):
+    """Build on the card (the gram kernel on with ``use_kernel``), drive
+    predict_batched once with the launch counts zeroed just before, check
+    outputs, counts and the f32 gap to CPU f64."""
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
     from zigp_tpu_torch.experiments.runners import predict_batched
 
     t0 = time.perf_counter()
-    model = perturbed(build_onoff_pptr(cfg, split, device=DEVICE, dtype=torch.float32), seed=1)
+    model = perturbed(build_onoff_pptr(cfg, split, device=DEVICE, dtype=torch.float32, use_kernel=use_kernel), seed=1)
     log(f"{name}: grid {cfg.grid.num_spatial}x{cfg.grid.num_temporal}, built in {time.perf_counter() - t0:.1f} s")
     X = np.asarray(split.Xtrain[:ROWS])
     chunks = math.ceil(X.shape[0] / batch)
     sizes = [Z.shape[0] for Z in model.f.Zs]
     per_chunk = {"chol_inv": sum(n <= ci.MAX_N for n in sizes),
-                 "chol_inv_blocked": sum(n > ci.MAX_N for n in sizes)}
+                 "chol_inv_blocked": sum(n > ci.MAX_N for n in sizes), "rbf_gram": per_step_launches(model)[0]}
 
     zero_counts()
     out = predict_batched(model.predict, X, batch=batch, device=DEVICE)
     counts = read_counts()
     by_n = {**counts["chol_inv_by_n"], **counts["chol_inv_blocked_by_n"]}
     log(f"{name}: {X.shape[0]} rows in {chunks} chunks of {batch}: chol_inv.cu launches {counts['chol_inv']}, "
-        f"chol_inv_cluster.cu launches {counts['chol_inv_blocked']} (expected {chunks} x {per_chunk}), by n {by_n}")
+        f"chol_inv_cluster.cu launches {counts['chol_inv_blocked']}, rbf_gram launches {counts['rbf_gram']} (expected "
+        f"{chunks} x {per_chunk}), by n {by_n}")
     for key, k in per_chunk.items():
         if counts[key] != chunks * k:
             raise AssertionError(f"{name}: {counts[key]} {key} launches, expected {chunks * k}")
@@ -626,13 +650,16 @@ def first_gp(model):
 def per_step_launches(model) -> tuple[int, int, int]:
     """(rbf_gram, chol_inv.cu, chol_inv_cluster.cu) launches of one training
     step or serving chunk, a stacked f/g pair or a single GP alike: K_mm and
-    K_mn per factor whose gram kernel is on; one chol_inv launch per factor,
+    K_mn per RBF leaf whose gram kernel is on (a factor's kernel alone, or
+    inside a composite of the zoo); one chol_inv launch per factor,
     chol_inv.cu to MAX_N and the cluster kernel above."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
+    from zigp_tpu_torch.ops.kernels import flag_leaves
 
     gp = first_gp(model)
     sizes = [Z.shape[0] for Z in gp.Zs]
-    return 2 * sum(gp.kernel_flags()), sum(n <= ci.MAX_N for n in sizes), sum(n > ci.MAX_N for n in sizes)
+    return (2 * sum(flag_leaves(gp.kernel_flags())), sum(n <= ci.MAX_N for n in sizes),
+            sum(n > ci.MAX_N for n in sizes))
 
 
 LAUNCH_KEYS = ("rbf_gram", "chol_inv", "chol_inv_blocked")  # per_step_launches' order
@@ -767,8 +794,11 @@ def phase_train(name, cfg, split, *, check=False):
 
 
 def set_gram_kernel(model, on: bool) -> None:
-    for gp in (model.f, model.g):
-        for k in gp.kernels:
+    """The gram-kernel flag of every RBF leaf of the model's kernels."""
+    from zigp_tpu_torch.ops.kernels import SquaredExponential
+
+    for k in model.modules():
+        if isinstance(k, SquaredExponential):
             k.use_kernel = on
 
 
@@ -2932,7 +2962,7 @@ def cli_live(kind, model, X) -> dict:
 def check_artifact(name, kind, model, served, X) -> dict:
     """One artifact against the restored model: served once on all rows with
     the counts zeroed just before (one launch per factor of chol_inv.cu, or
-    of the cluster kernel above MAX_N, and K_mm and K_mn of every factor by
+    of the cluster kernel above MAX_N, and K_mm and K_mn of every RBF leaf by
     rbf_gram.cu), finite; every field within the serving gate of the same
     model on the CPU in float64 on the first CHECK_ROWS rows, and within
     1e-5 of each field's largest value of ``predict_batched``'s on all rows;
@@ -2943,7 +2973,7 @@ def check_artifact(name, kind, model, served, X) -> dict:
 
     sizes = [Z.shape[0] for Z in first_gp(model).Zs]
     want = {"chol_inv_by_n": {n: 1 for n in sizes if n <= ci.MAX_N},
-            "chol_inv_blocked_by_n": {n: 1 for n in sizes if n > ci.MAX_N}, "rbf_gram": 2 * len(sizes)}
+            "chol_inv_blocked_by_n": {n: 1 for n in sizes if n > ci.MAX_N}, "rbf_gram": per_step_launches(model)[0]}
     calls = []
     for rows in (X, X[:CLI_SECOND_ROWS]):
         zero_counts()
@@ -3166,6 +3196,297 @@ def stacked_chol_rows(ci, path_counts: dict, card, label: str = "stack", min_G: 
     return rows
 
 
+# --- phase 16: the kernel zoo on the Kronecker path, and the toy -----------------
+
+ZOO_PERIOD = 0.001  # --kernel-period of the zoo setting that wins on the reference's protocol (RESULTS.md:299-315)
+ZOO_STEPS = 100  # two blocks of 50: one eager, one replay
+TOY_GATE_ITERS = 50
+# L-BFGS iterations of each full toy run, for the script's time: the default
+# 8000 (about 5,000 to convergence on the synthetic set) takes about 90 s on
+# an H100 in float64, at about 14 ms an evaluation
+TOY_MAXITER = 1000
+TOY_TIMEOUT = 300  # seconds for each toy run of the command line
+
+
+def zoo_cfg(base, family, **kw):
+    """``base`` with both GPs' temporal factors of ``family`` (a zoo name or
+    spec; the period ZOO_PERIOD where it has a periodic atom), the command
+    line's ``--kernel-temporal FAMILY [--kernel-period P]``."""
+    period = (ZOO_PERIOD,) if "periodic" in family else ()
+    zoo = lambda ki: dataclasses.replace(ki, family=family, period=period)
+    return dataclasses.replace(base, fk_temporal=zoo(base.fk_temporal), gk_temporal=zoo(base.gk_temporal), **kw)
+
+
+def graphed_block(cfg, model, X, Y):
+    """A block of 50 device-sampled steps of ``model`` captured after one
+    eager warm-up block on a side stream: (staged blocks, the block)."""
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, make_graphed_scan_step, make_scan_train_step
+    from zigp_tpu_torch.training.scan import StagedBlocks
+
+    opt = optimizer_for(model, cfg)
+    st = StagedBlocks(DataSet(X, Y), "device", cfg.batch_size, 50, device=DEVICE, dtype=torch.float32)
+    st.fill(0)
+    on_side_stream(lambda: make_scan_train_step(opt)(model, st.Xs, st.Ys))
+    return st, make_graphed_scan_step(opt, model, st.Xs, st.Ys)
+
+
+def time_twins(name, cases: dict, split, card) -> dict:
+    """Steps/s of each case's graphed block of 50 (cases: {label: (cfg,
+    model)}), one replay a pass, median of 3 passes in turns, host clock
+    around work that ends in a synchronise."""
+    runs = {label: graphed_block(cfg, model, split.Xtrain, split.Ytrain) for label, (cfg, model) in cases.items()}
+    rates = {label: [] for label in cases}
+    for rep in range(3):
+        for label in (list(cases) if rep % 2 == 0 else list(cases)[::-1]):
+            st, block = runs[label]
+            st.fill(1 + rep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = block()
+            torch.cuda.synchronize()
+            rates[label].append(50 / (time.perf_counter() - t0))
+            if not torch.isfinite(losses).all():
+                raise AssertionError(f"time {name} {label}: non-finite losses")
+    med = {label: float(np.median(r)) for label, r in rates.items()}
+    log(f"time training {name}: " + ", ".join(
+        f"{label} {med[label]:.1f} steps/s {[round(v, 1) for v in rates[label]]} (block graph: "
+        f"{runs[label][1].graph.describe()})" for label in cases) + f" (graphed blocks of 50, median of 3, in turns; "
+        f"{card})")
+    return med
+
+
+def time_serving_twins(name, models: dict, X, card) -> dict:
+    """predict_batched points/s of each model (its kept chunk graph, batch
+    4096), median of 5 passes in turns."""
+    from zigp_tpu_torch.experiments.runners import predict_batched
+
+    paths = {label: (lambda m=m: predict_batched(m.predict, X, batch=4096, device=DEVICE)) for label, m in
+             models.items()}
+    times = {label: [] for label in paths}
+    with torch.inference_mode():
+        for fn in paths.values():
+            fn()
+        for rep in range(5):
+            for label in (list(paths) if rep % 2 == 0 else list(paths)[::-1]):
+                t0 = time.perf_counter()
+                paths[label]()
+                times[label].append(time.perf_counter() - t0)
+    pts = {label: X.shape[0] / float(np.median(t)) for label, t in times.items()}
+    log(f"time serving {name}: " + ", ".join(f"{label} {v:.1f} points/s" for label, v in pts.items())
+        + f" ({X.shape[0]} rows at batch 4096, median of 5, in turns; {card})")
+    return pts
+
+
+def phase_zoo(ci, split, card) -> dict:
+    """The kernel zoo on the Kronecker path at full width, the gram kernel
+    on: the flagship with a ``periodic*rbf`` temporal factor (period 0.001)
+    trained through ``train_onoff_pptr`` (two blocks of 50, launches per step
+    exact, the trained model's f32 loss and gradients against CPU f64), 10
+    graphed steps against 10 eager, 65,536 rows served through
+    ``predict_batched`` under the serving gate, exported and served once
+    (every field within 1e-5 of ``predict_batched``), and its steps/s and
+    points/s against the RBF flagship; the 105 × 250 grid at B = 8192 with a
+    ``matern32`` temporal factor (the cluster kernel factors its n = 250
+    gram), two blocks of 50 with exact launches, steps/s against the RBF
+    grid. Returns the counts by path and the rates."""
+    import tempfile
+
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+    from zigp_tpu_torch.io.export import export_predictor, load_predictor
+
+    flag = OnOffPptrConfig()
+    zoo = zoo_cfg(flag, "periodic*rbf")
+    train = dict(num_iter=ZOO_STEPS, scan_inner=50, sampler="device", log_every=50)
+    counts = {"zoo flagship train": phase_train("flagship periodic*rbf", zoo_cfg(flag, "periodic*rbf", **train),
+                                                split, check=True)[1]}
+    graph_err = phase_graph_ab("flagship periodic*rbf", zoo, split)
+    model, X, by_n, _ = phase_serving(ci, "flagship periodic*rbf", zoo, split, 4096, use_kernel=True)
+    serve = {"chol_inv_by_n": by_n}
+    with tempfile.TemporaryDirectory() as d:
+        path = export_predictor(model, "onoff", X.shape[1], os.path.join(d, "zoo.zigp"))
+        counts["zoo flagship exported"] = check_artifact("flagship periodic*rbf", "onoff", model,
+                                                         load_predictor(path), X)
+    rbf_twin = perturbed(build_onoff_pptr(flag, split, device=DEVICE, use_kernel=True), seed=1)
+    rates = {"serving": time_serving_twins("flagship", {"periodic*rbf": model, "rbf": rbf_twin}, X, card)}
+    del model, rbf_twin
+
+    make = lambda cfg: (cfg, build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True))
+    rates["flagship"] = time_twins("flagship", {"periodic*rbf": make(zoo), "rbf": make(flag)}, split, card)
+    grid = scale_train_cfg()
+    counts["zoo grid train"] = phase_train("scale 105x250 B=8192 matern32", zoo_cfg(grid, "matern32", **train),
+                                           split)[1]
+    rates["grid"] = time_twins("scale 105x250 B=8192", {"matern32": make(zoo_cfg(grid, "matern32")),
+                                                        "rbf": make(grid)}, split, card)
+    for k, (a, b) in {"flagship": ("periodic*rbf", "rbf"), "grid": ("matern32", "rbf"),
+                      "serving": ("periodic*rbf", "rbf")}.items():
+        rates[k]["ratio"] = rates[k][a] / rates[k][b]
+    log(f"zoo: steps/s and points/s against the RBF twins {json.dumps(rates)}; graph A/B {graph_err:.3e}; {card}")
+    return {"counts": counts, "serve": serve, "rates": rates}
+
+
+def zoo_rows(ci, rg, zoo: dict, card) -> list:
+    """The kernels-line rows of the zoo paths: ``chol_inv.cu`` at each n
+    the zoo flagship launched it (training, serving, the exported call) and
+    the grid's n = 105, the cluster kernel at the grid's n = 250, and
+    ``rbf_gram`` at every shape the zoo training launched."""
+    counts = zoo["counts"]
+    by_n = {}
+    for c in [*counts.values(), zoo["serve"]]:
+        for n, k in c["chol_inv_by_n"].items():
+            by_n[n] = by_n.get(n, 0) + k
+    rows = []
+    for n, launches in sorted(by_n.items()):
+        ms, device_ms, plain_ms, lib_ms, err = time_chol_inv(ci, n)
+        b_ms, b_by = bound_ms(n, 2)
+        kname = f"chol_inv n={n} G=2 (zoo: flagship periodic*rbf, 105x250 matern32)"
+        log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg "
+            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}; "
+            f"{card}")
+        rows.append({"name": kname, "route": "cuda", "source": CHOL_INV_SOURCE, "replaces": CHOL_INV_REPLACES,
+                     "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    rows += blocked_rows(ci, counts["zoo grid train"]["chol_inv_blocked_by_n"], {}, card,
+                         path="zoo 105x250 matern32 training")
+    rows += gram_rows(rg, {name: c for name, c in counts.items() if name.endswith("train")}, card)
+    return rows
+
+
+def toy_cli(args, data_dir, **popen):
+    """``python -m zigp_tpu_torch.experiments toy ARGS`` from the checkout,
+    reading ``toydata.mat`` from ``data_dir`` (``ZIGP_DATA_DIR``)."""
+    env = {**os.environ, "ZIGP_DATA_DIR": data_dir, "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen([sys.executable, "-m", "zigp_tpu_torch.experiments", "toy", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, **popen)
+
+
+def toy_report(proc, what, t0) -> dict:
+    """The toy run's output read to its end: initial and final ELBO, L-BFGS
+    iterations and evaluations, the optimizer's and the run's seconds."""
+    try:
+        out, _ = proc.communicate(timeout=TOY_TIMEOUT)
+    finally:
+        proc.kill()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"toy {what}: exit {proc.returncode}: {out[-2000:]}")
+    lines = {line.split(":")[0]: line for line in out.splitlines() if ":" in line}
+    rep = {
+        "initial_elbo": float(lines["initial ELBO"].split(":")[1]),
+        "elbo": float(lines["final ELBO"].split(":")[1].split()[0]),
+        "nit": int(lines["L-BFGS-B"].split()[1]),
+        "nfev": int(lines["L-BFGS-B"].split()[3]),
+        "optimizer_s": float(lines["final ELBO"].rsplit("optimizer", 1)[1].split()[0]),
+        "wall_s": wall,
+    }
+    rep["ms_per_evaluation"] = 1e3 * rep["optimizer_s"] / rep["nfev"]
+    if not (np.isfinite(rep["elbo"]) and rep["elbo"] > rep["initial_elbo"]):
+        raise AssertionError(f"toy {what}: final ELBO {rep['elbo']} not above the initial {rep['initial_elbo']}")
+    log(f"toy {what}: {json.dumps(rep)}")
+    return rep
+
+
+def toy_loss_and_grads(model, X, Y):
+    raws = [p for _, p in model.named_parameters()]
+    loss = model.loss(X, Y)
+    grads = torch.autograd.grad(loss, raws)
+    return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads]).double().cpu().numpy()
+
+
+def elbo_path(model, X, Y, xs) -> np.ndarray:
+    """The ELBO at each of L-BFGS's iterates ``xs`` (flat raws in the
+    model's parameter order, as ``scipy_optimize`` flattens them)."""
+    raws = [p for _, p in model.named_parameters()]
+    out = []
+    with torch.no_grad():
+        for x in xs:
+            flat = torch.as_tensor(x, dtype=raws[0].dtype, device=raws[0].device)
+            for p, part in zip(raws, torch.split(flat, [p.numel() for p in raws])):
+                p.copy_(part.reshape(p.shape))
+            out.append(float(model.elbo(X, Y)))
+    return np.array(out)
+
+
+def start_toy_reference():
+    """A seeded synthetic toy-shaped set (``synthetic_toydata``) written as
+    ``toydata.mat`` to a new directory, and the CPU float64 reference run of
+    the command line on it (``toy --cpu-x64``, TOY_MAXITER iterations, one
+    thread) started in a
+    process of its own: (directory, process, start time)."""
+    import tempfile
+
+    from zigp_tpu_torch.io.datasets import save_toydata, synthetic_toydata
+
+    d = tempfile.mkdtemp(prefix="zigp_toy_")
+    save_toydata(*synthetic_toydata(seed=0), os.path.join(d, "toydata.mat"))
+    return d, toy_cli(["--cpu-x64", "--maxiter", str(TOY_MAXITER)], d), time.perf_counter()
+
+
+def phase_toy(card, data_dir, cpu_run, t_cpu) -> dict:
+    """The toy workflow on ``data_dir``'s ``toydata.mat`` (``start_toy_
+    reference``, whose CPU float64 run ``cpu_run`` is read last): on the
+    card in float64 the initial ELBO and every raw's gradient within
+    1e-10 relative of CPU float64, and the ELBO at each of the first
+    TOY_GATE_ITERS L-BFGS iterates within 1e-6 of the |ELBO| where they end
+    (the path crosses 0 on its way up); then ``python -m
+    zigp_tpu_torch.experiments toy --dtype float64 --maxiter TOY_MAXITER``
+    on the card through ``ZIGP_DATA_DIR``, and the float32 run in process;
+    final ELBO, iterations, evaluations and wall time of each."""
+    from zigp_tpu_torch.experiments.configs import ToyOnOffConfig
+    from zigp_tpu_torch.experiments.toy import build_toy_model, run_toy
+    from zigp_tpu_torch.io import datasets
+    from zigp_tpu_torch.training import scipy_optimize
+
+    x, y, _ = datasets.load_toydata(os.path.join(data_dir, "toydata.mat"))
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        m, _, _ = build_toy_model(None, x, y, device=dev, dtype=torch.float64)
+        X, Y = (torch.as_tensor(a, device=dev) for a in (x, y))
+        loss, grad = toy_loss_and_grads(m, X, Y)
+        xs = []
+        _, res = scipy_optimize(m, lambda mm: mm.loss(X, Y), maxiter=TOY_GATE_ITERS,
+                                options={"maxcor": ToyOnOffConfig().lbfgs_maxcor},
+                                callback=lambda xk: xs.append(np.array(xk)))
+        runs[dev] = (loss, grad, elbo_path(m, X, Y, xs), res.nit)
+    (l_card, g_card, e_card, nit_card), (l_cpu, g_cpu, e_cpu, nit_cpu) = runs[DEVICE], runs["cpu"]
+    e_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    e_grad = rel(g_card, g_cpu)
+    n = min(len(e_card), len(e_cpu))
+    # The ELBO crosses 0 on the way up (near iterate 35 on this set), where a
+    # per-iterate relative gap is meaningless: each iterate's gap is taken
+    # relative to the ELBO where the prefix ends.
+    gaps = np.abs(e_card[:n] - e_cpu[:n])
+    e_path = float(np.max(gaps) / abs(e_cpu[n - 1]))
+    log(f"toy gate (card f64 vs cpu f64): initial loss {e_loss:.3e}, gradient {e_grad:.3e} (tol 1e-10); ELBO at "
+        f"the first {n} L-BFGS iterates: largest gap {np.max(gaps):.3e} at iterate {int(np.argmax(gaps)) + 1}, "
+        f"{e_path:.3e} of the last iterate's |ELBO| (tol 1e-6), per iterate relative {np.max(gaps / np.abs(e_cpu[:n])):.3e} "
+        f"at most (at ELBO {e_cpu[int(np.argmax(gaps / np.abs(e_cpu[:n])))]:.4f}); iterations {nit_card} and "
+        f"{nit_cpu}, ELBO after them {e_card[n - 1]:.6f} and {e_cpu[n - 1]:.6f}")
+    if not (e_loss <= 1e-10 and e_grad <= 1e-10 and e_path <= 1e-6 and n == TOY_GATE_ITERS):
+        raise AssertionError(f"toy gate: card f64 off CPU f64 (loss {e_loss:.3e}, gradient {e_grad:.3e}, iterates "
+                             f"{e_path:.3e} over {n})")
+    t0 = time.perf_counter()
+    report = {"card f64": toy_report(toy_cli(["--dtype", "float64", "--maxiter", str(TOY_MAXITER)], data_dir),
+                                     "card f64 (command line)", t0)}
+    t0 = time.perf_counter()
+    data_dir_was, datasets.DEFAULT_DATA_DIR = datasets.DEFAULT_DATA_DIR, data_dir  # as ZIGP_DATA_DIR sets it
+    try:
+        f32 = run_toy(ToyOnOffConfig(maxiter=TOY_MAXITER), device=DEVICE, dtype=torch.float32,
+                      log_fn=lambda s: None)
+    finally:
+        datasets.DEFAULT_DATA_DIR = data_dir_was
+    res = f32["result"]
+    report["card f32"] = {"initial_elbo": f32["initial_elbo"], "elbo": f32["elbo"], "nit": res.nit, "nfev": res.nfev,
+                          "optimizer_s": f32["seconds"], "wall_s": time.perf_counter() - t0,
+                          "ms_per_evaluation": 1e3 * f32["seconds"] / res.nfev}
+    log(f"toy card f32 (in process): {json.dumps(report['card f32'])}")
+    report["cpu f64"] = toy_report(cpu_run, "cpu f64 (command line, one thread, from phase 16's start)", t_cpu)
+    log(f"toy: {json.dumps(report)}; {card}")
+    return report
+
+
 def memoize_inducing_init() -> None:
     """Memoize the builders' ``kron_inducing_init`` for this script: a pure
     function of the training rows, the grid and the seed (it seeds numpy
@@ -3297,6 +3618,16 @@ def main() -> int:
     mark("the stack's studies")
     cli_res = phase_cli(split, card)
     mark("the command line")
+    toy_dir, toy_cpu, t_toy = start_toy_reference()
+    try:
+        zoo = phase_zoo(ci, split, card)
+        mark("the kernel zoo")
+        toy = phase_toy(card, toy_dir, toy_cpu, t_toy)
+        mark("the toy")
+    finally:
+        toy_cpu.kill()
+        toy_cpu.wait()
+        shutil.rmtree(toy_dir, ignore_errors=True)
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
@@ -3332,6 +3663,7 @@ def main() -> int:
     kernels += gram_rows(rg, {f"stack {name}": counts for name, counts in stack_counts.items() if counts["rbf_gram"]},
                          card, stacked=True)
     kernels += cli_rows(ci, rg, cli_res, card)
+    kernels += zoo_rows(ci, rg, zoo, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
@@ -3339,6 +3671,7 @@ def main() -> int:
         f"graph A/B {json.dumps(trainer_ab)}; fold protocol {fold_wall:.1f} s; "
         f"member stacks {json.dumps(stack_rates)}; the stack's studies {json.dumps(studies['walls'])}; "
         f"the command line's artifacts points/s {json.dumps(cli_res['pts'])}, walls {json.dumps(cli_res['walls'])}; "
+        f"the zoo against the RBF twins {json.dumps(zoo['rates'])}; the toy {json.dumps(toy)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,13 +3,16 @@ CPU, against the JAX package's.
 
 - Parse parity: for each argv list both CLIs run with their runners replaced
   by recorders, and must call the same runner with configs equal field for
-  field (but for the kernel-zoo fields the port lacks) and the same splits.
+  field (the kernel zoo's family, period and alpha included) and the same
+  splits.
 - End to end with ``--device cpu --dtype float64`` on a pptr-shaped pickle
   (300 train rows, 10–20 steps, the mirror of ``tests/test_cli.py``):
   ``cvsplits``; ``onoff`` → ``classifier`` → ``svgp`` → ``hurdle`` → ``zi``;
   ``predict --samples 6``; ``export`` then ``load_predictor`` at two batch
   sizes against the restored model; ``hurdle --joint``; ``cv --split
-  forecast --covariates``; ``cv --batched``; ``ensemble``.
+  forecast --covariates``; ``cv --batched``; ``ensemble``; the kernel zoo's
+  flags (``--kernel-temporal 'periodic*rbf' --kernel-period``, ``cv
+  --kernel-spatial matern32``), each kernel built as the flags say.
 - Every guard rail and every "not ported" exit, each with its message, the
   latter before any data is read.
 """
@@ -85,6 +88,8 @@ PARITY_ARGV = [
     "cv --models classifier,hurdle,zi --kernel-trust 3 --q-cov kron --optimizer natgrad --natgrad-joint "
     "--preset reference-stable --solve-precision highest --indp-lr 0.003 --lr-schedule constant --grid 5x7",
     "hurdle --fold 2 --grid 5x7 --batch 32 --kernel-temporal rbf",
+    "onoff --kernel-temporal periodic*rbf --kernel-period 0.001 --kernel-trust 4",
+    "cv --models onoff,svgp,classifier --kernel-spatial matern32 --kernel-temporal rq+linear --kernel-period 0.5",
 ]
 
 
@@ -106,16 +111,12 @@ def _record(monkeypatch, package):
     return calls
 
 
-def _drop_zoo(d):
-    return {k: _drop_zoo(v) for k, v in d.items() if k not in ("period", "alpha")} if isinstance(d, dict) else d
-
-
 def _same(got, want, where):
     if dataclasses.is_dataclass(want) and not isinstance(want, type) and hasattr(want, "Xtrain"):
         for f in ("Xtrain", "Ytrain", "Xtest", "Ytest"):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=where)
     elif dataclasses.is_dataclass(want) and not isinstance(want, type):
-        assert _drop_zoo(dataclasses.asdict(got)) == _drop_zoo(dataclasses.asdict(want)), where
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), where
     elif isinstance(want, (list, tuple)) and want and hasattr(want[0], "Xtrain"):
         assert len(got) == len(want), where
         for i, (a, b) in enumerate(zip(got, want)):
@@ -276,6 +277,35 @@ def test_cv_batched_and_ensemble(synth_pptr, tmp_path):
          "--iters", "10", "--batch", "32", *SMALL)
 
 
+ZOO_RUNS = {
+    "onoff --kernel-temporal periodic*rbf --kernel-period 0.001": {("rbf", ()), ("periodic*rbf", (0.001,))},
+    "cv --models onoff --batched --kernel-spatial matern32": {("matern32", ()), ("rbf", ())},
+}
+
+
+@pytest.mark.parametrize("argv", list(ZOO_RUNS))
+def test_kernel_zoo_flags_train_end_to_end(argv, synth_pptr, tmp_path, monkeypatch):
+    """A few steps on the CPU with the zoo's flags: every kernel is built
+    from a config that carries the family and the period, and the run
+    writes its results."""
+    from zigp_tpu_torch.experiments import builders
+
+    built = set()
+    make_kernel = builders.make_kernel
+
+    def recorded(init, **kw):
+        built.add((init.family, tuple(init.period)))
+        return make_kernel(init, **kw)
+
+    monkeypatch.setattr(builders, "make_kernel", recorded)
+    wd = tmp_path / "zoo"
+    _run(*argv.split(), "--data", synth_pptr, "--workdir", str(wd), "--iters", "10", "--batch", "32", *SMALL)
+    assert built == ZOO_RUNS[argv]
+    result = wd / "1" / "results_onoff.pickle"
+    with open(result if result.exists() else wd / "cv_summary.json", "rb") as f:
+        assert f.read()
+
+
 # ---------------------------------------------------------------------------
 # guard rails and "not ported" exits
 # ---------------------------------------------------------------------------
@@ -300,15 +330,13 @@ def test_guard_rails(argv, synth_pptr, tmp_path):
 
 
 NOT_PORTED = {
-    "toy": "'toy' is not ported",
+    "toy --plot toy.png": "toy --plot is not ported",
     "selfcheck": "'selfcheck' is not ported",
     "onoff --mesh-data 2": "--mesh-data is not ported",
     "svgp --mesh-model 2": "--mesh-model is not ported",
     "cv --batched --mesh-members 2": "--mesh-members is not ported",
     "onoff --solve-precision high": "--solve-precision high is not ported",
     "cv --solve-precision mixed": "--solve-precision mixed is not ported",
-    "onoff --kernel-temporal periodic*rbf --kernel-period 0.001": "--kernel-temporal 'periodic\\*rbf' is not ported",
-    "cv --kernel-spatial matern32": "--kernel-spatial 'matern32' is not ported",
 }
 
 
@@ -316,7 +344,7 @@ NOT_PORTED = {
 def test_not_ported_exits_before_any_work(argv, tmp_path):
     """A data path that does not exist: reading it would raise
     FileNotFoundError, so the exit comes first."""
-    extra = [] if argv in ("toy", "selfcheck") else ["--data", str(tmp_path / "absent.pickle"), "--device", "cpu"]
+    extra = [] if argv.split()[0] in ("toy", "selfcheck") else ["--data", str(tmp_path / "absent.pickle"), "--device", "cpu"]
     with pytest.raises(SystemExit, match=NOT_PORTED[argv]):
         tcli.main(argv.split() + extra)
     assert not (tmp_path / "runs").exists()

@@ -761,6 +761,66 @@ def test_family_graphed_block_matches_eager_and_counts_its_launches(cuda, name):
     assert torch.isfinite(got).all() and err <= GRAPH_TOL
 
 
+@pytest.mark.parametrize("family, grams", [("periodic*rbf", 4), ("matern52+linear", 2)])
+def test_zoo_graphed_block_matches_eager_and_counts_its_launches(cuda, family, grams):
+    """The small on/off model with a zoo temporal factor on both GPs (the
+    gram kernel on its RBF leaves): 10 steps by one replay against 10 eager
+    steps on the same batches within GRAPH_TOL, rbf_gram launched for K_mm
+    and K_mn of each RBF leaf, chol_inv once a factor, every step."""
+    import copy
+    import dataclasses
+
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, make_graphed_scan_step, make_optimizer, make_scan_train_step
+    from zigp_tpu_torch.training import stage_batches
+
+    split = synthetic_pptr(12, 120, seed=0)
+    base = configs.OnOffPptrConfig(grid=configs.KronGridConfig(6, 20), batch_size=256)
+    zoo = lambda ki: dataclasses.replace(ki, family=family, period=(0.001,))
+    cfg = dataclasses.replace(base, fk_temporal=zoo(base.fk_temporal), gk_temporal=zoo(base.gk_temporal))
+    model = build_onoff_pptr(cfg, split, use_kernel=True)
+    twin = copy.deepcopy(model)
+    opt, topt = make_optimizer(model, default_lr=1e-2), make_optimizer(twin, default_lr=1e-2)
+    ds = DataSet(split.Xtrain, split.Ytrain, seed=3)
+    blocks = [stage_batches(ds, 256, 10, device=cuda, dtype=torch.float32) for _ in range(2)]
+    Xs, Ys = (b.clone() for b in blocks[0])
+    on_side_stream(lambda: make_scan_train_step(opt)(model, Xs, Ys))
+    make_scan_train_step(topt)(twin, Xs, Ys)
+    graphed = make_graphed_scan_step(opt, model, Xs, Ys)
+    Xs.copy_(blocks[1][0])
+    Ys.copy_(blocks[1][1])
+    g0, c0 = rg.rbf_gram_cuda.launches, ci.chol_inv_cuda.launches
+    got = graphed()
+    torch.cuda.synchronize()
+    assert (rg.rbf_gram_cuda.launches - g0, ci.chol_inv_cuda.launches - c0) == (10 * grams, 10 * 2)
+    want = make_scan_train_step(topt)(twin, *blocks[1])
+    err = _rel_max(got, want)
+    print(f"{family}: graphed vs eager, 10 steps: largest relative loss difference {err:.3e}")
+    assert torch.isfinite(got).all() and err <= GRAPH_TOL
+
+
+def test_toy_elbo_and_gradients_on_card_match_cpu_f64(cuda):
+    """The toy model on a synthetic toy-shaped set in float64: the card's
+    ELBO and every raw's gradient within 1e-10 relative of the CPU's."""
+    from zigp_tpu_torch.experiments.toy import build_toy_model
+    from zigp_tpu_torch.io.datasets import synthetic_toydata
+
+    x, y, _ = synthetic_toydata(seed=0)
+    out = {}
+    for dev in (cuda, "cpu"):
+        m, _, _ = build_toy_model(None, x, y, device=dev, dtype=torch.float64)
+        elbo = m.elbo(*(torch.as_tensor(a, device=dev) for a in (x, y)))
+        grads = torch.autograd.grad(elbo, list(m.parameters()))
+        out[str(dev)] = (float(elbo.detach()), torch.cat([g.reshape(-1) for g in grads]).cpu())
+    (e_card, g_card), (e_cpu, g_cpu) = out[str(cuda)], out["cpu"]
+    print(f"toy ELBO card {e_card!r}, cpu {e_cpu!r}")
+    assert abs(e_card - e_cpu) <= 1e-10 * abs(e_cpu)
+    assert _rel(g_card, g_cpu) <= 1e-10
+
+
 @pytest.mark.parametrize("name", ["svgp", "classifier", "hurdlej"])
 def test_family_serving_keeps_its_graph_across_calls(cuda, name):
     """Serving a family by its bound method captures once: a second call

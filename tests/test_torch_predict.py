@@ -277,13 +277,6 @@ def test_build_without_device_raises_without_cuda():
         predict_batched(lambda x: {"y": x}, split.Xtest[:4], batch=4)
 
 
-def test_unported_kernel_family_raises():
-    with pytest.raises(NotImplementedError):
-        tbuilders.make_kernel(tconfigs.KernelInit((1.0,), 1.0, family="matern32"))
-    with pytest.raises(NotImplementedError):
-        tbuilders.make_kernel(tconfigs.KernelInit((1.0,), 1.0, family="periodic*rbf"))
-
-
 def test_trust_bound_matches_jax():
     init_j = jconfigs.KernelInit((0.5, 2.0), 3.0, trust=4.0)
     init_t = tconfigs.KernelInit((0.5, 2.0), 3.0, trust=4.0)

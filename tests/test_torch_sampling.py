@@ -176,6 +176,22 @@ def test_svgp_f_samples_core_on_jax_draws(full_cov, family):
     assert drawn.shape == got.shape and torch.isfinite(drawn).all()
 
 
+def test_full_cov_samples_give_nan_on_an_indefinite_covariance(monkeypatch):
+    """The joint sampler's Cholesky of a covariance that is not positive
+    definite gives NaN, as JAX's does, and does not raise (it did)."""
+    _, tm, X = _pair("svgp")
+    predict_f = tm.gp.predict_f
+
+    def indefinite(Xnew, factor_state=None, *, full_cov=False):
+        mu, cov = predict_f(Xnew, factor_state, full_cov=full_cov)
+        return mu, -cov  # negative definite
+
+    monkeypatch.setattr(tm.gp, "predict_f", indefinite)
+    with torch.no_grad():
+        got = tm.predict_f_samples_from(_t(X), torch.ones(3, X.shape[0], dtype=torch.float64), full_cov=True)
+    assert torch.isnan(got).all()
+
+
 def test_onoff_y_samples_core_on_jax_draws():
     jm, tm, X = _pair("onoff")
     key, S = jax.random.PRNGKey(5), 6

@@ -1,13 +1,12 @@
 """Model builders wiring configs to models for the pptr experiments.
 
-Counterpart of ``zigp_tpu/experiments/builders.py:54-337``: the on/off
-model, the Kronecker SVGP regression (Gaussian, LogNormal and Gamma heads),
-the probit classifier and the jointly trained hurdle. Each builder takes
-``device`` (``None`` = the CUDA card), ``dtype`` and ``use_kernel``. The
-port has the RBF kernel only: any other family, or a composite
-"a*b" / "a+b" spec, raises ``NotImplementedError``. ``use_kernel=True``
-builds every factor's grams with the ``rbf_gram`` CUDA kernel (the JAX
-``use_pallas``).
+Counterpart of ``zigp_tpu/experiments/builders.py``: the kernel zoo's
+``make_kernel`` (a family name or an "a*b" / "a+b" spec), the on/off model,
+the Kronecker SVGP regression (Gaussian, LogNormal and Gamma heads), the
+probit classifier and the jointly trained hurdle. Each builder takes
+``device`` (``None`` = the CUDA card), ``dtype`` and ``use_kernel``.
+``use_kernel=True`` builds the grams of every RBF leaf, alone or inside a
+composite, with the ``rbf_gram`` CUDA kernel (the JAX ``use_pallas``).
 """
 
 from __future__ import annotations
@@ -23,26 +22,74 @@ from ..core.parameters import param
 from ..io.datasets import Split, kron_inducing_init
 from ..likelihoods import Bernoulli, Gamma, Gaussian, LogNormal, OnOffGaussian
 from ..models import KronHurdleSVGP, KronOnOffSVGP, KronSVGP
+from ..ops import kernels as kz
 from ..ops.kernels import RBF
 from .configs import ClassifierPptrConfig, HurdleJointConfig, KernelInit, OnOffPptrConfig, SvgpPptrConfig
 
-_RBF_NAMES = ("rbf", "se")
+
+def _rbf(init, lr, use_kernel):
+    return RBF.create(list(init.lengthscales), init.variance, lr=lr, use_kernel=use_kernel)
+
+
+_FAMILIES = {
+    "rbf": _rbf,
+    "se": _rbf,
+    "matern12": lambda init, lr, uk: kz.Matern.create(list(init.lengthscales), init.variance, nu="1/2", lr=lr),
+    "matern32": lambda init, lr, uk: kz.Matern.create(list(init.lengthscales), init.variance, nu="3/2", lr=lr),
+    "matern52": lambda init, lr, uk: kz.Matern.create(list(init.lengthscales), init.variance, nu="5/2", lr=lr),
+    "periodic": lambda init, lr, uk: kz.Periodic.create(
+        list(init.lengthscales), list(init.period) if init.period else [1.0] * len(init.lengthscales),
+        init.variance, lr=lr),
+    "rq": lambda init, lr, uk: kz.RationalQuadratic.create(
+        list(init.lengthscales), init.variance, alpha=init.alpha, lr=lr),
+    "linear": lambda init, lr, uk: kz.Linear.create([init.variance] * len(init.lengthscales), lr=lr),
+}
+
+
+def _bound_hypers(kernel, trust: float, *, lr=None):
+    """Rebuild a kernel atom's lengthscales and period Parameters with a
+    Sigmoid interval [init/trust, init·trust] (``KernelInit.trust``).
+    Variances stay unbounded: they set scale, not gram conditioning, and
+    the relative jitter absorbs them."""
+    if trust <= 1.0:
+        raise ValueError(f"trust must be > 1 (got {trust})")
+    for f in ("lengthscales", "period"):
+        p = getattr(kernel, f, None)
+        if p is None:
+            continue
+        v = p.value.detach().numpy().astype(np.float64)
+        setattr(kernel, f, param(v, bijectors.Sigmoid(v / trust, v * trust), lr=lr))
+    return kernel
 
 
 def make_kernel(init: KernelInit, *, lr=None, use_kernel: bool = False):
-    """The kernel named by ``init.family``; ``init.trust`` > 0 rebuilds the
-    lengthscales with a Sigmoid interval [init/trust, init·trust]."""
+    """The kernel named by ``init.family``: a zoo name or a composite
+    "a*b" / "a+b" spec (Product binds tighter than Sum; components share
+    the lengthscale/variance init). ``use_kernel`` reaches every RBF atom."""
     spec = (init.family or "rbf").strip().lower()
-    if spec not in _RBF_NAMES:
-        raise NotImplementedError(
-            f"kernel family {spec!r} is not ported yet; zigp_tpu_torch has {list(_RBF_NAMES)}"
-        )
-    k = RBF.create(list(init.lengthscales), init.variance, lr=lr, use_kernel=use_kernel)
-    if init.trust:
-        if init.trust <= 1.0:
-            raise ValueError(f"trust must be > 1 (got {init.trust})")
-        v = np.atleast_1d(np.asarray(init.lengthscales, dtype=np.float64))
-        k.lengthscales = param(v, bijectors.Sigmoid(v / init.trust, v * init.trust), lr=lr)
+
+    def atom(name):
+        name = name.strip()
+        if name not in _FAMILIES:
+            raise ValueError(
+                f"unknown kernel family {name!r}; choose from {sorted(_FAMILIES)} or join with '*' / '+'"
+            )
+        k = _FAMILIES[name](init, lr, use_kernel)
+        if init.trust:
+            k = _bound_hypers(k, float(init.trust), lr=lr)
+        return k
+
+    def product(term):
+        parts = term.split("*")
+        k = atom(parts[0])
+        for p in parts[1:]:
+            k = kz.Product.create(k, atom(p))
+        return k
+
+    terms = spec.split("+")
+    k = product(terms[0])
+    for t in terms[1:]:
+        k = kz.Sum.create(k, product(t))
     return k
 
 

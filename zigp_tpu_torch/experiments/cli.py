@@ -3,6 +3,7 @@
 Counterpart of ``zigp_tpu/experiments/cli.py``, with the same subcommands
 and flags:
 
+    python -m zigp_tpu_torch.experiments toy        [--maxiter 8000] [--cpu-x64]
     python -m zigp_tpu_torch.experiments cvsplits   [--out DIR]
     python -m zigp_tpu_torch.experiments onoff      --fold 1 [--iters N] [--workdir DIR]
     python -m zigp_tpu_torch.experiments svgp       --fold 1 ...
@@ -16,15 +17,17 @@ and flags:
 
 Two flags are the port's own: ``--device`` (default ``cuda``; the card,
 which must be present, or ``cpu``) and ``--dtype`` (default ``float32``),
-the counterparts of the JAX package's platform and x64 switches. On the card
-every factor gram is built by the ``rbf_gram`` kernel (the runners'
-``use_kernel``) and every factorization takes ``chol_inv``'s kernels.
+the counterparts of the JAX package's platform and x64 switches; ``toy
+--cpu-x64`` means ``--device cpu --dtype float64``. On the card the grams of
+every RBF kernel, alone or inside a composite of the kernel zoo, are built by
+the ``rbf_gram`` kernel (the runners' ``use_kernel``) and every
+factorization takes ``chol_inv``'s kernels. ``toy`` reads ``toydata.mat``
+from ``ZIGP_DATA_DIR``.
 
 What the port does not have stops the run with a "not ported" error before
-any work: ``toy`` and ``selfcheck``, ``--mesh-data``/``--mesh-model``/
-``--mesh-members`` > 0, ``--solve-precision high|mixed`` (left unported on
-purpose: ``highest`` is the port's only precision) and kernel families other
-than RBF.
+any work: ``selfcheck``, ``toy --plot``, ``--mesh-data``/``--mesh-model``/
+``--mesh-members`` > 0 and ``--solve-precision high|mixed`` (left unported
+on purpose: ``highest`` is the port's only precision).
 """
 
 from __future__ import annotations
@@ -40,23 +43,25 @@ DTYPES = ("float32", "float64")
 
 
 def _kernel_flag_kw(cfg, args) -> dict:
-    """Config-field replacements for --kernel-temporal/-spatial/-trust,
-    shared by the per-fold commands and ``cv``, applied to every variant
-    that has the corresponding KernelInit fields. (--kernel-period sets a
-    periodic family's period in the JAX CLI; the port refuses those families
-    before this.)"""
+    """Config-field replacements for --kernel-temporal/-spatial/-period/
+    -trust, shared by the per-fold commands and ``cv``, so a zoo spec (e.g.
+    ``periodic*rbf``) applies to every variant that has the corresponding
+    KernelInit fields."""
     kw = {}
     fam_t = getattr(args, "kernel_temporal", None)
     fam_s = getattr(args, "kernel_spatial", None)
+    period = getattr(args, "kernel_period", None)
     trust = getattr(args, "kernel_trust", None)
 
     def _ki(init, family):
         repl = {"family": family} if family else {}
+        if period is not None and "periodic" in (family or init.family):
+            repl["period"] = (period,) * len(init.lengthscales)
         if trust:
             repl["trust"] = trust
         return dataclasses.replace(init, **repl) if repl else init
 
-    if fam_t or trust:
+    if fam_t or period is not None or trust:
         for f in ("fk_temporal", "gk_temporal", "k_temporal"):
             if hasattr(cfg, f):
                 kw[f] = _ki(getattr(cfg, f), fam_t)
@@ -178,9 +183,12 @@ def _common(p):
     p.add_argument("--whiten", action="store_true", default=None, dest="whiten",
                    help="whitened variational parameterization")
     p.add_argument("--kernel-temporal", type=str, default=None, dest="kernel_temporal",
-                   help="temporal-factor kernel family (the port has rbf)")
+                   help="temporal-factor kernel family: rbf, matern12/32/52, "
+                        "periodic, rq, linear, or a composite like "
+                        "'periodic*rbf' ('*' binds tighter than '+')")
     p.add_argument("--kernel-spatial", type=str, default=None, dest="kernel_spatial",
-                   help="spatial-factor kernel family (the port has rbf)")
+                   help="spatial-factor kernel family (same choices as "
+                        "--kernel-temporal)")
     p.add_argument("--hyper-every", type=int, default=None, dest="hyper_every",
                    help="block-coordinate training: update the "
                         "hyperparameters once every K steps, q-only steps "
@@ -197,8 +205,7 @@ def _common(p):
                    help="bound every kernel's lengthscales to [init/R, "
                         "init*R] via a Sigmoid bijector; 0/unset = unbounded")
     p.add_argument("--kernel-period", type=float, default=None, dest="kernel_period",
-                   help="initial period for 'periodic' temporal kernels (not "
-                        "ported: the port has rbf)")
+                   help="initial period for 'periodic' temporal kernels")
     p.add_argument("--lr", type=float, default=None,
                    help="base learning rate (models with a single cfg.lr)")
     p.add_argument("--lr-schedule", type=str, default=None, dest="lr_schedule",
@@ -229,10 +236,13 @@ def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="zigp_tpu_torch.experiments")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p_toy = sub.add_parser("toy", help="toy 1-D on/off GP (not ported)")
+    p_toy = sub.add_parser("toy", help="toy 1-D on/off GP (notebook workflow)")
     p_toy.add_argument("--maxiter", type=int, default=8000)
-    p_toy.add_argument("--plot", type=str, default=None, help="save diagnostic plot here")
-    p_toy.add_argument("--cpu-x64", action="store_true", dest="cpu_x64")
+    p_toy.add_argument("--plot", type=str, default=None, help="save diagnostic plot here (not ported)")
+    p_toy.add_argument("--cpu-x64", action="store_true", dest="cpu_x64",
+                       help="run on the CPU in float64 (--device cpu --dtype float64), "
+                            "the reference notebook's own numeric regime")
+    _placement(p_toy)
 
     p_cv = sub.add_parser("cvsplits", help="write 5-fold CV splits")
     p_cv.add_argument("--out", type=str, default="runs/cv")
@@ -372,7 +382,7 @@ def _parser() -> argparse.ArgumentParser:
     p_cv.add_argument("--kernel-spatial", type=str, default=None, dest="kernel_spatial",
                       help="kernel family for the spatial factor(s)")
     p_cv.add_argument("--kernel-period", type=float, default=None, dest="kernel_period",
-                      help="period init for periodic components (not ported)")
+                      help="period init for periodic components")
     p_cv.add_argument("--kernel-trust", type=float, default=None, dest="kernel_trust",
                       help="bound kernel lengthscales to [init/R, init*R] "
                            "(Sigmoid bijector) for every variant")
@@ -403,9 +413,11 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Stop with a "not ported" error for what the port does not have,
     before any data is read or any model built."""
-    if args.cmd in ("toy", "selfcheck"):
-        raise SystemExit(f"error: '{args.cmd}' is not ported to zigp_tpu_torch yet "
-                         "(the toy model, and a card self-check beside chip_smoke.py)")
+    if args.cmd == "selfcheck":
+        raise SystemExit("error: 'selfcheck' is not ported to zigp_tpu_torch (chip_smoke.py gates the kernels "
+                         "on the card)")
+    if args.cmd == "toy" and args.plot:
+        raise SystemExit("error: toy --plot is not ported to zigp_tpu_torch yet (utils/plotting); drop the flag")
     for flag in ("mesh_data", "mesh_model", "mesh_members"):
         if (getattr(args, flag, None) or 0) > 0:
             raise SystemExit(f"error: --{flag.replace('_', '-')} is not ported to zigp_tpu_torch yet "
@@ -414,13 +426,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"error: --solve-precision {args.solve_precision} is not ported to zigp_tpu_torch "
                          "(left out on purpose: the card's reduced-precision products are TF32, coarser "
                          "than the TPU's 3-pass bf16); highest is the port's precision")
-    from .builders import _RBF_NAMES
-
-    for flag in ("kernel_temporal", "kernel_spatial"):
-        fam = getattr(args, flag, None)
-        if fam and fam.strip().lower() not in _RBF_NAMES:
-            raise SystemExit(f"error: --{flag.replace('_', '-')} {fam!r} is not ported to zigp_tpu_torch yet "
-                             f"(the port's kernel family is {list(_RBF_NAMES)})")
 
 
 def _placement_kw(args) -> dict:
@@ -435,6 +440,24 @@ def _placement_kw(args) -> dict:
     except RuntimeError:
         raise SystemExit("error: no CUDA device is available; pass --device cpu to run on the CPU") from None
     return dict(device=device, dtype=getattr(torch, args.dtype), use_kernel=device.type == "cuda")
+
+
+def _main_toy(args) -> int:
+    """The toy on ``toydata.mat`` from ``ZIGP_DATA_DIR``: a missing file ends
+    the run, with its path, before any work."""
+    if args.cpu_x64:
+        args.device, args.dtype = "cpu", "float64"
+    placed = _placement_kw(args)
+    from ..io import datasets
+
+    path = os.path.join(datasets.DEFAULT_DATA_DIR, "toydata.mat")
+    if not os.path.exists(path):
+        raise SystemExit(f"error: {path} not found — the toy reads toydata.mat from ZIGP_DATA_DIR")
+    from .configs import ToyOnOffConfig
+    from .toy import run_toy
+
+    run_toy(ToyOnOffConfig(maxiter=args.maxiter), device=placed["device"], dtype=placed["dtype"])
+    return 0
 
 
 def main(argv=None):
@@ -452,6 +475,9 @@ def main(argv=None):
                 pickle.dump({"Xtrain": s.Xtrain, "Ytrain": s.Ytrain, "Xtest": s.Xtest, "Ytest": s.Ytest}, f)
             print(f"fold {i}: train {s.Xtrain.shape} test {s.Xtest.shape} -> {d}")
         return 0
+
+    if args.cmd == "toy":
+        return _main_toy(args)
 
     placed = _placement_kw(args)
     if args.cmd == "cv":

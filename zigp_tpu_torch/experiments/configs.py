@@ -1,7 +1,7 @@
 """Typed experiment configs: plain copies of ``zigp_tpu/experiments/
 configs.py`` (``KronGridConfig``, ``KernelInit``, the on/off, SVGP,
 classifier and joint-hurdle configs, ``best_onoff_config``, the tuned
-configs and ``preset_configs``) with the JAX package's fields and defaults.
+configs, ``ToyOnOffConfig`` and ``preset_configs``) with the JAX package's fields and defaults.
 The mesh options the port does not have yet are kept so that a config that
 sets them fails loudly in ``experiments.runners._fit_auto``."""
 
@@ -27,12 +27,20 @@ class KronGridConfig:
 @dataclass
 class KernelInit:
     """Initial hyperparameters and family of one Kronecker kernel factor.
-    The port has the "rbf" family; ``trust`` > 0 bounds the lengthscales to
-    [init/trust, init·trust] by a Sigmoid bijector."""
+
+    ``family`` names a kernel of the zoo (``ops.kernels``): "rbf" (the
+    reference's), "matern12"/"matern32"/"matern52", "periodic", "rq",
+    "linear", or a composite joining those with "*" (Product) or "+" (Sum),
+    e.g. "periodic*rbf". Components share the ``lengthscales``/``variance``
+    init; "periodic" reads ``period``, "rq" reads ``alpha``. ``trust`` > 0
+    bounds each component's lengthscales and periods to [init/trust,
+    init·trust] by a Sigmoid bijector; 0 leaves them unbounded."""
 
     lengthscales: Tuple[float, ...]
     variance: float
     family: str = "rbf"
+    period: Tuple[float, ...] = ()
+    alpha: float = 1.0
     trust: float = 0.0
 
 
@@ -239,6 +247,25 @@ def tuned_classifier_config() -> ClassifierPptrConfig:
         grid=KronGridConfig(num_spatial=32, num_temporal=200),
         k_spatial=KernelInit((2.0, 2.0), 20.0),
     )
+
+
+@dataclass
+class ToyOnOffConfig:
+    """The notebook's toy config (cells 7-10): RBF ℓ = 2, σ²f = 1, σ²g = 5,
+    noise 0.01, M = 10, scipy L-BFGS-B with a history of 100 (scipy's
+    default 10 tracks this objective's curvature poorly)."""
+
+    num_inducing: int = 10
+    f_lengthscale: float = 2.0
+    f_variance: float = 1.0
+    g_lengthscale: float = 2.0
+    g_variance: float = 5.0
+    noise_variance: float = 0.01
+    jitter: float = 1e-6
+    optimizer: str = "lbfgs"  # "lbfgs" (the reference's, through gpflow) | "adam"
+    maxiter: int = 8000
+    lbfgs_maxcor: int = 100
+    seed: int = 0
 
 
 def preset_configs(preset: str) -> dict:

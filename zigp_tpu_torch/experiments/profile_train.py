@@ -1,11 +1,14 @@
 """Where the training step's time goes on the card: one profiled flagship
 block of scanned steps, eager and as one CUDA-graph replay.
 
-    python -m zigp_tpu_torch.experiments.profile_train [--steps 50]
+    python -m zigp_tpu_torch.experiments.profile_train [--steps 50] [--kernel-temporal periodic*rbf
+        --kernel-period 0.001]
 
 Counterpart of ``zigp_tpu/experiments/profile_step.py``. Builds the flagship
 (10 × 100 grid, B = 1000) on the CUDA device from the seeded pptr-shaped set,
-with the ``rbf_gram`` kernel on and off, and for each runs one warm-up block
+with the ``rbf_gram`` kernel on and off (``--kernel-temporal``: both GPs'
+temporal factors of that zoo family or spec, with ``--kernel-period``, the
+kernel on only), and for each runs one warm-up block
 of device-sampled steps on a side stream (the capture's warm-up), then, by
 each path (``eager``: the Python loop of steps; ``graphed``: the block
 captured once by ``training.make_graphed_scan_step`` and replayed), one timed
@@ -25,6 +28,7 @@ graph pool's size. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -40,8 +44,12 @@ from .configs import OnOffPptrConfig
 from .profile_predict import summarize
 
 
-def profile_train(steps: int = 50, *, use_kernel: bool = True, graphed: bool = True) -> dict:
+def profile_train(steps: int = 50, *, use_kernel: bool = True, graphed: bool = True, temporal: str = "rbf",
+                  period: float = 1.0) -> dict:
     cfg = OnOffPptrConfig()
+    if temporal != "rbf":
+        zoo = lambda ki: dataclasses.replace(ki, family=temporal, period=(period,))
+        cfg = dataclasses.replace(cfg, fk_temporal=zoo(cfg.fk_temporal), gk_temporal=zoo(cfg.gk_temporal))
     split = synthetic_pptr(105, 1080, seed=0)
     model = build_onoff_pptr(cfg, split, use_kernel=use_kernel)
     opt = make_optimizer(model, default_lr=cfg.indp_lr)
@@ -74,7 +82,8 @@ def profile_train(steps: int = 50, *, use_kernel: bool = True, graphed: bool = T
         wall_ms = (time.perf_counter() - t0) * 1e3
     own = [e for e in prof.key_averages() if "chol_inv_kernel" in e.key or "rbf_gram_kernel" in e.key]
     res = {
-        "config": "flagship" + ("" if use_kernel else ", gram kernel off"), "path": "graphed" if graphed else "eager",
+        "config": "flagship" + ("" if temporal == "rbf" else f", {temporal} temporal")
+                  + ("" if use_kernel else ", gram kernel off"), "path": "graphed" if graphed else "eager",
         "rows": steps * cfg.batch_size, "batch": cfg.batch_size, "steps": steps,
         "steps_per_s": steps / (wall_ms / 1e3), "final_loss": float(losses[-1]),
         **summarize(prof, wall_ms),
@@ -93,9 +102,15 @@ def profile_train(steps: int = 50, *, use_kernel: bool = True, graphed: bool = T
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--kernel-temporal", type=str, default="rbf", dest="kernel_temporal")
+    ap.add_argument("--kernel-period", type=float, default=1.0, dest="kernel_period")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
+    if args.kernel_temporal != "rbf":
+        for graphed in (False, True):
+            profile_train(args.steps, graphed=graphed, temporal=args.kernel_temporal, period=args.kernel_period)
+        return
     for use_kernel in (True, False):
         for graphed in (False, True):
             profile_train(args.steps, use_kernel=use_kernel, graphed=graphed)

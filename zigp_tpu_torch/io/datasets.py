@@ -1,7 +1,7 @@
 """Dataset plumbing for the pptr experiments (numpy and scipy only).
 
 Counterpart of ``zigp_tpu/io/datasets.py:22-286``: the ``Split`` record,
-``load_pptr``, the 5-fold ``make_cv_splits`` (a numpy KFold: the same folds
+``load_toydata``, ``load_pptr``, the 5-fold ``make_cv_splits`` (a numpy KFold: the same folds
 as scikit-learn's ``KFold(shuffle=True)``, which the card's machine does not
 have), the rolling-origin ``make_forecast_splits`` with its exogenous
 covariates ``augment_forecast_covariates`` (copies, array for array), and the
@@ -13,7 +13,8 @@ centres exactly for the same seed (scipy ``kmeans`` under
 stations over Finland, hourly points, about 90 % exact zeros) made from a
 seed, for runs where ``pptr.pickle`` is not at hand; ``save_pptr`` writes a
 split in ``load_pptr``'s format, so the command line can read it
-(``--data``).
+(``--data``). ``synthetic_toydata`` and ``save_toydata`` do the same for
+``toydata.mat``, which the toy reads from ``ZIGP_DATA_DIR``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,16 @@ class Split:
     Ytrain: np.ndarray
     Xtest: np.ndarray
     Ytest: np.ndarray
+
+
+def load_toydata(path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x, y, f) each (450, 1) float64 from the toy 1-D on/off dataset,
+    ``toydata.mat`` under ``ZIGP_DATA_DIR`` unless ``path`` is given."""
+    from scipy.io import loadmat
+
+    path = path or os.path.join(DEFAULT_DATA_DIR, "toydata.mat")
+    m = loadmat(path)
+    return m["x"], m["y"], m["f"]
 
 
 def load_pptr(path: Optional[str] = None) -> Split:
@@ -247,6 +258,28 @@ def synthetic_pptr(n_stations: int = 105, n_hours: int = 1080, *, seed: int = 0)
     n_test = int(round(0.2 * X.shape[0]))
     te, tr = perm[:n_test], perm[n_test:]
     return Split(X[tr], Y[tr], X[te], Y[te])
+
+
+def synthetic_toydata(n: int = 450, *, seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x, y, f), each (n, 1) float64, shaped like ``toydata.mat`` and made
+    from ``seed``: x sorted uniform on [0, 10], a smooth signal f, and y =
+    f + N(0, 0.1²) where a smooth support function is positive, exactly 0
+    elsewhere (about half the points)."""
+    rng = np.random.RandomState(seed)
+    x = np.sort(rng.uniform(0.0, 10.0, n))[:, None]
+    f = 2.0 * np.sin(1.3 * x) + 0.5 * x / 10.0
+    on = np.sin(0.7 * x + 0.4) + 0.3 * np.cos(2.1 * x) > 0.0
+    y = np.where(on, f + 0.1 * rng.randn(n, 1), 0.0)
+    return x, y, f
+
+
+def save_toydata(x: np.ndarray, y: np.ndarray, f: np.ndarray, path: str) -> str:
+    """Write (x, y, f) as ``load_toydata`` reads it (a MATLAB file with
+    variables x, y, f). Returns ``path``."""
+    from scipy.io import savemat
+
+    savemat(path, {"x": x, "y": y, "f": f})
+    return path
 
 
 def kron_inducing_init(

@@ -8,7 +8,8 @@ from .kron import (
     KronSVGP,
     LatentPrediction,
 )
-from .onoff import OnOffPrediction, gated_y_from, gated_y_samples
+from .onoff import OnOffPrediction, OnOffSVGP, gated_y_from, gated_y_samples
+from .svgp import SVGP
 
 __all__ = [
     "ClassPrediction",
@@ -19,6 +20,8 @@ __all__ = [
     "KronSVGP",
     "LatentPrediction",
     "OnOffPrediction",
+    "OnOffSVGP",
+    "SVGP",
     "gated_y_from",
     "gated_y_samples",
     "hurdle_combine",

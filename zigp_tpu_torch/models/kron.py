@@ -56,7 +56,7 @@ def gen_input_masks(Zs: Sequence[np.ndarray]) -> Tuple[Tuple[int, ...], ...]:
 class GPValues(NamedTuple):
     """One GP's constrained values (or a stack of several, leading dim G)."""
 
-    kernels: tuple  # RBFValues per factor
+    kernels: tuple  # per factor, the kernel's values (``ops.kernels``)
     Zs: tuple
     q_mu: torch.Tensor
     q_sqrt: torch.Tensor
@@ -71,6 +71,8 @@ def _stack(items):
         return None
     if isinstance(first, torch.Tensor):
         return torch.stack(items)
+    if not isinstance(first, tuple):
+        return first  # a static field (Matérn's nu2, an active dim), shared by the stack
     parts = [_stack(list(x)) for x in zip(*items)]
     return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
 
@@ -138,14 +140,19 @@ class KronGP(nn.Module):
     def masks(self):
         return [getattr(self, f"mask{p}") for p in range(len(self.input_masks))]
 
-    def kernel_flags(self) -> Tuple[bool, ...]:
-        """Per factor, whether its grams come from ``ops.cuda.rbf_gram``."""
-        return tuple(k.use_kernel for k in self.kernels)
+    def kernel_flags(self) -> tuple:
+        """Per factor, whether its grams come from ``ops.cuda.rbf_gram``: a
+        bool for an RBF, a pair of flags for a composite (``ops.kernels``)."""
+        return tuple(k.kernel_flags() for k in self.kernels)
 
     def signature(self):
-        """What must match for two GPs to run as one stacked pass."""
+        """What must match for two GPs to run as one stacked pass: the
+        parameter shapes, and each factor kernel's family tree with its
+        static fields (Matérn's ν, ``active_dims``, each RBF leaf's flag),
+        which the JAX package's tree structures carry."""
         shapes = tuple((n, tuple(p.shape)) for n, p in self.named_parameters())
-        return shapes, self.input_masks, self.jitter, self.whiten, self.kernel_flags()
+        kernels = tuple(k.signature() for k in self.kernels)
+        return shapes, self.input_masks, self.jitter, self.whiten, kernels
 
     def jitter_for(self, dtype: torch.dtype) -> float:
         """The absolute jitter added to a gram of ``dtype``: the model's own,
@@ -226,7 +233,7 @@ class KronGP(nn.Module):
         covariance with ``full_cov``, else (S, B, 1) per-point marginals."""
         if full_cov:
             mu, cov = self.predict_f(Xnew, full_cov=True)
-            Lc = torch.linalg.cholesky(linalg.add_jitter(cov[:, :, 0], self.jitter_for(cov.dtype)))
+            Lc = linalg.cholesky(linalg.add_jitter(cov[:, :, 0], self.jitter_for(cov.dtype)))
             return (mu[:, 0][None] + eps @ Lc.transpose(-1, -2))[:, :, None]
         mu, var = self.predict_f(Xnew)
         return mu[None] + torch.sqrt(torch.clamp(var, min=0.0))[None] * eps

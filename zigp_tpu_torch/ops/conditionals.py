@@ -1,6 +1,12 @@
-"""The Kronecker-structured sparse predictive conditional q(f*) = ∫ p(f*|u) q(u) du.
+"""Sparse-GP predictive conditionals q(f*) = ∫ p(f*|u) q(u) du: the dense
+single-GP ``conditional`` and the Kronecker-structured ``kron_conditional``.
 
-Counterpart of ``zigp_tpu/ops/conditionals.py:96-267`` (``kron_conditional``
+``conditional`` is the counterpart of ``zigp_tpu/ops/conditionals.py:30-93``
+(the dense models' path: one M × M gram, the library Cholesky and triangular
+solves, as XLA's there).
+
+The Kronecker path is the counterpart of
+``zigp_tpu/ops/conditionals.py:96-267`` (``kron_conditional``
 with marginal variances or, ``full_cov=True``, the joint (B, B) covariance,
 and ``_factored_contract`` and its pairwise ``_factored_contract_pair``). The
 inducing grid is Z = ⊗_p Z_p; nothing of size (Π M_p)² is formed:
@@ -24,6 +30,50 @@ import torch
 from . import linalg
 
 
+def conditional(
+    Xnew: torch.Tensor,
+    Z: torch.Tensor,
+    kernel,
+    f: torch.Tensor,
+    *,
+    full_cov: bool = False,
+    q_sqrt: Optional[torch.Tensor] = None,
+    whiten: bool = False,
+    jitter: float = 1e-6,
+):
+    """Single-GP sparse conditional. Xnew (N, D), Z (M, D), ``kernel`` any
+    kernel module of ``ops.kernels``, f (M, L) the inducing (whitened)
+    means, q_sqrt None, (M, L) diagonal or (M, M, L) lower-triangular.
+    Returns the mean (N, L) and the variance (N, L), or with ``full_cov``
+    the covariance (N, N, L)."""
+    Kmn = kernel.K(Z, Xnew)  # (M, N)
+    Kmm = linalg.add_jitter(kernel.K(Z), jitter)
+    Lm = linalg.cholesky(Kmm)
+    A = linalg.tri_solve(Lm, Kmn, lower=True)  # (M, N)
+    if full_cov:
+        fvar = kernel.K(Xnew) - A.transpose(-1, -2) @ A  # (N, N)
+    else:
+        fvar = kernel.Kdiag(Xnew) - torch.sum(torch.square(A), dim=0)  # (N,)
+    if not whiten:
+        A = linalg.tri_solve(Lm.transpose(-1, -2), A, lower=False)
+    fmean = A.transpose(-1, -2) @ f  # (N, L)
+    fvar = fvar[None].expand(f.shape[1], *fvar.shape)  # (L, N, N) or (L, N)
+    if q_sqrt is not None:
+        if q_sqrt.ndim == 2:
+            LTA = A[None] * q_sqrt.transpose(0, 1)[:, :, None]  # (L, M, N)
+        elif q_sqrt.ndim == 3:
+            Lq = torch.tril(q_sqrt.permute(2, 0, 1))  # (L, M, M)
+            LTA = Lq.transpose(-1, -2) @ A  # Lqᵀ A per latent
+        else:
+            raise ValueError(f"Bad q_sqrt ndim: {q_sqrt.ndim}")
+        if full_cov:
+            fvar = fvar + LTA.transpose(-1, -2) @ LTA
+        else:
+            fvar = fvar + torch.sum(torch.square(LTA), dim=1)
+    fvar = fvar.permute(1, 2, 0) if full_cov else fvar.transpose(0, 1)
+    return fmean, fvar
+
+
 def kron_conditional(
     Xnew: torch.Tensor,
     kernels: Sequence,
@@ -43,15 +93,16 @@ def kron_conditional(
     """Marginal predictive mean and variance, each (G, B, 1), or with
     ``full_cov`` the mean and the joint covariance (G, B, B, 1).
 
-    kernels[p]: an ``RBFValues`` with lengthscales (G, d_p), variance (G,);
+    kernels[p]: a kernel's values (``ops.kernels``), each tensor with the
+    leading G, e.g. ``RBFValues`` with lengthscales (G, d_p), variance (G,);
     Zs[p]: (G, M_p, d_p); q_mu, q_sqrt_diag: (G, M, 1) with M = Π M_p in
     row-major factor order; q_sqrt_factors[p]: (G, M_p, M_p) lower factors of
     S = ⊗ C_p C_pᵀ, or None for the diagonal family; input_masks[p]: the
     columns of Xnew for factor p (index tensor or sequence of ints);
     factor_state: precomputed (Ls, Linvs) of the jittered factor grams;
-    use_kernel[p]: build factor p's grams with ``ops.cuda.rbf_gram`` (all off
-    when empty). ``whiten`` reads (q_mu, q_sqrt) as the whitened v with
-    u = (⊗ L_p) v.
+    use_kernel[p]: factor p's ``kernel_flags()`` (an RBF leaf's grams by
+    ``ops.cuda.rbf_gram`` where its flag is on; all off when empty).
+    ``whiten`` reads (q_mu, q_sqrt) as the whitened v with u = (⊗ L_p) v.
 
     ``full_cov``: every term is a Hadamard product of per-factor (B, B)
     grams (Kmnᵀ(⊗K⁻¹)Kmn = ⊙_p V_pᵀV_p, PᵀSP = ⊙_p (C_pᵀP_p)ᵀ(C_pᵀP_p) for

@@ -30,7 +30,7 @@ def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor, K: Optional[torch.Tensor]
     if white:
         alpha = q_mu
     else:
-        Lp = torch.linalg.cholesky(K)
+        Lp = linalg.cholesky(K)
         alpha = torch.linalg.solve_triangular(Lp, q_mu, upper=False)
 
     if q_sqrt.ndim == 3:

@@ -36,6 +36,21 @@ def add_jitter(K: torch.Tensor, jitter: float, *, relative_f32: float = 2.0e-4) 
     return K + jitter * eye
 
 
+def cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular Cholesky factor of (..., n, n) ``K``
+    (``zigp_tpu/ops/linalg.py:51-53``, XLA's library Cholesky there, the
+    library's here). A matrix that is not positive definite gives a factor
+    of NaN, as the JAX package's does: a ``torch.where`` on the device-side
+    ``info``, with no host sync and no raise."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def tri_solve(L: torch.Tensor, b: torch.Tensor, *, lower: bool = True) -> torch.Tensor:
+    """x with L x = b for triangular L (``zigp_tpu/ops/linalg.py:252``)."""
+    return torch.linalg.solve_triangular(L, b, upper=not lower)
+
+
 def chol_inv_route(n: int, dtype: torch.dtype, device_type: str) -> str:
     """Which implementation ``chol_inv`` takes (``zigp_tpu/ops/linalg.py:
     138-151``): float32 on the card goes to the CUDA kernel for n ≤ ``MAX_N``
@@ -65,8 +80,7 @@ def chol_inv_forward(K: torch.Tensor):
         return chol_inv_op(K.contiguous())
     if route == "cluster":
         return chol_inv_blocked_op(K.contiguous())
-    L, info = torch.linalg.cholesky_ex(K)
-    L = torch.where((info == 0)[..., None, None], L, torch.nan)
+    L = cholesky(K)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 

@@ -37,6 +37,7 @@ from .scan import (
     make_scan_train_step,
     stage_batches,
 )
+from .scipy_opt import scipy_optimize
 
 __all__ = [
     "AdamPair",
@@ -70,6 +71,7 @@ __all__ = [
     "over_members",
     "partition_model",
     "predict_batched_stacked",
+    "scipy_optimize",
     "stack_models",
     "stack_size",
     "stage_batches",
