@@ -243,7 +243,33 @@ so any failure exits non-zero):
    the |ELBO| where they end; ``toy --dtype float64`` through
    ``ZIGP_DATA_DIR`` and the float32 run, TOY_MAXITER iterations each, with
    the CPU's: final ELBO, iterations, evaluations, wall time.
-17. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
+17. The parallel layer (``zigp_tpu_torch.parallel``; ``phase_parallel``).
+   The flagship through ``train_onoff_pptr`` with ``mesh_data=1`` on a
+   one-rank NCCL process group in process (a FileStore in a temporary
+   directory), 150 steps: the warm-up block, then two replays with the
+   gradient's and the losses' all-reduces inside the graph; losses and raws
+   bit-identical to the no-mesh graphed run, ``chol_inv.cu`` and
+   ``rbf_gram.cu`` launches per step equal to its; steps/s against no mesh
+   (median of 3, in turns). Two gloo ranks on ``cuda:0``, spawned (NCCL
+   refuses two ranks on one GPU, and gloo's collectives cannot be
+   captured, so these blocks run eagerly): the flagship data parallel 2
+   (the first step's loss and gradient within 1e-5 relative of the
+   one-rank card run; the gap after 100 steps and the steps/s reported),
+   tensor parallel 1 × 2 (each rank's bytes of the row-sharded raws' owned
+   copies and of their two moments half of one rank's; the first step
+   within 1e-5), and the member mesh over the flagship F = 5 stack, padded
+   to 6, graphed on each rank (each member's raws after two blocks within
+   max(3 × the one-rank stack's distance from the members' sequential
+   runs, 1e-4) of the one-rank stack, phase 14's stack gate; each rank's
+   launches one member's steps':
+   one folded launch a factor; fold-steps/s against the one-rank stack),
+   every rank's launches counted exactly. Beside them (started first: its
+   host scoring overlaps them) ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1 -m zigp_tpu_torch.experiments onoff
+   --mesh-data 1 --iters 100`` with a workdir on the rain field's pickle:
+   exit 0, rank 0's results written and finite. Every process started is
+   stopped and every process group made is destroyed.
+18. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
    launches) (the kron_mv_2 rows with the serving path's
@@ -253,7 +279,9 @@ so any failure exits non-zero):
    rows at each (G, n) of the exported programs' served calls and of its
    training, export and forecast runs, and its ``rbf_gram`` rows of the
    served calls and at D = 5; the zoo paths' ``chol_inv.cu``, cluster-kernel
-   and ``rbf_gram`` rows), then the card's name and power limit,
+   and ``rbf_gram`` rows; the parallel layer's ``chol_inv.cu`` and
+   ``rbf_gram.cu`` rows at each rank's shapes with rank 0's launches), then
+   the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
 The script needs one CUDA device, the repository checkout around it, and
@@ -3487,6 +3515,375 @@ def phase_toy(card, data_dir, cpu_run, t_cpu) -> dict:
     return report
 
 
+# --- phase 17: the parallel layer: a one-rank NCCL mesh, two gloo ranks on the card, torchrun ------
+
+PAR_INNER = 50
+PAR_NCCL_STEPS = 150  # one eager warm-up block, then two replays with the all-reduce inside the graph
+PAR_GLOO_STEPS = 100  # two blocks of 50 on each gloo rank
+PAR_GATE = 1e-5  # the first step's loss and gradient against the one-rank card run, relative
+PAR_MEMBER_GATE = 1e-4  # the floor of the member mesh's gate against the one-rank stack (phase 14's stack gate's)
+PAR_TIMEOUT = 600  # seconds for the spawned gloo ranks and for the torchrun launch
+
+
+def par_cfg(steps, **kw):
+    """The flagship on the device sampler in blocks of PAR_INNER."""
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+
+    return dataclasses.replace(OnOffPptrConfig(), num_iter=steps, scan_inner=PAR_INNER, sampler="device",
+                               log_every=PAR_INNER, **kw)
+
+
+def phase_nccl_mesh(split, card) -> dict:
+    """The flagship through ``train_onoff_pptr`` with ``mesh_data=1`` on a
+    one-rank NCCL process group (a FileStore in a temporary directory),
+    against the same run with no mesh, each from a copy of one model:
+    PAR_NCCL_STEPS steps, every block after the warm-up one replay with the
+    gradient's and the losses' all-reduces captured in it. Gates: losses
+    and raws bit-identical (a one-rank all-reduce leaves its buffer as it
+    was, and the loss share is the loss over 1), the ``rbf_gram.cu`` and
+    ``chol_inv.cu`` launches per step the no-mesh run's, exactly. Time:
+    steps/s of the two replays (``FitResult.steps_per_sec``), median of 3
+    runs each, in turns. The process group is destroyed at the end."""
+    import tempfile
+
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.experiments.runners import train_onoff_pptr
+    from zigp_tpu_torch.parallel.distributed import initialize, shutdown
+
+    base = build_onoff_pptr(par_cfg(PAR_NCCL_STEPS), split, device=DEVICE, use_kernel=True)
+    per_step = per_step_launches(base)
+    runs = {"plain": [], "mesh": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        if not initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, backend="nccl"):
+            raise AssertionError("nccl mesh: the process group did not start")
+        try:
+            for rep in range(3):
+                for path in (("plain", "mesh") if rep % 2 == 0 else ("mesh", "plain")):
+                    logs = []
+                    cfg = par_cfg(PAR_NCCL_STEPS, mesh_data=1 if path == "mesh" else 0)
+                    zero_counts()
+                    res = train_onoff_pptr(cfg, split, model=copy.deepcopy(base), log_fn=logs.append)
+                    torch.cuda.synchronize()
+                    runs[path].append((res, read_counts(), logs))
+        finally:
+            shutdown()
+    (mesh, mesh_counts, mesh_logs), (plain, plain_counts, _) = runs["mesh"][0], runs["plain"][0]
+    if "mesh: 1-way data parallel" not in mesh_logs or not any(f"block graph of {PAR_INNER} steps" in line
+                                                               for line in mesh_logs):
+        raise AssertionError(f"nccl mesh: not a graphed mesh run: {mesh_logs}")
+    for path, (res, counts, _) in (("mesh", runs["mesh"][0]), ("no mesh", runs["plain"][0])):
+        check_launches(f"nccl mesh, {path}", counts, res.step_losses.numel(), per_step)
+    same_raws = all(torch.equal(a, b) for a, b in zip(mesh.model.parameters(), plain.model.parameters()))
+    if not (torch.equal(mesh.step_losses, plain.step_losses) and same_raws):
+        raise AssertionError(f"nccl mesh: the one-rank mesh left the no-mesh run: losses "
+                             f"{rel(mesh.step_losses.numpy(), plain.step_losses.numpy()):.3e}")
+    rates = {path: [r[0].steps_per_sec for r in rs] for path, rs in runs.items()}
+    rate = {path: float(np.median(v)) for path, v in rates.items()}
+    log(f"nccl mesh: the flagship through train_onoff_pptr, mesh_data=1 on a one-rank NCCL group, "
+        f"{PAR_NCCL_STEPS} steps (blocks of {PAR_INNER}, two replays with the all-reduces in the graph): losses and "
+        f"raws bit-identical to the no-mesh graphed run; launches {counted_by_kernel(mesh_counts)} = the no-mesh "
+        f"run's; steps/s of the replays {rate['mesh']:.1f} {[round(v, 1) for v in rates['mesh']]} against "
+        f"{rate['plain']:.1f} {[round(v, 1) for v in rates['plain']]} with no mesh ({rate['mesh'] / rate['plain']:.3f}"
+        f"x; median of 3 runs each, in turns); {card}")
+    return {"steps_per_s": rate, "counts": mesh_counts}
+
+
+def first_step(model, X, Y, mesh=None, tp=False):
+    """One step's loss and gradient (every trainable raw's, in the model's
+    order, as a vector) from ``model`` on the batch (X, Y): on a mesh this
+    rank's share on its rows, the gradient summed over the data group (and
+    under ``tp`` the optimizer placed first). Returns (loss, gradient,
+    optimizer)."""
+    from zigp_tpu_torch.parallel import replicate, tp_place
+    from zigp_tpu_torch.parallel.mesh import row_block
+    from zigp_tpu_torch.parallel.step import reduce_gradients, sharded_loss
+    from zigp_tpu_torch.training import make_optimizer
+
+    opt = make_optimizer(model, default_lr=1e-2)
+    loss = lambda m, X, Y: m.loss(X, Y)  # noqa: E731
+    if mesh is not None:
+        if tp:
+            opt = tp_place(mesh, model, opt)
+        else:
+            replicate(mesh, model)
+        rows = row_block(mesh, X.shape[0])
+        X, Y, loss = X[rows], Y[rows], sharded_loss(None, mesh)
+    opt.zero_grad()
+    value = loss(model, X, Y)
+    value.backward()
+    value = value.detach()
+    if mesh is not None:
+        reduce_gradients(opt, mesh)
+        mesh.all_reduce_data(value)
+    grad = torch.cat([p.grad.reshape(-1) for p in model.parameters() if p.requires_grad])
+    return float(value), grad.double().cpu().numpy(), opt
+
+
+def parallel_rank(rank, world, store, job, out):
+    """One of the gloo ranks on ``cuda:0`` (spawned): the data-parallel and
+    the tensor-parallel flagship (the first step's loss and gradient, the
+    row-sharded state's bytes, PAR_GLOO_STEPS steps through
+    ``train_onoff_pptr``, eager: gloo's collectives cannot be captured) and
+    the member mesh (``fit_batched_scanned`` of the F = 5 stack, graphed on
+    each rank), each run's launches counted on this rank; the findings
+    pickled to ``out/par.{rank}.pkl``, or the traceback."""
+    import datetime
+    import pickle
+    import traceback
+
+    from zigp_tpu_torch.experiments.runners import train_onoff_pptr
+    from zigp_tpu_torch.parallel import initialize_distributed, make_mesh
+    from zigp_tpu_torch.parallel.distributed import shutdown
+    from zigp_tpu_torch.training import fit_batched_scanned
+
+    device = torch.device(job["device"])
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    res = {}
+    initialize_distributed(f"file://{store}", world, rank, backend="gloo",
+                           timeout=datetime.timedelta(seconds=PAR_TIMEOUT))
+    try:
+        devices = [device] * world
+        model = lambda: copy.deepcopy(job["flagship"]).to(device)  # noqa: E731
+        X, Y = (torch.as_tensor(a, device=device) for a in job["batch"])
+        for name, shape, kw in (("dp", (world, 1), {"mesh_data": world}), ("tp", (1, world), {"mesh_model": world})):
+            loss, grad, opt = first_step(model(), X, Y, make_mesh(*shape, devices=devices), tp=name == "tp")
+            zero_counts()
+            fit = train_onoff_pptr(par_cfg(PAR_GLOO_STEPS, **kw), job["split"], model=model(), log_fn=lambda s: None)
+            sync()
+            res[name] = {"loss": loss, "grad": grad, "counts": read_counts(), "losses": fit.step_losses.numpy(),
+                         "raws": [p.detach().double().cpu().numpy() for p in fit.model.parameters()],
+                         "steps_per_s": fit.steps_per_sec,
+                         "owned_bytes": fit.optimizer.owned_bytes() if name == "tp" else None}
+        members = [m.to(device) for m in copy.deepcopy(job["members"])]
+        zero_counts()
+        torch.distributed.barrier()  # both ranks' runs start together: the wall below is the mesh's
+        t0 = time.perf_counter()
+        fits = fit_batched_scanned(members, job["folds"], num_iter=PAR_GLOO_STEPS, batch_size=job["batch_size"],
+                                   num_inner=PAR_INNER, learning_rate=job["lr"], seeds=list(range(len(members))),
+                                   log_every_blocks=1, log_fn=lambda s: None, mesh=make_mesh(world, 1, devices=devices))
+        sync()
+        res["members"] = {"counts": read_counts(), "wall": time.perf_counter() - t0,
+                          "steps_per_s": fits[3 * rank].steps_per_sec,  # one of its own
+                          "raws": [[p.detach().double().cpu().numpy() for p in f.model.parameters()] for f in fits]}
+    except Exception:
+        res = {"error": traceback.format_exc()}
+    finally:
+        shutdown()
+    with open(os.path.join(out, f"par.{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_gloo_ranks(split, folds, card) -> dict:
+    """Two gloo ranks on the one card (``devices=["cuda:0", "cuda:0"]``,
+    spawned; ``parallel_rank``) against the one-rank card runs from the same
+    models: the data-parallel flagship (gate: the first step's loss and
+    gradient within PAR_GATE; report: the gap after PAR_GLOO_STEPS steps and
+    the steps/s); the tensor-parallel flagship, 1 × 2 (gates: each rank's
+    bytes of the row-sharded raws' owned copies and of their two moments
+    half of the full state's, the first step within PAR_GATE); the member
+    mesh over the flagship F = 5 stack, padded to 6 (gates: each member's
+    raws within max(3 × the one-rank stack's largest distance from the
+    members' own sequential runs, PAR_MEMBER_GATE) of the one-rank stack's
+    (phase 14's stack gate, the same kind of difference: the same steps
+    batched otherwise), each rank's
+    ``chol_inv.cu`` and ``rbf_gram.cu`` launches those of one member's
+    steps: one folded launch a factor; report: fold-steps/s against the
+    one-rank stack). Every rank's launches of each run are one member's
+    steps' or the single model's, exactly. Returns the kernels line's
+    per-rank counts by path."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.experiments.runners import train_onoff_pptr
+    from zigp_tpu_torch.training import DataSet, fit_batched_scanned, fit_scanned
+
+    cfg = par_cfg(PAR_GLOO_STEPS)
+    flagship = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
+    per_step = per_step_launches(flagship)
+    members, _, datas = stack_members(cfg, folds, use_kernel=True)
+    B = cfg.batch_size
+    batch = (np.asarray(split.Xtrain[:B], dtype=np.float32), np.asarray(split.Ytrain[:B], dtype=np.float32))
+    X, Y = (torch.as_tensor(a, device=DEVICE) for a in batch)
+    one_loss, one_grad, _ = first_step(copy.deepcopy(flagship), X, Y)
+    one = train_onoff_pptr(cfg, split, model=copy.deepcopy(flagship), log_fn=lambda s: None)
+    one_raws = [p.detach().double().cpu().numpy() for p in one.model.parameters()]
+    kw = dict(num_iter=PAR_GLOO_STEPS, batch_size=B, num_inner=PAR_INNER, learning_rate=cfg.indp_lr,
+              log_every_blocks=1, log_fn=lambda s: None)
+    stack_members_ = [copy.deepcopy(m) for m in members]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack = fit_batched_scanned(stack_members_, datas, seeds=list(range(len(members))), **kw)
+    torch.cuda.synchronize()
+    stack_wall = time.perf_counter() - t0
+    raws_of = lambda model: [p.detach().double().cpu().numpy() for p in model.parameters()]  # noqa: E731
+    stack_raws = [raws_of(f.model) for f in stack]
+    # phase 14's yardstick: how far the one-rank stack is from each member's
+    # own sequential run (the same steps, batched otherwise)
+    seq_gaps = [max(rel(a, b) for a, b in zip(stack_raws[f], raws_of(fit_scanned(
+        copy.deepcopy(m), DataSet(*datas[f]), sampler="device", sampler_seed=f, **kw).model)))
+        for f, m in enumerate(members)]
+    member_tol = max(3.0 * max(seq_gaps), PAR_MEMBER_GATE)
+    torch.cuda.synchronize()
+    job = {"device": "cuda:0" if DEVICE == "cuda" else DEVICE, "flagship": copy.deepcopy(flagship).cpu(),
+           "batch": batch, "split": split,
+           "members": [copy.deepcopy(m).cpu() for m in members], "folds": datas, "batch_size": B, "lr": cfg.indp_lr}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.spawn(parallel_rank, args=(2, os.path.join(tmp, "store"), job, tmp), nprocs=2, join=False)
+        deadline = time.perf_counter() + PAR_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError("gloo ranks: no end within the time limit")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"par.{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            raise AssertionError(f"gloo rank {r} failed:\n{res['error']}")
+    out = {}
+    for name in ("dp", "tp"):
+        for r, res in enumerate(ranks):
+            got = res[name]
+            dl, dg = abs(got["loss"] - one_loss) / abs(one_loss), rel(got["grad"], one_grad)
+            if not (dl <= PAR_GATE and dg <= PAR_GATE):
+                raise AssertionError(f"gloo {name} rank {r}: first step loss {dl:.3e}, gradient {dg:.3e} > {PAR_GATE}")
+            check_launches(f"gloo {name} rank {r}", got["counts"], PAR_GLOO_STEPS, per_step)
+            out[f"{name} rank {r}"] = got["counts"]
+        got = ranks[0][name]
+        drift = (abs(float(got["losses"][-1]) - float(one.step_losses[-1])) / abs(float(one.step_losses[-1])),
+                 max(rel(a, b) for a, b in zip(got["raws"], one_raws)))
+        note = ""
+        if name == "tp":
+            full = {n: 3 * p.numel() * p.element_size() for n, p in flagship.named_parameters()}
+            for r, res in enumerate(ranks):
+                owned = res["tp"]["owned_bytes"]
+                if not owned or any(2 * b != full[n] for n, b in owned.items()):
+                    raise AssertionError(f"gloo tp rank {r}: owned bytes {owned}, full {full}")
+            note = (f"; row-sharded state per rank (owned rows + two moments) "
+                    f"{ {n: b for n, b in ranks[0]['tp']['owned_bytes'].items()} } bytes, half of one rank's")
+        log(f"gloo {name}: the flagship on 2 ranks on {DEVICE}, first step loss and gradient within {PAR_GATE:.0e} of "
+            f"the one-rank card run (rank 0: loss {abs(ranks[0][name]['loss'] - one_loss) / abs(one_loss):.3e}, "
+            f"gradient {rel(ranks[0][name]['grad'], one_grad):.3e}); after {PAR_GLOO_STEPS} eager steps: loss gap "
+            f"{drift[0]:.3e}, raws {drift[1]:.3e} (f32: the batch sums in another order; reported, not gated); "
+            f"{ranks[0][name]['steps_per_s']:.1f} and {ranks[1][name]['steps_per_s']:.1f} steps/s on the two ranks; "
+            f"launches per rank {counted_by_kernel(ranks[0][name]['counts'])}{note}; {card}")
+    member_per_step = per_step_launches(members[0])
+    for r, res in enumerate(ranks):
+        check_launches(f"gloo member mesh rank {r}", res["members"]["counts"], PAR_GLOO_STEPS, member_per_step)
+        out[f"member mesh rank {r}"] = res["members"]["counts"]
+    gaps = [max(rel(a, b) for a, b in zip(got, want)) for got, want in zip(ranks[0]["members"]["raws"], stack_raws)]
+    if not (len(gaps) == len(members) and max(gaps) <= member_tol):
+        raise AssertionError(f"gloo member mesh: members against the one-rank stack {gaps} > {member_tol}")
+    rates = [res["members"]["steps_per_s"] for res in ranks]
+    fold_rate, one_fold_rate = len(members) * min(rates), len(members) * stack[0].steps_per_sec
+    run_rate = len(members) * PAR_GLOO_STEPS / max(res["members"]["wall"] for res in ranks)
+    one_run_rate = len(members) * PAR_GLOO_STEPS / stack_wall
+    log(f"gloo member mesh: the flagship F = {len(members)} stack over 2 ranks (3 members each, one pad), graphed: "
+        f"members' raws against the one-rank stack {['%.3e' % g for g in gaps]} (gate {member_tol:.3e}: 3 x the "
+        f"one-rank stack's largest distance from the members' sequential runs {['%.3e' % g for g in seq_gaps]}, "
+        f"at least {PAR_MEMBER_GATE:.0e}); "
+        f"launches per rank {counted_by_kernel(ranks[0]['members']['counts'])}, by batch "
+        f"{ranks[0]['members']['counts']['chol_inv_by_batch']} (one member's steps: one folded launch a factor); "
+        f"replays' stack steps/s by rank {[round(v, 1) for v in rates]}: {fold_rate:.1f} fold-steps/s (the slower "
+        f"rank's) against {one_fold_rate:.1f} for the one-rank stack ({fold_rate / one_fold_rate:.3f}x); whole runs "
+        f"(warm-up, capture, {PAR_GLOO_STEPS} steps, the gather; both ranks started together) "
+        f"{run_rate:.1f} fold-steps/s against {one_run_rate:.1f} ({run_rate / one_run_rate:.3f}x); spawn to end "
+        f"{wall:.1f} s; {card}")
+    return out
+
+
+def start_torchrun(split, tmp):
+    """Start ``python -m torch.distributed.run --standalone --nproc-per-node
+    1 -m zigp_tpu_torch.experiments onoff --mesh-data 1`` for 100 steps with
+    a workdir under ``tmp``, on ``rain_split(split)`` written there as a
+    pptr pickle: (process, workdir, start time)."""
+    from zigp_tpu_torch.io.datasets import save_pptr
+
+    data = save_pptr(rain_split(split), os.path.join(tmp, "pptr.pickle"))
+    wd = os.path.join(tmp, "runs")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
+            "zigp_tpu_torch.experiments", "onoff", "--mesh-data", "1", "--sampler", "device", "--iters", "100",
+            "--device", DEVICE, "--data", data, "--workdir", wd]
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env={**os.environ, "OMP_NUM_THREADS": "1"}, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    return proc, wd, time.perf_counter()
+
+
+def finish_torchrun(proc, wd, t0, card) -> float:
+    """Wait for ``start_torchrun``'s launch: it exits 0, rank 0 (the one
+    rank) has written the results, finite, and its log says the mesh
+    trained. Returns its wall time."""
+    import pickle
+
+    out, _ = proc.communicate(timeout=PAR_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun onoff --mesh-data 1: exit {proc.returncode}\n{out[-4000:]}")
+    with open(os.path.join(wd, "1", "results_onoff.pickle"), "rb") as f:
+        results = pickle.load(f)
+    with open(os.path.join(wd, "1", "modelsumm_onoff.log")) as f:
+        summary = f.read()
+    bad = non_finite({k: v for k, v in results.items() if k != "model"})
+    if bad or "mesh: 1-way data parallel" not in summary or not results["losses"]:
+        raise AssertionError(f"torchrun onoff --mesh-data 1: non-finite {bad}, or no mesh in its log")
+    log(f"torchrun: onoff --mesh-data 1 --iters 100 under torch.distributed.run (one rank, NCCL) exited 0 in "
+        f"{wall:.1f} s (beside the phase's other paths: its host scoring overlaps them); results written by "
+        f"rank 0: test rmse {results['test_rmse']:.4f}, mae {results['test_mae']:.4f}, steps/s "
+        f"{results['steps_per_sec']:.1f}; {card}")
+    return wall
+
+
+def phase_parallel(split, card) -> dict:
+    """Phase 17: the torchrun launch started first (its data loading and
+    host scoring take most of its wall), then the one-rank NCCL mesh and
+    the two gloo ranks on the card, then the launch's check; every process
+    started here is stopped and every process group destroyed."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, wd, t_run = start_torchrun(split, tmp)
+        try:
+            nccl = phase_nccl_mesh(split, card)
+            t1 = time.perf_counter()
+            counts = phase_gloo_ranks(split, cv_folds(split), card)
+            t2 = time.perf_counter()
+            wall = finish_torchrun(proc, wd, t_run, card)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if dist.is_initialized():
+        raise AssertionError("phase 17 left a process group behind")
+    log(f"phase 17: nccl mesh {t1 - t0:.1f} s, gloo ranks {t2 - t1:.1f} s, torchrun's end "
+        f"{time.perf_counter() - t2:.1f} s more")
+    return {"nccl": nccl, "counts": counts, "torchrun_s": wall}
+
+
+def parallel_rows(ci, rg, par: dict, card) -> list:
+    """The kernels-line rows of ``chol_inv.cu`` and ``rbf_gram.cu`` at the
+    gloo ranks' shapes (each rank's B / 2 rows, the member mesh's folded
+    batch), with rank 0's launches."""
+    counts = {path: c for path, c in par["counts"].items() if path.endswith("rank 0")}
+    rows = stacked_chol_rows(ci, counts, card, label="parallel, per rank", min_G=1)
+    rows += gram_rows(rg, {f"parallel {p}": c for p, c in counts.items() if not p.startswith("member")}, card)
+    rows += gram_rows(rg, {f"parallel {p}": c for p, c in counts.items() if p.startswith("member")}, card,
+                      stacked=True)
+    return rows
+
+
 def memoize_inducing_init() -> None:
     """Memoize the builders' ``kron_inducing_init`` for this script: a pure
     function of the training rows, the grid and the seed (it seeds numpy
@@ -3629,6 +4026,9 @@ def main() -> int:
         toy_cpu.wait()
         shutil.rmtree(toy_dir, ignore_errors=True)
 
+    par = phase_parallel(split, card)
+    mark("the parallel layer")
+
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
     serving["scale 105x250"] = (scale_sizes, scale_by_n)
@@ -3664,6 +4064,7 @@ def main() -> int:
                          card, stacked=True)
     kernels += cli_rows(ci, rg, cli_res, card)
     kernels += zoo_rows(ci, rg, zoo, card)
+    kernels += parallel_rows(ci, rg, par, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
@@ -3672,6 +4073,8 @@ def main() -> int:
         f"member stacks {json.dumps(stack_rates)}; the stack's studies {json.dumps(studies['walls'])}; "
         f"the command line's artifacts points/s {json.dumps(cli_res['pts'])}, walls {json.dumps(cli_res['walls'])}; "
         f"the zoo against the RBF twins {json.dumps(zoo['rates'])}; the toy {json.dumps(toy)}; "
+        f"the one-rank NCCL mesh against no mesh {json.dumps(par['nccl']['steps_per_s'])}, torchrun "
+        f"{par['torchrun_s']:.1f} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

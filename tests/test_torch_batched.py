@@ -318,14 +318,6 @@ def test_resumed_completed_run_is_a_noop(tmp_path):
         assert np.isfinite(b.final_loss)
 
 
-def test_stack_refuses_a_mesh():
-    _, tms, datas = stacked_pair("svgp", F=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fit_batched_scanned(tms, datas, num_iter=4, batch_size=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fit_natgrad_batched(tms, datas, num_iter=4, batch_size=8, mesh=object())
-
-
 @pytest.fixture
 def chol_inv_calls(monkeypatch):
     calls = []

@@ -319,6 +319,8 @@ GUARDS = {
     "hurdle": "run the 'classifier' experiment",
     "predict --model svgp": "no checkpoint",
     "onoff --hyper-every 10 --iters 50": "requires --sampler device",
+    "onoff --mesh-data 2": "torchrun --nproc-per-node 2",
+    "onoff --sampler device --hyper-every 10 --iters 50 --mesh-data 1": "--hyper-every does not compose with --mesh-",
 }
 
 
@@ -329,12 +331,23 @@ def test_guard_rails(argv, synth_pptr, tmp_path):
                                   *CPU])
 
 
+def test_natgrad_with_mesh_model_warns_and_trains_on_one_rank(synth_pptr, tmp_path):
+    """Tensor parallelism does not compose with the natural gradients: the
+    JAX runner's warning, then a one-rank run (no mesh_data asked)."""
+    wd = tmp_path / "wd"
+    _run("onoff", "--optimizer", "natgrad", "--mesh-model", "2", "--sampler", "device", "--data", synth_pptr,
+         "--workdir", str(wd), "--iters", "20", "--batch", "32", *SMALL)
+    with open(wd / "1" / "modelsumm_onoff.log") as f:
+        log = f.read()
+    assert ("warning: tensor parallelism (mesh_model > 1) is not supported with optimizer=natgrad; training "
+            "single-device") in log
+    assert "mesh:" not in log
+    assert (wd / "1" / "results_onoff.pickle").exists()
+
+
 NOT_PORTED = {
     "toy --plot toy.png": "toy --plot is not ported",
     "selfcheck": "'selfcheck' is not ported",
-    "onoff --mesh-data 2": "--mesh-data is not ported",
-    "svgp --mesh-model 2": "--mesh-model is not ported",
-    "cv --batched --mesh-members 2": "--mesh-members is not ported",
     "onoff --solve-precision high": "--solve-precision high is not ported",
     "cv --solve-precision mixed": "--solve-precision mixed is not ported",
 }

@@ -1092,3 +1092,35 @@ def test_a_captured_block_counts_each_op_launch_once(cuda):
     per_replay = (graphed.graph.launches[(ci.chol_inv_cuda, "launches")],
                   graphed.graph.launches[(rg.rbf_gram_cuda, "launches")])
     assert eager == per_replay == (10 * 2, 10 * 4)
+
+
+def test_one_rank_nccl_mesh_graphed_block_equals_the_no_mesh_block_bit_for_bit(cuda, tmp_path):
+    """``train_onoff_pptr`` with ``mesh_data=1`` on a one-rank NCCL process
+    group: every block after the warm-up is one replay with the gradient's
+    and the losses' all-reduces inside the graph, and at one rank they leave
+    their buffers as they were, so the losses and raws equal the no-mesh
+    graphed run's bit for bit."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from zigp_tpu_torch.experiments import configs
+    from zigp_tpu_torch.experiments.runners import train_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+    from zigp_tpu_torch.parallel.distributed import initialize, shutdown
+
+    split = synthetic_pptr(6, 20, seed=0)
+    cfg = configs.OnOffPptrConfig(grid=configs.KronGridConfig(6, 20), batch_size=256, num_iter=40, scan_inner=10,
+                                  sampler="device", log_every=0)
+    plain = train_onoff_pptr(cfg, split, use_kernel=True, log_fn=lambda s: None)
+    assert initialize(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl")
+    try:
+        logs = []
+        meshed = train_onoff_pptr(dataclasses.replace(cfg, mesh_data=1), split, use_kernel=True, log_fn=logs.append)
+    finally:
+        shutdown()
+    assert not dist.is_initialized()
+    assert any("block graph of 10 steps" in line for line in logs) and "mesh: 1-way data parallel" in logs
+    assert torch.equal(meshed.step_losses, plain.step_losses)
+    for (n, a), b in zip(meshed.model.named_parameters(), plain.model.parameters()):
+        assert torch.equal(a, b), n

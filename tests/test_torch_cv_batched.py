@@ -123,8 +123,6 @@ def test_stack_checkpoints_and_resume(tmp_path):
 
 def test_refusals():
     splits = _splits(Split)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_cv_batched(["svgp"], splits=splits, mesh_members=2, log_fn=quiet, **CPU64)
     cfgs = _cfgs(tconfigs, optimizer="natgrad")
     with pytest.raises(ValueError, match="equal-shape"):
         run_cv_batched(["hurdle"], splits=splits, svgp_cfg=cfgs["svgp_cfg"], clf_cfg=cfgs["clf_cfg"], log_fn=quiet,

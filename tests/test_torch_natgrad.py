@@ -482,8 +482,6 @@ def test_natgrad_small_budgets_and_validation_errors():
         tng.fit_natgrad_scanned(_svgp(N), DataSet(X, Y), sampler="device", hyper_every=3, **kw)
     with pytest.raises(ValueError, match="hyper_every must be"):
         tng.fit_natgrad_scanned(_svgp(N), DataSet(X, Y), sampler="device", hyper_every=1, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tng.fit_natgrad_scanned(_svgp(N), DataSet(X, Y), mesh=object(), **kw)
 
     class Dense(torch.nn.Module):  # a model without the Kronecker factor state
         def loss(self, X, Y):

@@ -429,31 +429,6 @@ def test_train_onoff_pptr_host_sampler_matches_fit_scanned_on_staged_batches():
     np.testing.assert_allclose(res.step_losses.numpy(), ref.numpy(), rtol=1e-12)
 
 
-@pytest.mark.parametrize(
-    "override",
-    [{"optimizer": "natgrad"}, {"hyper_every": 10}, {"mesh_data": 2}],
-)
-def test_train_onoff_pptr_raises_on_what_is_not_ported(override):
-    """Meshes are not ported: a mesh raises, with either trainer and
-    schedule (the natural gradients and ``hyper_every`` train since they
-    were ported; ``tests/test_torch_natgrad.py`` and
-    ``tests/test_torch_alternating.py`` hold them)."""
-    split = synthetic_pptr(8, 24, seed=0)
-    cfg = _small_cfg(**{**override, "mesh_data": 2, "sampler": "device"})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train_onoff_pptr(cfg, split, device="cpu")
-
-
-@pytest.mark.parametrize("arg", ["mesh", "alternating"])
-def test_fit_scanned_raises_on_what_is_not_ported(arg):
-    """A mesh raises, with or without the block-coordinate schedule."""
-    _, tm = _pair_models()
-    x, y = _kron_fixture()[1:3]
-    kw = {"mesh": 1} if arg == "mesh" else {"mesh": 1, "alternating": 2, "sampler": "device"}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fit_scanned(tm, DataSet(x, y), num_iter=2, batch_size=4, num_inner=2, **kw)
-
-
 def test_fit_scanned_raises_on_a_non_finite_end():
     _, tm = _pair_models()
     x, y = _kron_fixture()[1:3]

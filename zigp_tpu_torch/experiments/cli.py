@@ -24,10 +24,20 @@ the ``rbf_gram`` kernel (the runners' ``use_kernel``) and every
 factorization takes ``chol_inv``'s kernels. ``toy`` reads ``toydata.mat``
 from ``ZIGP_DATA_DIR``.
 
+The mesh flags run one process per rank, under ``torchrun``:
+
+    torchrun --nproc-per-node N -m zigp_tpu_torch.experiments onoff --mesh-data N ...
+    torchrun --nproc-per-node 4 -m zigp_tpu_torch.experiments onoff --mesh-data 2 --mesh-model 2 ...
+    torchrun --nproc-per-node 2 -m zigp_tpu_torch.experiments cv --batched --mesh-members 2 ...
+
+The command line calls ``parallel.initialize`` before any work (NCCL on the
+card, gloo on the CPU); a mesh that is not the launch's world ends the run
+with the launch to use. Rank 0 alone prints and writes the results.
+
 What the port does not have stops the run with a "not ported" error before
-any work: ``selfcheck``, ``toy --plot``, ``--mesh-data``/``--mesh-model``/
-``--mesh-members`` > 0 and ``--solve-precision high|mixed`` (left unported
-on purpose: ``highest`` is the port's only precision).
+any work: ``selfcheck``, ``toy --plot`` and ``--solve-precision
+high|mixed`` (left unported on purpose: ``highest`` is the port's only
+precision).
 """
 
 from __future__ import annotations
@@ -75,13 +85,17 @@ def _kernel_flag_kw(cfg, args) -> dict:
 def _setup_logging(workdir: str, name: str):
     """Log to stdout and to ``workdir/modelsumm_{name}.log`` through the
     "zigp" logger; the handlers of an earlier call in the process are closed
-    first."""
+    first. On a mesh only rank 0 logs."""
+    from ..parallel.mesh import is_main_process
+
     os.makedirs(workdir, exist_ok=True)
     logger = logging.getLogger("zigp")
     logger.setLevel(logging.DEBUG)
     for h in [h for h in logger.handlers if getattr(h, "_zigp_cli", False)]:
         logger.removeHandler(h)
         h.close()
+    if not is_main_process():
+        return lambda msg: None
     fh = logging.FileHandler(os.path.join(workdir, f"modelsumm_{name}.log"))
     sh = logging.StreamHandler(sys.stdout)
     for h in (fh, sh):
@@ -226,9 +240,13 @@ def _common(p):
                         "highest (exact float32, the port's only one); high "
                         "and mixed are not ported")
     p.add_argument("--mesh-data", type=int, default=None, dest="mesh_data",
-                   help="data-parallel devices (not ported)")
+                   help="shard the minibatch over this many ranks (data "
+                        "parallelism; batch size must divide it; launch with "
+                        "torchrun)")
     p.add_argument("--mesh-model", type=int, default=None, dest="mesh_model",
-                   help="tensor-parallel devices (not ported)")
+                   help="additionally row-shard the variational parameters "
+                        "over this many ranks (tensor parallelism; uses "
+                        "mesh-data × mesh-model ranks total)")
     _placement(p)
 
 
@@ -374,8 +392,10 @@ def _parser() -> argparse.ArgumentParser:
     p_cv.add_argument("--whiten", action="store_true", default=None,
                       help="whitened variational parameterization")
     p_cv.add_argument("--mesh-members", type=int, default=0, dest="mesh_members",
-                      help="with --batched: shard the member axis over this "
-                           "many devices (not ported)")
+                      help="with --batched: shard the stacked member axis "
+                           "(folds x ensemble seeds) over this many ranks "
+                           "— zero per-step collectives; non-dividing member "
+                           "counts are padded with discarded duplicates")
     p_cv.add_argument("--kernel-temporal", type=str, default=None, dest="kernel_temporal",
                       help="kernel family for the temporal factor of every "
                            "variant (the port has rbf)")
@@ -418,10 +438,6 @@ def _refuse_unported(args) -> None:
                          "on the card)")
     if args.cmd == "toy" and args.plot:
         raise SystemExit("error: toy --plot is not ported to zigp_tpu_torch yet (utils/plotting); drop the flag")
-    for flag in ("mesh_data", "mesh_model", "mesh_members"):
-        if (getattr(args, flag, None) or 0) > 0:
-            raise SystemExit(f"error: --{flag.replace('_', '-')} is not ported to zigp_tpu_torch yet "
-                             "(multi-device training); drop the flag")
     if getattr(args, "solve_precision", None) in ("high", "mixed"):
         raise SystemExit(f"error: --solve-precision {args.solve_precision} is not ported to zigp_tpu_torch "
                          "(left out on purpose: the card's reduced-precision products are TF32, coarser "
@@ -463,8 +479,22 @@ def _main_toy(args) -> int:
 def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    from ..parallel.distributed import initialize
+    from ..parallel.mesh import MeshLaunchError
+
+    initialize()
+    try:
+        return _main(args)
+    except MeshLaunchError as e:
+        raise SystemExit(f"error: {e}") from None
+
+
+def _main(args) -> int:
+    from ..parallel.mesh import is_main_process
 
     if args.cmd == "cvsplits":
+        if not is_main_process():
+            return 0
         from ..io.datasets import load_pptr, make_cv_splits
 
         splits = make_cv_splits(load_pptr(args.data))
@@ -562,7 +592,8 @@ def main(argv=None):
 
         out = run_export(split, args.model, _cfgkw(_bases[args.model]), workdir=workdir, out=args.out,
                          batch_size=args.fixed_batch, log_fn=log, **placed)
-        print(f"artifact: {out}")
+        if is_main_process():
+            print(f"artifact: {out}")
         return 0
     if args.cmd == "onoff":
         from .runners import run_onoff

@@ -2,8 +2,8 @@
 configs.py`` (``KronGridConfig``, ``KernelInit``, the on/off, SVGP,
 classifier and joint-hurdle configs, ``best_onoff_config``, the tuned
 configs, ``ToyOnOffConfig`` and ``preset_configs``) with the JAX package's fields and defaults.
-The mesh options the port does not have yet are kept so that a config that
-sets them fails loudly in ``experiments.runners._fit_auto``."""
+The mesh options (``mesh_data``, ``mesh_model``) train on the ranks of a
+``torchrun`` launch (``parallel``; ``experiments.runners._fit_auto``)."""
 
 from __future__ import annotations
 
@@ -88,7 +88,12 @@ class OnOffPptrConfig:
     natgrad_kl_cap: float = 10.0  # per-step KL(q′‖q) budget (nats); 0 disables
     g_mean_shift: float = 0.0  # constant prior-mean shift on g at predict
     q_cov: str = "diag"  # "diag" | "kron" (factored full covariance)
-    mesh_data: int = 0  # multi-device training, not ported
+    # mesh_data ranks shard the minibatch (data parallelism, params
+    # replicated); mesh_model > 1 additionally row-shards the variational
+    # rows and their Adam moments (tensor parallelism). Uses mesh_data ×
+    # mesh_model ranks (torchrun --nproc-per-node); batch_size must divide
+    # by mesh_data.
+    mesh_data: int = 0
     mesh_model: int = 0
 
 
@@ -122,7 +127,7 @@ class SvgpPptrConfig:
     sampler: str = "host"
     hyper_every: int = 0  # block-coordinate cadence (see OnOffPptrConfig)
     recalibrate_noise: bool = False
-    mesh_data: int = 0  # not ported
+    mesh_data: int = 0  # see OnOffPptrConfig.mesh_data
     mesh_model: int = 0
     optimizer: str = "adam"  # "adam" | "natgrad"
     natgrad_gamma: float = 0.1

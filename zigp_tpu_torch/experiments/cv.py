@@ -42,12 +42,15 @@ def aggregate_summary(
     log_fn: Callable[[str], None],
 ) -> dict:
     """Fold lists → {mean, std, folds}, written to ``cv_summary.json`` and
-    logged. A metric that is NaN on every fold is dropped."""
+    logged. A metric that is NaN on every fold is dropped. Rank 0 alone
+    writes on a mesh."""
+    from ..parallel.mesh import is_main_process
+
     aggregates = {
         model: {metric: _agg(vals) for metric, vals in per_model.items() if np.isfinite(vals).any()}
         for model, per_model in summary.items()
     }
-    if workdir:
+    if workdir and is_main_process():
         os.makedirs(workdir, exist_ok=True)
         with open(os.path.join(workdir, "cv_summary.json"), "w") as f:
             json.dump(aggregates, f, indent=2)

@@ -15,9 +15,10 @@ takes each fold's true ELBO scale as the loss's ``num_data``.
 only: the hurdle's inner regression stays on Adam); ``ensemble=E`` trains E
 seeds per fold in the same stack (F × E members) and scores each fold's
 uniform mixture (``experiments.ensemble``). Scoring runs on the host, as in
-``run_cv``, and is timed apart from training in the logs. The
-member-axis mesh (``mesh_members``) is not ported: it raises
-``NotImplementedError``. Per-fold prediction pickles are not written (the
+``run_cv``, and is timed apart from training in the logs.
+``mesh_members=D`` shards the member axis over the D ranks of a ``torchrun``
+launch (``training.batched``'s member-axis mesh: zero per-step collectives,
+every rank gets every member back and scores them; rank 0 writes). Per-fold prediction pickles are not written (the
 sequential ``run_cv`` writes them).
 """
 
@@ -84,7 +85,7 @@ def _stacked_predict(stack, predict_fn, Xs_list: list) -> List[dict]:
 
 
 def _train_stack(kind: str, models: list, datas: list, cfg, lr: float, *, workdir: Optional[str], log_fn,
-                 loss_fn=None, aux=None, resume: bool = False, seeds: Optional[list] = None):
+                 loss_fn=None, aux=None, resume: bool = False, seeds: Optional[list] = None, mesh=None):
     """``fit_batched_scanned`` (or ``fit_natgrad_batched``) with the
     sequential runners' optimizer, cadence and checkpoint policy: the
     checkpoints of the whole stack in ``workdir/ckpt_{kind}_stack``, the
@@ -122,7 +123,7 @@ def _train_stack(kind: str, models: list, datas: list, cfg, lr: float, *, workdi
                 gamma=cfg.natgrad_gamma, gamma_warmup=cfg.natgrad_warmup, adam_warmup=cfg.natgrad_adam_warmup,
                 kron_joint=getattr(cfg, "natgrad_kron_joint", False), kl_cap=getattr(cfg, "natgrad_kl_cap", 10.0),
                 adam_lr=lr, seeds=seeds, log_every_blocks=log_blocks, log_fn=wrapped_log, ckpt_manager=ckpt,
-                metric_logger=metric, resume=resume)
+                metric_logger=metric, resume=resume, mesh=mesh)
 
         hyper_every = getattr(cfg, "hyper_every", 0) or 0
         alt_facs = None
@@ -140,7 +141,7 @@ def _train_stack(kind: str, models: list, datas: list, cfg, lr: float, *, workdi
             models, datas, num_iter=cfg.num_iter, batch_size=cfg.batch_size, num_inner=num_inner, schedule=schedule,
             loss_fn=loss_fn, aux=aux, hyper_every=hyper_every, alt_opt_factories=alt_facs, learning_rate=lr,
             seeds=seeds, log_every_blocks=log_blocks, log_fn=wrapped_log, ckpt_manager=ckpt, metric_logger=metric,
-            resume=resume)
+            resume=resume, mesh=mesh)
     finally:
         if metric is not None:
             metric.close()
@@ -181,15 +182,19 @@ def run_cv_batched(
         mix_onoff_preds,
     )
 
+    mesh = None
     if mesh_members:
-        raise NotImplementedError("run_cv_batched: mesh_members (the member-axis mesh) is not ported to "
-                                  "zigp_tpu_torch yet")
+        from ..parallel import make_mesh
+
+        mesh = make_mesh(n_data=mesh_members, n_model=1)
     if any(getattr(c, "recalibrate_noise", False) for c in (onoff_cfg, svgp_cfg, clf_cfg) if c is not None):
         log_fn("warning: --recalibrate-noise is not implemented for run_cv_batched (its eval reuses stacked "
                "test predictions and computes no train predictions) — ignoring; use the sequential run_cv")
     splits = splits or make_cv_splits(load_pptr())
     F = len(splits)
     E = max(1, int(ensemble))
+    if mesh is not None:
+        log_fn(f"member-axis sharding: {F * E} members over {mesh.shape['data']} devices (zero per-step collectives)")
     need_clf = bool({"classifier", "hurdle", "zi"} & set(models))
     need_svgp = bool({"svgp", "zi"} & set(models))
     placed = dict(device=device, dtype=dtype, use_kernel=use_kernel)
@@ -218,7 +223,7 @@ def run_cv_batched(
 
     def train(kind, members, seeds, datas, cfg, lr, **kw):
         t0 = time.time()
-        res = _train_stack(kind, members, datas, cfg, lr, workdir=workdir, log_fn=log_fn, resume=resume,
+        res = _train_stack(kind, members, datas, cfg, lr, workdir=workdir, log_fn=log_fn, resume=resume, mesh=mesh,
                            seeds=seeds, **kw)
         log_fn(f"[{kind} x{len(members)}] trained in {time.time() - t0:.1f} s")
         trained = [r.model for r in res]

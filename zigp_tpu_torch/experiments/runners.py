@@ -110,9 +110,16 @@ def _fit_auto(
     update count when ``lr_schedule`` is "cosine") that the checkpoints
     hold; it needs the device sampler and the scanned path. The JAX
     runner's guard rails stop the run with its messages (``SystemExit``).
-    Meshes are not ported: a config with one raises ``NotImplementedError``."""
-    if cfg.mesh_data or cfg.mesh_model:
-        raise NotImplementedError(f"{kind} training: ['mesh_data/mesh_model'] not ported to zigp_tpu_torch yet")
+
+    ``cfg.mesh_data`` / ``cfg.mesh_model`` (this process one rank of a
+    ``torchrun`` launch, ``parallel.initialize`` called): the scanned
+    trainer on the mesh, the minibatch split over ``data`` and, with
+    ``mesh_model`` > 1, the variational rows and their moments over
+    ``model`` (``fit_scanned(mesh=, mesh_tp=)``); natural gradients take
+    the data axis only (a warning drops ``mesh_model``); ``hyper_every``
+    with a mesh exits; the per-step loop ignores the mesh, with a log line.
+    The mesh must be the launch's world (``parallel.make_mesh`` raises
+    otherwise, saying how to launch)."""
     if cfg.optimizer not in ("adam", "natgrad"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
@@ -156,10 +163,24 @@ def _fit_auto(
         if remaining <= 0:
             log_fn("checkpoint is already at or past num_iter; nothing to train")
             return FitResult(model=model, optimizer=optimizer)
+        mesh, mesh_tp = None, False
+        n_data, n_model = cfg.mesh_data or 0, cfg.mesh_model or 0
+        if n_data or n_model:
+            from ..parallel import make_mesh
+            from ..parallel.mesh import barrier
+
+            mesh = make_mesh(n_data=n_data or None, n_model=max(1, n_model))
+            mesh_tp = n_model > 1
+            log_fn(f"mesh: {mesh.shape['data']}-way data parallel"
+                   + (f" × {mesh.shape['model']}-way tensor parallel" if mesh_tp else ""))
+            if resume:
+                barrier()  # every rank has read the checkpoint before rank 0 writes the next
         scanned = cfg.scan_inner and remaining >= cfg.scan_inner
         if hyper_every and not scanned:
             raise SystemExit("error: --hyper-every requires the scanned path (scan_inner > 0 and num_iter >= "
                              "scan_inner)")
+        if hyper_every and mesh is not None:
+            raise SystemExit("error: --hyper-every does not compose with --mesh-*")
         if scanned:
             return fit_scanned(
                 model,
@@ -180,7 +201,11 @@ def _fit_auto(
                 callback_every=getattr(cfg, "monitor_every", 0) if monitor_cb else 0,
                 sampler=cfg.sampler,
                 sampler_seed=cfg.seed,
+                mesh=mesh,
+                mesh_tp=mesh_tp,
             )
+        if mesh is not None:
+            log_fn("mesh training requires the scanned path; ignoring mesh for the per-step loop")
         return fit(
             model,
             ds,
@@ -202,6 +227,19 @@ def _fit_natgrad(model, ds: DataSet, cfg, *, learning_rate: float, log_fn, ckpt,
     hyper_every = cfg.hyper_every or 0
     if hyper_every and cfg.sampler != "device":
         raise SystemExit("error: --hyper-every with --optimizer natgrad requires --sampler device")
+    if hyper_every and cfg.mesh_data:
+        raise SystemExit("error: --hyper-every does not compose with --mesh-data under --optimizer natgrad")
+    # Data parallelism composes with natgrad; tensor parallelism does not
+    # (the factored natural steps need the full variational rows).
+    mesh = None
+    if cfg.mesh_model and cfg.mesh_model > 1:
+        log_fn("warning: tensor parallelism (mesh_model > 1) is not supported with optimizer=natgrad; "
+               + ("keeping the requested data parallelism" if cfg.mesh_data else "training single-device"))
+    if cfg.mesh_data:
+        from ..parallel import make_mesh
+
+        mesh = make_mesh(n_data=cfg.mesh_data, n_model=1)
+        log_fn(f"mesh: {mesh.shape['data']}-way data parallel (natgrad)")
     if cfg.natgrad_kron_joint and cfg.q_cov != "kron":
         log_fn("warning: --natgrad-joint requires q_cov='kron'; taking the diagonal-family natural step instead")
     scan_inner = cfg.scan_inner or 50
@@ -224,6 +262,7 @@ def _fit_natgrad(model, ds: DataSet, cfg, *, learning_rate: float, log_fn, ckpt,
         resume=resume,
         sampler=cfg.sampler,
         sampler_seed=cfg.seed,
+        mesh=mesh,
         hyper_every=hyper_every,
     )
 
@@ -397,7 +436,10 @@ def _log_hyperparams(model, log_fn) -> None:
 
 
 def _maybe_pickle(results: dict, workdir: Optional[str], name: str) -> None:
-    if workdir:
+    """Write ``results`` to ``workdir/name``: rank 0 alone on a mesh."""
+    from ..parallel.mesh import is_main_process
+
+    if workdir and is_main_process():
         os.makedirs(workdir, exist_ok=True)
         with open(os.path.join(workdir, name), "wb") as f:
             pickle.dump(results, f)

@@ -18,6 +18,16 @@ A member stack (``training.batched.stack_models``) is a module like any
 other: its checkpoint holds every raw with its leading member axis and the
 stack's optimizer state, in the JAX package's directory ``ckpt_{kind}_stack``
 (``experiments.cv_batched``), and restores in place the same way.
+
+On a mesh (``parallel``) every rank calls ``save`` and ``restore`` at the
+same steps; rank 0 alone writes, every rank reads. A tensor-parallel
+optimizer (``parallel.tp.RowShardedAdam``) gives its moments gathered to
+full size (a collective, hence every rank's call) and keeps its own rows of
+them on a restore, so a checkpoint is the same file whatever the mesh: a
+two-rank run resumes on one rank, and the reverse. A member-axis mesh
+(``training.batched``) trains a different sub-stack on each rank, and each
+rank writes its own (``CheckpointManager(writer=True)`` on a directory of its
+own).
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import barrier, is_main_process
 from .convert import jax_key, load_jax_arrays
 
 FILE = "checkpoint.pt"
@@ -38,26 +49,36 @@ def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.detach().cpu().clone() for k, v in tree.items()}
 
 
-def save(path: str, model, opt_state=None, step: Optional[int] = None) -> str:
+def save(path: str, model, opt_state=None, step: Optional[int] = None, *, write: Optional[bool] = None) -> str:
     """Save ``model``'s raws and ``opt_state``'s state to the directory
     ``path``, replacing what is there; the files are written beside it and
     renamed into place. ``opt_state`` is anything with ``state_tensors()``
     and ``load_state``: a ``GroupedAdam`` (the joint Adam, or the
-    natural-gradient trainer's), or the alternating schedule's
-    ``AdamPair``."""
+    natural-gradient trainer's), the alternating schedule's ``AdamPair``, or
+    a ``RowShardedAdam``. ``write``: whether this process writes (by
+    default rank 0 of a process group, or a single process); the state is
+    gathered either way."""
     path = os.path.abspath(path)
     payload = {
         "model": {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
         "opt_state": None if opt_state is None else _to_cpu(opt_state.state_tensors()),
         "step": int(step or 0),
     }
+    if is_main_process() if write is None else write:
+        _write(path, payload)
+    # every rank leaves the save with the checkpoint on disk, so the ranks'
+    # reads of the directory (latest_step, restore) agree
+    barrier()
+    return path
+
+
+def _write(path: str, payload: dict) -> None:
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.save(payload, os.path.join(tmp, FILE))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
-    return path
 
 
 def restore(path: str, like, opt_state_like=None) -> Tuple[Any, Any, Optional[int]]:
@@ -78,11 +99,13 @@ def restore(path: str, like, opt_state_like=None) -> Tuple[Any, Any, Optional[in
 
 class CheckpointManager:
     """Periodic save with resume-from-latest, at the reference's cadence of
-    every 10k iterations by default."""
+    every 10k iterations by default. ``writer``: whether this process
+    writes its saves (by default rank 0 alone, see ``save``)."""
 
-    def __init__(self, directory: str, every: int = 10_000):
+    def __init__(self, directory: str, every: int = 10_000, *, writer: Optional[bool] = None):
         self.directory = os.path.abspath(directory)
         self.every = every
+        self.writer = writer
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -95,7 +118,7 @@ class CheckpointManager:
 
     def save_at(self, step: int, model, opt_state=None):
         """Unconditional save at ``step``."""
-        return save(self._path(step), model, opt_state, step)
+        return save(self._path(step), model, opt_state, step, write=self.writer)
 
     def crossed(self, prev_step: int, step: int) -> bool:
         """True when (prev_step, step] contains a checkpoint boundary: the

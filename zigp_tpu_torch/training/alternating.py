@@ -109,13 +109,24 @@ def _check_schedule(model: nn.Module, hyper_every: int) -> None:
             "alternating training needs a model with factor_state()/loss(factor_state=...) — the Kronecker families")
 
 
-def _group_block(model: nn.Module, opt: AdamPair, hyper_every: int, loss: Callable, factor_state: Callable):
+def _group_block(model: nn.Module, opt: AdamPair, hyper_every: int, loss: Callable, factor_state: Callable,
+                 mesh=None):
     """The block of the schedule over ``loss(X, Y, factor_state=None)`` (a
     scalar, or one loss per member of a stack, whose sum is differentiated)
-    and ``factor_state()``; the losses (K,) or (K, F) stay on the device."""
+    and ``factor_state()``; the losses (K,) or (K, F) stay on the device.
+    With a data-parallel ``mesh`` each rank's loss is its share
+    (``parallel.step``), each partition's gradient is summed over the data
+    group before its update, and the block's losses once at its end."""
     q, h = partition_model(model)
     q_in = [raw for _, raw in q if raw.requires_grad]
     h_in = [raw for _, raw in h if raw.requires_grad]
+    reduce = lambda o: None  # noqa: E731
+    if mesh is not None:
+        from ..parallel.step import reduce_gradients
+
+        n, base = mesh.shape["data"], loss
+        loss = lambda X, Y, factor_state=None: base(X, Y, factor_state=factor_state) / n  # noqa: E731
+        reduce = lambda o: reduce_gradients(o, mesh)  # noqa: E731
 
     def block(Xs: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
         K = Xs.shape[0]
@@ -126,6 +137,7 @@ def _group_block(model: nn.Module, opt: AdamPair, hyper_every: int, loss: Callab
             opt.h.zero_grad()
             value = loss(Xs[g0], Ys[g0])
             (value.sum() if value.ndim else value).backward(inputs=h_in)
+            reduce(opt.h)
             opt.h.step()
             losses.append(value.detach())
             with torch.no_grad():  # factorize once, at the new hypers
@@ -134,27 +146,30 @@ def _group_block(model: nn.Module, opt: AdamPair, hyper_every: int, loss: Callab
                 opt.q.zero_grad()
                 value = loss(Xs[k], Ys[k], factor_state=state)
                 (value.sum() if value.ndim else value).backward(inputs=q_in)
+                reduce(opt.q)
                 opt.q.step()
                 losses.append(value.detach())
-        return torch.stack(losses)
+        out = torch.stack(losses)
+        return out if mesh is None else mesh.all_reduce_data(out)
 
     return block
 
 
-def make_alternating_block(model: nn.Module, opt: AdamPair, hyper_every: int) -> Callable:
+def make_alternating_block(model: nn.Module, opt: AdamPair, hyper_every: int, *, mesh=None) -> Callable:
     """A block step ``(Xs, Ys) -> losses`` of the schedule, the counterpart
     of ``_alternating_dispatch``: Xs (K, B, D), Ys (K, B, L) with K a
     multiple of ``hyper_every``, in groups of ``hyper_every`` steps: one
     hyper step on the group's first minibatch, ``model.factor_state()``
     under ``torch.no_grad()``, then ``hyper_every − 1`` q-only steps that
     take it. Losses (K,) stay on the device. Like the joint block it
-    allocates no lasting storage, so it can be captured in a CUDA graph."""
+    allocates no lasting storage, so it can be captured in a CUDA graph.
+    ``mesh``: data parallel, on this rank's rows of each minibatch."""
     _check_schedule(model, hyper_every)
 
     def loss(X, Y, factor_state=None):
         return model.loss(X, Y) if factor_state is None else model.loss(X, Y, factor_state=factor_state)
 
-    return _group_block(model, opt, hyper_every, loss, model.factor_state)
+    return _group_block(model, opt, hyper_every, loss, model.factor_state, mesh)
 
 
 def make_batched_alternating_step(stack: nn.Module, opt: AdamPair, hyper_every: int) -> Callable:

@@ -34,14 +34,26 @@ the scanned step over it. Here:
 
 Member f's trajectory is its sequential run's. On the CPU in float64 the two
 agree to rounding; on the card a batched product may sum in another order
-than F separate ones, so they agree to a tolerance. Meshes (the member axis
-over several devices) are not ported: passing one raises
-``NotImplementedError``.
+than F separate ones, so they agree to a tolerance.
+
+The member-axis mesh (``mesh`` of the two trainers, ``parallel.make_mesh``
+with n_model 1): the member list, padded cyclically to a multiple of the
+ranks (a pad copies a real member and its sampler seed, so its trajectory is
+that member's), is split into contiguous blocks, and each rank trains its
+block as its own stack with the code above: no collective per step, so the
+blocks stay CUDA graphs whatever the backend. At the log points and
+checkpoint boundaries the ranks share their members' last losses (one
+host-side gather), so a non-finite loss in any member restores every rank's
+stack, as it restores the whole stack without a mesh; each rank checkpoints
+its own block in a directory of its own under the manager's. At the end
+every rank gathers the members' raws once and returns the F results in
+order, the pads dropped.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -262,14 +274,18 @@ def _member_results(stack, optimizer, F, losses_log, sps, final, restored) -> Li
 
 
 def _run_blocks(stack, optimizer, blocks, runner_for, *, start_step, num_iter, num_inner, block_index,
-                log_every_blocks, log_fn, ckpt_manager, recover_on_nan, metric_logger, name, extra_scalars=None):
+                log_every_blocks, log_fn, ckpt_manager, recover_on_nan, metric_logger, name, extra_scalars=None,
+                mesh=None):
     """The block loop both stacked trainers share: ``runner_for(steps_done)``
     gives the block's ``BlockRunner`` (after staging its inputs), the host
     reads the losses at the log points and checkpoint boundaries, a
     non-finite loss in any member restores the whole stack, and a
     non-finite end raises. Returns (losses at the log points, steps/s,
-    the last block's losses (F,), whether it was restored)."""
+    the last block's losses (F,), whether it was restored). On a member
+    ``mesh`` the losses read are every rank's members' (gathered), so every
+    rank takes the same branches; the losses logged are all of them."""
     F = stack_size(stack)
+    shared = (lambda a: a) if mesh is None else (lambda a: np.concatenate(mesh.gather_object(a)))
     num_blocks = max(1, -(-(num_iter - start_step) // num_inner))
     losses_log: list = []
     t_start = time.perf_counter()
@@ -298,9 +314,10 @@ def _run_blocks(stack, optimizer, blocks, runner_for, *, start_step, num_iter, n
         is_log = log_every_blocks and b % log_every_blocks == 0
         ckpt_due = ckpt_manager is not None and ckpt_manager.crossed(prev_steps, steps_done)
         if is_log or ckpt_due:
-            last = block_losses[-1].cpu().numpy()
+            local = block_losses[-1].cpu().numpy()
+            last = shared(local)
             if not np.all(np.isfinite(last)):
-                bad = [f for f in range(F) if not np.isfinite(last[f])]
+                bad = [f for f in range(len(last)) if not np.isfinite(last[f])]
                 log_fn(f"step {steps_done:>8d}  NON-FINITE loss in members {bad}")
                 if ckpt_manager is not None and recover_on_nan:
                     restored = ckpt_manager.restore_latest(stack, optimizer)
@@ -311,18 +328,19 @@ def _run_blocks(stack, optimizer, blocks, runner_for, *, start_step, num_iter, n
             if ckpt_due:
                 ckpt_manager.save_at(steps_done, stack, optimizer)
             if is_log:
-                losses_log.append(last)
+                losses_log.append(local)  # this rank's members; ``last`` is every rank's
                 joined = " ".join(f"{v:.4f}" for v in last)
                 log_fn(f"step {steps_done:>8d}  losses [{joined}]")
                 if metric_logger is not None:
-                    scalars = {f"loss_{f}": float(last[f]) for f in range(F)}
+                    scalars = {f"loss_{f}": float(last[f]) for f in range(len(last))}
                     if extra_scalars is not None:
                         scalars.update(extra_scalars(prev_steps))
                     metric_logger.log(steps_done, scalars=scalars)
     final = block_losses[-1].cpu().numpy()  # waits for the device
     elapsed = max(time.perf_counter() - t_start, 1e-12)
-    if not np.all(np.isfinite(final)) and not restored_this_block:
-        bad = [f for f in range(F) if not np.isfinite(final[f])]
+    every = shared(final)
+    if not np.all(np.isfinite(every)) and not restored_this_block:
+        bad = [f for f in range(len(every)) if not np.isfinite(every[f])]
         raise FloatingPointError(
             f"{name} finished at step {steps_done} with non-finite losses in members {bad}; the trained stack is "
             "unusable. Enable checkpointing (ckpt_manager) for NaN recovery.")
@@ -330,9 +348,96 @@ def _run_blocks(stack, optimizer, blocks, runner_for, *, start_step, num_iter, n
     return losses_log, (timed_steps / elapsed if timed_steps else 0.0), final, restored_this_block
 
 
-def _check_members(models, datas, seeds, mesh, name):
-    if mesh is not None:
-        raise NotImplementedError(f"{name}: the member-axis mesh is not ported to zigp_tpu_torch yet")
+def member_place(mesh, items: Sequence) -> list:
+    """This rank's contiguous block of the member list ``items`` (its length
+    a multiple of the mesh's data axis): the counterpart of sharding the
+    stack's leading member axis over ``data``."""
+    from ..parallel.mesh import row_block
+
+    _check_member_mesh(mesh, len(items))
+    return list(items)[row_block(mesh, len(items))]
+
+
+def _check_member_mesh(mesh, F: int) -> None:
+    n = mesh.shape["data"]
+    if F % n != 0:
+        raise ValueError(
+            f"member count {F} must divide by the mesh data axis ({n}) for "
+            "member-axis sharding — pad the stack or change the mesh"
+        )
+
+
+def _member_pad_ids(mesh, F: int) -> List[int]:
+    """Member indices padded cyclically to a multiple of the mesh data axis:
+    a pad duplicates a real member and its sampler seed, and is dropped from
+    the results."""
+    D = mesh.shape["data"]
+    P = -(-F // D) * D
+    return list(range(F)) + [i % F for i in range(P - F)]
+
+
+class _MemberShard:
+    """One rank's share of a member-axis mesh run: its block of the padded
+    member list (``mine``), its own checkpoint directory (``manager``), and
+    the gather of every member's result at the end (``gather``)."""
+
+    def __init__(self, mesh, F: int, log_fn):
+        if mesh.shape["model"] != 1:
+            raise ValueError("the member-axis mesh shards over the data axis only (n_model=1)")
+        self.mesh, self.F = mesh, F
+        ids = _member_pad_ids(mesh, F)
+        if len(ids) > F:
+            log_fn(f"member padding: {F} -> {len(ids)} members to fill the {mesh.shape['data']}-device data axis "
+                   "(pads discarded)")
+        self.ids = member_place(mesh, ids)
+        self.per = len(self.ids)
+
+    def mine(self, items):
+        return None if items is None else [items[i] for i in self.ids]
+
+    def manager(self, ckpt_manager):
+        if ckpt_manager is None:
+            return None
+        from ..io.checkpoint import CheckpointManager
+
+        d, D = self.mesh.coords[0], self.mesh.shape["data"]
+        return CheckpointManager(os.path.join(ckpt_manager.directory, f"members_{d}_of_{D}"),
+                                 every=ckpt_manager.every, writer=True)
+
+    def gather(self, results: List[FitResult], templates: Sequence[nn.Module]) -> List[FitResult]:
+        """The F real members' results on every rank, in order: this rank's
+        own as trained, the others' rebuilt from ``templates`` with their
+        gathered raws (their ``optimizer`` None: it lives on their rank)."""
+        from ..io.convert import dump_arrays, load_jax_arrays
+
+        payload = [(dump_arrays(r.model), r.losses, r.steps_per_sec, r.final_loss) for r in results]
+        slots = [p for block in self.mesh.gather_object(payload) for p in block]
+        out = []
+        for f in range(self.F):  # slot f holds member f: the pads come after the real members
+            if f // self.per == self.mesh.coords[0]:
+                out.append(results[f % self.per])
+                continue
+            raws, losses, sps, final = slots[f]
+            model = copy.deepcopy(templates[f])
+            load_jax_arrays(model, raws)
+            out.append(FitResult(model=model, optimizer=None, losses=losses, steps_per_sec=sps, final_loss=final))
+        return out
+
+
+def _on_member_mesh(mesh, log_fn, models, datas, seeds, xys, aux, ckpt_manager):
+    """What this rank trains of a run on a member-axis ``mesh``: its block
+    of the members, their datas, seeds, arrays and ``aux``, its checkpoint
+    manager, its member count, and ``finish(results)``, the gather of
+    every member's result; all of it unchanged without a mesh."""
+    F = len(models)
+    if mesh is None:
+        return models, datas, seeds, xys, aux, ckpt_manager, F, lambda results: results
+    shard = _MemberShard(mesh, F, log_fn)
+    mine = [shard.mine(v) for v in (models, datas, seeds, xys, aux)]
+    return (*mine, shard.manager(ckpt_manager), shard.per, lambda results: shard.gather(results, models))
+
+
+def _check_members(models, datas, seeds):
     F = len(models)
     if F == 0:
         raise ValueError("no models to train")
@@ -391,11 +496,15 @@ def fit_batched_scanned(
     place, and a resumed run already at ``num_iter`` trains nothing and
     gives each member's loss on its first rows. Every member's
     ``steps_per_sec`` is the stack's. On the card each block after the
-    warm-up is one CUDA-graph replay."""
+    warm-up is one CUDA-graph replay. ``mesh``: the member-axis mesh (the
+    module docstring), each rank training its block of the members; every
+    rank returns the F results, in order."""
     from .alternating import init_alt_optimizers, make_batched_alternating_step
     from .optim import make_optimizer
 
-    F, seeds, xys = _check_members(models, datas, seeds, mesh, "fit_batched_scanned")
+    F, seeds, xys = _check_members(models, datas, seeds)
+    models, datas, seeds, xys, aux, ckpt_manager, F, finish = _on_member_mesh(
+        mesh, log_fn, models, datas, seeds, xys, aux, ckpt_manager)
     stack = stack_models(models)
     if hyper_every:
         if loss_fn is not None or aux is not None:
@@ -418,7 +527,7 @@ def fit_batched_scanned(
     if start_step is not None and start_step >= num_iter:
         log_fn("checkpoint is already at or past num_iter; nothing to train")
         finals = _stacked_first_rows_loss(stack, xys, batch_size, loss_fn=loss_fn, aux=aux)
-        return _member_results(stack, optimizer, F, [], 0.0, finals, False)
+        return finish(_member_results(stack, optimizer, F, [], 0.0, finals, False))
     start_step = start_step or 0
 
     blocks = StackedBlocks(xys, batch_size, num_inner, seeds=seeds, device=p0.device, dtype=p0.dtype)
@@ -434,8 +543,8 @@ def fit_batched_scanned(
         stack, optimizer, blocks, lambda steps, stage=True: runner, start_step=start_step, num_iter=num_iter,
         num_inner=num_inner, block_index=lambda steps: steps // num_inner, log_every_blocks=log_every_blocks,
         log_fn=log_fn, ckpt_manager=ckpt_manager, recover_on_nan=recover_on_nan, metric_logger=metric_logger,
-        name="fit_batched_scanned")
-    return _member_results(stack, optimizer, F, losses_log, sps, final, restored)
+        name="fit_batched_scanned", mesh=mesh)
+    return finish(_member_results(stack, optimizer, F, losses_log, sps, final, restored))
 
 
 class StackedNaturalGradientTrainer(NaturalGradientTrainer):
@@ -487,11 +596,14 @@ def fit_natgrad_batched(
     per matrix, the joint step on f and g of every member at once (each of
     its Choleskys one ``chol_inv`` launch for 2F matrices), every KL budget
     per member. Equal-shaped members only (no ragged or ``aux`` path).
-    Checkpoints and NaN handling as in ``fit_batched_scanned``."""
-    F, seeds, xys = _check_members(models, datas, seeds, mesh, "fit_natgrad_batched")
+    Checkpoints, NaN handling and the member-axis ``mesh`` as in
+    ``fit_batched_scanned``."""
+    F, seeds, xys = _check_members(models, datas, seeds)
     if len({np.asarray(x).shape for x, _ in xys}) > 1:
         raise ValueError(f"fit_natgrad_batched requires equal-shaped member datasets "
                          f"(got {[np.asarray(x).shape for x, _ in xys]})")
+    models, datas, seeds, xys, _, ckpt_manager, F, finish = _on_member_mesh(
+        mesh, log_fn, models, datas, seeds, xys, None, ckpt_manager)
     num_iter = int(num_iter)
     adam_warmup = min(int(adam_warmup), num_iter // 2)
     num_inner = max(1, min(int(num_inner), num_iter - adam_warmup))
@@ -512,7 +624,7 @@ def fit_natgrad_batched(
     if start_step is not None and start_step >= num_iter:
         log_fn("checkpoint is already at or past num_iter; nothing to train")
         finals = _stacked_first_rows_loss(stack, xys, batch_size)
-        return _member_results(stack, trainer.adam, F, [], 0.0, finals, False)
+        return finish(_member_results(stack, trainer.adam, F, [], 0.0, finals, False))
     if start_step is None:
         if adam_warmup:
             warm = fit_batched_scanned(models, datas, num_iter=adam_warmup, batch_size=batch_size,
@@ -547,8 +659,8 @@ def fit_natgrad_batched(
         block_index=lambda steps: -(-steps // num_inner), log_every_blocks=log_every_blocks, log_fn=log_fn,
         ckpt_manager=ckpt_manager, recover_on_nan=recover_on_nan, metric_logger=metric_logger,
         name="fit_natgrad_batched",
-        extra_scalars=lambda prev: {"gamma": float(trainer.gamma_at(prev + num_inner - 1 - adam_warmup))})
-    return _member_results(stack, trainer.adam, F, losses_log, sps, final, restored)
+        extra_scalars=lambda prev: {"gamma": float(trainer.gamma_at(prev + num_inner - 1 - adam_warmup))}, mesh=mesh)
+    return finish(_member_results(stack, trainer.adam, F, losses_log, sps, final, restored))
 
 
 class _StackedPredict(nn.Module):
@@ -595,6 +707,7 @@ def predict_batched_stacked(predict_fn: Callable, stack: nn.Module, Xs: np.ndarr
 __all__ = [
     "StackedBlocks",
     "StackedNaturalGradientTrainer",
+    "member_place",
     "fit_batched_scanned",
     "fit_natgrad_batched",
     "make_batched_block",

@@ -277,14 +277,18 @@ class NaturalGradientTrainer:
     of q_sqrt_factors) when ``kron_joint`` and the model has factored
     covariances, the mean step with the factors under Adam when it has them
     and not ``kron_joint``, the diagonal step on (q_mu, q_sqrt) otherwise.
-    ``kl_cap`` None or ≤ 0 disables the KL budget."""
+    ``kl_cap`` None or ≤ 0 disables the KL budget. ``mesh``: data parallel
+    (``parallel.step``): the loss is this rank's share of the minibatch's,
+    and both gradient buffers are summed over the data group before the
+    updates, which then run identically on every rank."""
 
     def __init__(self, model, *, gamma: float = 0.1, adam_lr: float = 1e-3, gamma_warmup: int = 0,
                  gamma_init: float = 1e-4, max_mean_step: float = 10.0, kron_joint: bool = False,
-                 kl_cap: Optional[float] = 10.0):
+                 kl_cap: Optional[float] = 10.0, mesh=None):
         from ..models.kron import KronGP
 
         self.model = model
+        self.mesh = mesh
         self.gps = [m for m in model.modules() if isinstance(m, KronGP)]
         self._kron_cov = any(gp.q_sqrt_factors is not None for gp in self.gps)
         self.kron_joint = bool(kron_joint) and self._kron_cov
@@ -362,6 +366,15 @@ class NaturalGradientTrainer:
         differentiated."""
         return self.model.loss(X, Y) if factor_state is None else self.model.loss(X, Y, factor_state=factor_state)
 
+    def _share(self, X, Y, factor_state=None) -> torch.Tensor:
+        value = self._loss(X, Y, factor_state)
+        return value if self.mesh is None else value / self.mesh.shape["data"]
+
+    def _reduce(self, *buffers) -> None:
+        if self.mesh is not None:
+            for buf in buffers:
+                self.mesh.all_reduce_data(buf.flat)
+
     def _factor_state(self):
         return self.model.factor_state()
 
@@ -370,8 +383,9 @@ class NaturalGradientTrainer:
         step (which reads the factors after Adam, as the JAX step does)."""
         self.adam.zero_grad()
         self.natural.zero_()
-        loss = self._loss(X, Y)
+        loss = self._share(X, Y)
         (loss.sum() if loss.ndim else loss).backward()
+        self._reduce(self.adam.grads, self.natural)
         self.adam.step()
         self.natural_step(gamma, step)
         return loss.detach()
@@ -380,8 +394,9 @@ class NaturalGradientTrainer:
         """The natural step alone at frozen hypers: gradients of the
         variational raws only, the factorization injected, Adam untouched."""
         self.natural.zero_()
-        loss = self._loss(X, Y, factor_state)
+        loss = self._share(X, Y, factor_state)
         (loss.sum() if loss.ndim else loss).backward(inputs=self.natural.params)
+        self._reduce(self.natural)
         self.natural_step(gamma, step)
         return loss.detach()
 
@@ -389,7 +404,12 @@ class NaturalGradientTrainer:
         """K steps over Xs (K, B, D), Ys (K, B, L) at γ ``gammas[k]``, step
         ``k`` indexed ``start + k``; with ``hyper_every`` in groups of one
         full step, ``factor_state()`` under ``torch.no_grad()`` and
-        ``hyper_every − 1`` q-only steps. Losses (K,) on the device."""
+        ``hyper_every − 1`` q-only steps. Losses (K,) on the device, summed
+        over the data group on a mesh."""
+        out = self._block(Xs, Ys, gammas, start, hyper_every)
+        return out if self.mesh is None else self.mesh.all_reduce_data(out)
+
+    def _block(self, Xs, Ys, gammas, start: int, hyper_every: int) -> torch.Tensor:
         K = Xs.shape[0]
         if not hyper_every:
             return torch.stack([self.full_step(Xs[k], Ys[k], gammas[k], start + k) for k in range(K)])
@@ -445,12 +465,13 @@ def fit_natgrad_scanned(
     ``FloatingPointError``. ``hyper_every`` > 0: groups of one full step
     and ``hyper_every − 1`` natural q-only steps (device sampler only, a
     Kronecker model, dividing the block). On the card each block after the
-    warm-up is one CUDA-graph replay. Meshes are not ported: passing one
-    raises ``NotImplementedError``."""
-    from .scan import BlockRunner, StagedBlocks, fit_scanned
+    warm-up is one CUDA-graph replay. ``mesh``: data parallel, as
+    ``fit_scanned``'s (the warm-up too): each rank on its rows of every
+    batch, the gradients summed over the data group before the Adam and
+    natural steps, the γ ramp and the warm-start identical on every rank;
+    with ``hyper_every`` it raises, as the JAX package's does."""
+    from .scan import BlockRunner, _agree, fit_scanned, mesh_blocks
 
-    if mesh is not None:
-        raise NotImplementedError("fit_natgrad_scanned: mesh not ported to zigp_tpu_torch yet")
     num_iter = int(num_iter)
     adam_warmup = min(int(adam_warmup), num_iter // 2)
     num_inner = max(1, min(int(num_inner), num_iter - adam_warmup))
@@ -462,7 +483,7 @@ def fit_natgrad_scanned(
 
     trainer = NaturalGradientTrainer(model, gamma=gamma, adam_lr=adam_lr, gamma_warmup=gamma_warmup,
                                      gamma_init=gamma_init, max_mean_step=max_mean_step, kron_joint=kron_joint,
-                                     kl_cap=kl_cap)
+                                     kl_cap=kl_cap, mesh=mesh)
     p0 = next(model.parameters())
     start_step = None
     if resume and ckpt_manager is not None:
@@ -489,20 +510,23 @@ def fit_natgrad_scanned(
         if adam_warmup:
             warm = fit_scanned(model, data, num_iter=adam_warmup, batch_size=batch_size,
                                num_inner=min(num_inner, adam_warmup), learning_rate=adam_lr, log_every_blocks=0,
-                               log_fn=log_fn, sampler=sampler, sampler_seed=sampler_seed)
+                               log_fn=log_fn, sampler=sampler, sampler_seed=sampler_seed, mesh=mesh)
             if warm.interrupted:
                 return warm
         start_step = adam_warmup
 
     num_iter = max(num_iter, start_step + num_inner)
     device_mode = sampler == "device"
-    if hyper_every and not device_mode:
+    if mesh is not None:
+        from ..parallel.mesh import replicate
+
+        replicate(mesh, model)
+    if hyper_every and (not device_mode or mesh is not None):
         raise ValueError("hyper_every (block-coordinate natgrad) requires sampler='device' and no mesh")
     if hyper_every and hyper_every < 2:
         raise ValueError(f"hyper_every must be >= 2 (got {hyper_every})")
 
-    blocks = StagedBlocks(data, sampler, batch_size, num_inner, device=p0.device, dtype=p0.dtype,
-                          sampler_seed=sampler_seed)
+    blocks, capture = mesh_blocks(mesh, data, sampler, batch_size, num_inner, p0, sampler_seed, log_fn)
     # float32 whatever the model's dtype: the JAX step's γ is a float32 scalar,
     # so its products with constants (γ², 2γ/M_rest) round in float32 there too
     gammas = torch.empty((num_inner,), dtype=torch.float32, device=p0.device)
@@ -511,10 +535,11 @@ def fit_natgrad_scanned(
     def runner_for(first: int) -> BlockRunner:
         r = first % trainer.period
         if r not in runners:
-            runners[r] = BlockRunner(lambda: trainer.block(blocks.Xs, blocks.Ys, gammas, r, hyper_every), blocks.Xs)
+            runners[r] = BlockRunner(lambda: trainer.block(blocks.Xs, blocks.Ys, gammas, r, hyper_every), blocks.Xs,
+                                     capture=capture)
         return runners[r]
 
-    if ckpt_manager is not None and ckpt_manager.latest_step() is None:
+    if ckpt_manager is not None and _agree(mesh, ckpt_manager.latest_step() is None):
         ckpt_manager.save_at(start_step, model, trainer.adam)
 
     losses, all_losses = [], []

@@ -97,11 +97,12 @@ class BlockRunner:
     through it. On the CPU each call runs ``body``. On the card the first
     ⌈WARMUP_STEPS / K⌉ calls run it on a side stream, as a capture's warm-up
     (real steps of the run); then ``capture()`` (when ``wants_capture``) and
-    every later call is one replay."""
+    every later call is one replay. ``capture=False`` runs every block
+    eagerly: a block with gloo collectives, which a graph cannot hold."""
 
-    def __init__(self, body: Callable[[], torch.Tensor], Xs: torch.Tensor):
+    def __init__(self, body: Callable[[], torch.Tensor], Xs: torch.Tensor, *, capture: bool = True):
         self.body = body
-        self.cuda = Xs.device.type == "cuda"
+        self.cuda = Xs.device.type == "cuda" and capture
         self.warm = math.ceil(WARMUP_STEPS / Xs.shape[0]) if self.cuda else 0
         self.graphed = None
 
@@ -157,30 +158,68 @@ class StagedBlocks:
     each block by ``fill(block)``: from ``data`` (a ``DataSet``) by
     ``sampler`` "host" (the next K batches of its epochs) or "device" (the
     training set on the device, ``block_seed(sampler_seed, block)``'s
-    indices gathered once)."""
+    indices gathered once). ``rows``: a data-parallel rank's block of each
+    batch's B rows (``parallel.mesh.row_block``); the pair is then
+    (K, rows, ·), and the batches are the whole run's, of which it keeps its
+    rows."""
 
-    def __init__(self, data, sampler: str, batch_size: int, num_inner: int, *, device, dtype, sampler_seed: int = 0):
+    def __init__(self, data, sampler: str, batch_size: int, num_inner: int, *, device, dtype, sampler_seed: int = 0,
+                 rows: Optional[slice] = None):
         if sampler not in ("host", "device"):
             raise ValueError(f"unknown sampler {sampler!r}")
         X, Y = (np.asarray(a) for a in data.arrays)
         self.data, self.sampler, self.batch_size, self.seed = data, sampler, batch_size, sampler_seed
-        self.Xs = torch.empty((num_inner, batch_size, *X.shape[1:]), dtype=dtype, device=device)
-        self.Ys = torch.empty((num_inner, batch_size, *Y.shape[1:]), dtype=dtype, device=device)
+        self.rows = rows if rows is not None else slice(0, batch_size)
+        b = len(range(batch_size)[self.rows])
+        self.Xs = torch.empty((num_inner, b, *X.shape[1:]), dtype=dtype, device=device)
+        self.Ys = torch.empty((num_inner, b, *Y.shape[1:]), dtype=dtype, device=device)
         if sampler == "device":
             self.Xtrain = torch.as_tensor(X, dtype=dtype).to(device)
             self.Ytrain = torch.as_tensor(Y, dtype=dtype).to(device)
             self.generator = torch.Generator(device=device)
 
     def fill(self, block: int) -> None:
-        K, B = self.Xs.shape[:2]
         if self.sampler == "device":
-            idx = _draw(self.generator, block_seed(self.seed, block), self.Xtrain.shape[0], K * B)
-            torch.index_select(self.Xtrain, 0, idx, out=self.Xs.view(K * B, *self.Xs.shape[2:]))
-            torch.index_select(self.Ytrain, 0, idx, out=self.Ys.view(K * B, *self.Ys.shape[2:]))
+            self.fill_seed(block_seed(self.seed, block))
         else:
-            xs, ys = _next_batches(self.data, B, K)
-            self.Xs.copy_(torch.from_numpy(xs))
-            self.Ys.copy_(torch.from_numpy(ys))
+            xs, ys = _next_batches(self.data, self.batch_size, self.Xs.shape[0])
+            self.Xs.copy_(torch.from_numpy(np.ascontiguousarray(xs[:, self.rows])))
+            self.Ys.copy_(torch.from_numpy(np.ascontiguousarray(ys[:, self.rows])))
+
+    def fill_seed(self, seed: int) -> None:
+        """The device sampler's block of generator seed ``seed``: all K·B
+        indices drawn, this block's rows of each step gathered."""
+        K, b = self.Xs.shape[:2]
+        idx = _draw(self.generator, seed, self.Xtrain.shape[0], K * self.batch_size)
+        if b != self.batch_size:
+            idx = idx.view(K, self.batch_size)[:, self.rows].reshape(-1)
+        torch.index_select(self.Xtrain, 0, idx, out=self.Xs.view(K * b, *self.Xs.shape[2:]))
+        torch.index_select(self.Ytrain, 0, idx, out=self.Ys.view(K * b, *self.Ys.shape[2:]))
+
+
+def mesh_blocks(mesh, data, sampler: str, batch_size: int, num_inner: int, like: torch.Tensor, sampler_seed: int,
+                log_fn) -> tuple:
+    """(``StagedBlocks`` of this rank's rows of every batch, on ``like``'s
+    device and dtype; whether its blocks may be captured): on a mesh the
+    rank's block of rows, and no capture under gloo, whose collectives a
+    CUDA graph cannot hold (logged once)."""
+    rows = None
+    if mesh is not None:
+        from ..parallel.mesh import row_block
+
+        rows = row_block(mesh, batch_size)
+    blocks = StagedBlocks(data, sampler, batch_size, num_inner, device=like.device, dtype=like.dtype,
+                          sampler_seed=sampler_seed, rows=rows)
+    capture = mesh is None or mesh.backend != "gloo"
+    if not capture and like.is_cuda:
+        log_fn("gloo collectives cannot be captured: the blocks run eagerly")
+    return blocks, capture
+
+
+def _agree(mesh, value):
+    """``value`` as rank 0 sees it, on every rank of ``mesh`` (a branch the
+    ranks must take together); ``value`` itself without a mesh."""
+    return value if mesh is None else mesh.agree(value)
 
 
 def _loss_of(loss_fn):
@@ -225,6 +264,7 @@ def fit_scanned(
     sampler: str = "host",
     sampler_seed: int = 0,
     mesh=None,
+    mesh_tp: bool = False,
     alternating: int = 0,
     alt_opt_factories=None,
 ) -> FitResult:
@@ -271,39 +311,71 @@ def fit_scanned(
     (and once at the end). The run's step rate counts the blocks after the
     first and, on the card, after the capture. A non-finite loss at the end
     raises ``FloatingPointError``, unless the last block was restored.
-    Meshes are not ported: passing one raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError("fit_scanned: mesh not ported to zigp_tpu_torch yet")
+    ``mesh`` (``parallel.make_mesh``; this process is one of its ranks):
+    data-parallel training, each rank on its B / n_data rows of every batch
+    (both samplers draw the single-rank batches), its gradient summed over
+    the data group every step (``parallel.step``); the model is first
+    broadcast from rank 0. ``mesh_tp``: the M-row variational raws and their
+    Adam moments row-sharded over the model axis too (``parallel.tp_place``;
+    the result's ``optimizer`` is the placed one), joint Adam only. The
+    losses every rank reads are summed over the data group, so every rank
+    takes the same branches; rank 0 alone writes the checkpoints and the
+    metrics. Under gloo the blocks run eagerly (its collectives cannot be
+    captured); under NCCL a block is one replay, its all-reduces inside."""
     if sampler not in ("host", "device"):
         raise ValueError(f"fit_scanned: unknown sampler {sampler!r}")
+    if mesh is None and mesh_tp:
+        raise ValueError("fit_scanned: mesh_tp needs a mesh")
+    if mesh is not None and batch_size % mesh.shape["data"]:
+        raise ValueError(f"batch size {batch_size} not divisible by data axis {mesh.shape['data']}")
     if alternating:
         from .alternating import init_alt_optimizers, make_alternating_block
 
         if sampler != "device" or loss_fn is not None:
             raise ValueError(
                 "alternating training requires sampler='device' and the model's own loss (loss_fn=None)")
+        if mesh_tp:
+            raise ValueError("alternating training supports data-parallel meshes only (mesh_tp=False)")
         if num_inner % alternating:
             raise ValueError(f"scan_inner ({num_inner}) must divide by hyper_every ({alternating})")
+        if mesh is not None:
+            from ..parallel.mesh import replicate
+
+            replicate(mesh, model)
         if optimizer is None:
             optimizer = init_alt_optimizers(model, learning_rate=learning_rate, opt_factories=alt_opt_factories)
-        step = make_alternating_block(model, optimizer, alternating)
+        step = make_alternating_block(model, optimizer, alternating, mesh=mesh)
     else:
         if optimizer is None:
             from .optim import make_optimizer
 
             optimizer = make_optimizer(model, default_lr=learning_rate)
-        train = make_scan_train_step(optimizer, loss_fn)
+        if mesh is not None:
+            from ..parallel.mesh import replicate
+            from ..parallel.step import make_local_block
+            from ..parallel.tp import tp_place
+
+            if mesh_tp:
+                optimizer = tp_place(mesh, model, optimizer)
+            else:
+                replicate(mesh, model)
+            train = make_local_block(optimizer, mesh, loss_fn)
+        else:
+            train = make_scan_train_step(optimizer, loss_fn)
         step = lambda Xs, Ys: train(model, Xs, Ys)
 
     p0 = next(model.parameters())
-    blocks = StagedBlocks(data, sampler, batch_size, num_inner, device=p0.device, dtype=p0.dtype,
-                          sampler_seed=sampler_seed)
-    runner = BlockRunner(lambda: step(blocks.Xs, blocks.Ys), blocks.Xs)
     loss = _loss_of(loss_fn)
+    if mesh is not None:
+        from ..parallel.step import sharded_loss
+
+        loss = sharded_loss(loss_fn, mesh)
+    blocks, capture = mesh_blocks(mesh, data, sampler, batch_size, num_inner, p0, sampler_seed, log_fn)
+    runner = BlockRunner(lambda: step(blocks.Xs, blocks.Ys), blocks.Xs, capture=capture)
     kl_fn = model.prior_kl if hasattr(model, "prior_kl") else None
     hist = metric_logger is not None and hist_every
 
-    if ckpt_manager is not None and ckpt_manager.latest_step() is None:
+    if ckpt_manager is not None and _agree(mesh, ckpt_manager.latest_step() is None):
         ckpt_manager.save_at(start_step, model, optimizer)
 
     # ceil: never train fewer steps than asked (the JAX package's rule)
@@ -366,12 +438,16 @@ def fit_scanned(
             if hist and (prev_steps // hist_every) != (steps_done // hist_every):
                 if sampler == "device":
                     bx, by = data.next_batch(batch_size)
-                    hX = torch.as_tensor(bx, dtype=p0.dtype).to(p0.device)
-                    hY = torch.as_tensor(by, dtype=p0.dtype).to(p0.device)
+                    hX = torch.as_tensor(bx[blocks.rows], dtype=p0.dtype).to(p0.device)
+                    hY = torch.as_tensor(by[blocks.rows], dtype=p0.dtype).to(p0.device)
                 else:
                     hX, hY = blocks.Xs[-1], blocks.Ys[-1]
+                grads = _all_grads(model, loss, hX, hY)
+                if mesh is not None:  # this rank's share, summed over the data group
+                    for g in grads.values():
+                        mesh.all_reduce_data(g)
                 metric_logger.log_param_tree(steps_done, model, prefix="param")
-                metric_logger.log_param_tree(steps_done, _all_grads(model, loss, hX, hY), prefix="grad")
+                metric_logger.log_param_tree(steps_done, grads, prefix="grad")
             if callback is not None and callback_every and (prev_steps // callback_every) != (steps_done // callback_every):
                 callback(steps_done, model)
     except KeyboardInterrupt as ki:

@@ -4,6 +4,7 @@ A copy of ``zigp_tpu/utils/logging.py`` (the JAX package's module is numpy
 only apart from its pytree walk; the port keeps its own): one JSON object per
 log call, ``{"step", "wall", <scalars>, "hist/<name>": <percentile
 summary>}``, the records the JAX logger writes, so the same tools read both.
+On a mesh (``parallel``) rank 0 alone writes and prints.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from ..io.convert import jax_key
+from ..parallel.mesh import is_main_process
 
 
 def _summarize_array(a: np.ndarray) -> Dict[str, float]:
@@ -51,7 +53,9 @@ class MetricLogger:
         self.path = path
         self.also_print = also_print
         self._fh = None
-        if path:
+        self.writer = is_main_process()
+        self.also_print = also_print and self.writer
+        if path and self.writer:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             self._fh = open(path, "a", buffering=1)
         self._t0 = time.time()
