@@ -24,16 +24,20 @@ so any failure exits non-zero):
    the failing pivot on and leave the rows before it unchanged (for the
    cluster kernel with the failing pivot in the first, a middle and the
    last CTA's rows of the row instance's plan).
-3. The ``rbf_gram`` kernel against a float64 oracle and against its plain
-   version on the card, at the training path's shapes: the pptr time column
-   (t in [4.368, 5.447], lengthscale 0.005) and a 2-D station set
+3. The ``rbf_gram`` kernels against a float64 oracle and against their
+   plain versions on the card, at the training path's shapes: the pptr time
+   column (t in [4.368, 5.447], lengthscale 0.005) and a 2-D station set
    (lengthscale 8), as K_mm (2, n, n) and K_mn (2, n, 1000) with the
-   minibatch shared by the pair, O(1) coordinates in 3-D, and a covariate
-   factor's K_mn in 5-D (the kernel's run-time-D instance). The forward's
-   relative error must be at most max(1e-5, the plain version's own error),
-   and the gradients of a seeded scalar loss through the kernel's autograd
-   Function at most max(3 × those of autograd of the plain version, 1e-5),
-   both against float64.
+   minibatch shared by the pair, the time column's K_mm on two distinct
+   tensors that both take a gradient (dZ gated), O(1) coordinates in 3-D,
+   and a covariate factor's K_mn in 5-D (the run-time-D instances). The
+   forward's relative error must be at most max(1e-5, the plain version's
+   own error), and the gradients of a seeded scalar loss through the
+   kernel's autograd Function (its backward the backward kernel) at most
+   max(3 × those of autograd of the plain version, 1e-5), both against
+   float64; then the backward kernel's dX, dZ, dℓ and dσ² on their own within
+   max(3 × ``rbf_gram_bwd_plain``'s float32 error on the card, 1e-5) of its
+   float64 run, the same bits on two calls, each launch counted.
 4. The JAX package's A/B alternatives to ``chol_inv``, each against a float64
    oracle and its plain version on the card (the rule of phase 2, with
    torch.linalg.cholesky or the one torch.einsum as the library): the L-only
@@ -74,7 +78,8 @@ so any failure exits non-zero):
    and replayed for the other three, each replay counted as the launches its
    capture made. Losses finite and falling (last block's mean below the
    first's); rbf_gram launches 4 per step (K_mm and K_mn of both factors,
-   the f/g pair in one launch) and chol_inv launches 2 per step; on one
+   the f/g pair in one launch), its backward kernel 4 (one a gram; none in
+   any serving chunk or exported call) and chol_inv launches 2 per step; on one
    fixed batch the card's float32 loss and the gradient of every raw against
    the same model on the CPU in float64, each within max(3 × the CPU float32
    run's error, 1e-5); and 10 steps with both kernels against 10 steps with
@@ -195,7 +200,11 @@ so any failure exits non-zero):
    of 3), as stack steps/s and fold-steps/s; ``predict_batched_stacked``
    over 5 × 65,536 rows (one launch per factor and chunk for the five
    members, each member within the serving gate of CPU float64; points/s,
-   median of 5). After phase 12: the batched studies on the five folds of the
+   median of 5); the gram's backward kernel against its plain backward
+   (``rbf_gram_bwd_plain``, swapped into the autograd Function by the
+   script), graphed steps/s of the flagship, champion, 105 × 250 grid and
+   flagship F = 5 stack, median of 3 blocks of 50 in turns, each warm-up's
+   backward launches counted. After phase 12: the batched studies on the five folds of the
    rain field, each test set cut to 500 rows (``study_folds``: the host's
    scoring of an on/off mixture grows with the square of its components):
    ``run_cv_batched`` of all six variants (the fold
@@ -269,7 +278,8 @@ so any failure exits non-zero):
    --mesh-data 1 --iters 100`` with a workdir on the rain field's pickle:
    exit 0, rank 0's results written and finite. Every process started is
    stopped and every process group made is destroyed.
-18. A ``kernels`` JSON line (with the families' ``chol_inv.cu`` rows at G = 1
+18. A ``kernels`` JSON line (every ``rbf_gram`` row beside a row of its
+   backward kernel at each shape a training path launched it; with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
    launches) (the kron_mv_2 rows with the serving path's
@@ -541,7 +551,8 @@ def phase_serving(ci, name, cfg, split, batch, use_kernel=False):
     chunks = math.ceil(X.shape[0] / batch)
     sizes = [Z.shape[0] for Z in model.f.Zs]
     per_chunk = {"chol_inv": sum(n <= ci.MAX_N for n in sizes),
-                 "chol_inv_blocked": sum(n > ci.MAX_N for n in sizes), "rbf_gram": per_step_launches(model)[0]}
+                 "chol_inv_blocked": sum(n > ci.MAX_N for n in sizes), "rbf_gram": per_step_launches(model)[0],
+                 "rbf_gram_bwd": 0}
 
     zero_counts()
     out = predict_batched(model.predict, X, batch=batch, device=DEVICE)
@@ -636,6 +647,7 @@ CLUSTER_REPLACES = "zigp_tpu/ops/pallas/chol_inv.py:387"
 
 GRAM_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/rbf_gram.cu"
 GRAM_REPLACES = "zigp_tpu/ops/pallas/rbf_gram.py:79"
+GRAM_BWD_REPLACES = "zigp_tpu/ops/pallas/rbf_gram.py:93"  # _bwd, the Pallas kernel's custom VJP, which XLA fuses
 
 
 def zero_counts() -> None:
@@ -675,22 +687,25 @@ def first_gp(model):
     return model.gp if hasattr(model, "gp") else model.f
 
 
-def per_step_launches(model) -> tuple[int, int, int]:
-    """(rbf_gram, chol_inv.cu, chol_inv_cluster.cu) launches of one training
-    step or serving chunk, a stacked f/g pair or a single GP alike: K_mm and
-    K_mn per RBF leaf whose gram kernel is on (a factor's kernel alone, or
-    inside a composite of the zoo); one chol_inv launch per factor,
-    chol_inv.cu to MAX_N and the cluster kernel above."""
+def per_step_launches(model, training: bool = True) -> tuple[int, int, int, int]:
+    """(rbf_gram, its backward, chol_inv.cu, chol_inv_cluster.cu) launches of
+    one training step, or with ``training`` False of one serving chunk, a
+    stacked f/g pair or a single GP alike: K_mm and K_mn per RBF leaf whose
+    gram kernel is on (a factor's kernel alone, or inside a composite of the
+    zoo), each differentiated by one backward launch in a training step
+    (its inducing points, lengthscales and variance are trained) and by
+    none in serving; one chol_inv launch per factor, chol_inv.cu to MAX_N
+    and the cluster kernel above."""
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
     from zigp_tpu_torch.ops.kernels import flag_leaves
 
     gp = first_gp(model)
     sizes = [Z.shape[0] for Z in gp.Zs]
-    return (2 * sum(flag_leaves(gp.kernel_flags())), sum(n <= ci.MAX_N for n in sizes),
-            sum(n > ci.MAX_N for n in sizes))
+    grams = 2 * sum(flag_leaves(gp.kernel_flags()))
+    return (grams, grams if training else 0, sum(n <= ci.MAX_N for n in sizes), sum(n > ci.MAX_N for n in sizes))
 
 
-LAUNCH_KEYS = ("rbf_gram", "chol_inv", "chol_inv_blocked")  # per_step_launches' order
+LAUNCH_KEYS = ("rbf_gram", "rbf_gram_bwd", "chol_inv", "chol_inv_blocked")  # per_step_launches' order
 
 
 def check_launches(name, counts, steps, per_step) -> None:
@@ -703,7 +718,8 @@ def check_launches(name, counts, steps, per_step) -> None:
 
 def gram_cases():
     """The rbf_gram gate's inputs (f32-representable float64): name, X
-    (G or 1, N, D), Z (M, D) shared by the pair or None for K(X, X), ell
+    (G or 1, N, D), Z: an (M, D) minibatch shared by the pair (no gradient),
+    a (G, M, D) block a kernel (with a gradient), or None for K(X, X); ell
     (G, D), var (G,)."""
     rng = np.random.RandomState(7)
     f32 = lambda a: np.asarray(a, np.float32).astype(np.float64)
@@ -714,6 +730,7 @@ def gram_cases():
     var = np.array([20.0, 10.0])
     cases = [
         ("time column K_mm, ell 0.005", t_knots, None, np.full((2, 1), 0.005), var),
+        ("time column K_mm on two tensors, ell 0.005", t_knots, t_knots.copy(), np.full((2, 1), 0.005), var),
         ("time column K_mn, ell 0.005", t_knots, t_batch, np.full((2, 1), 0.005), var),
         ("stations K_mm, ell 8", s_knots, None, np.full((2, 2), 8.0), var),
         ("stations K_mn, ell 8", s_knots, box(1000), np.full((2, 2), 8.0), var),
@@ -724,22 +741,35 @@ def gram_cases():
 
 
 def gram_and_grads(fn, X, Z, ell, var, cot, device, dtype):
-    """K and the gradients of sum(K ⊙ cot) in X, ell and var (Z, when
-    given, is data), as float64 numpy."""
+    """K and the gradients of sum(K ⊙ cot) in X, ell and var, and in Z where
+    it is a block a kernel (a shared Z is data), as float64 numpy."""
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     Xt, lt, vt = (t(a).requires_grad_(True) for a in (X, ell, var))
-    K = fn(Xt, Xt if Z is None else t(Z), lt, vt)
+    Zt = Xt if Z is None else t(Z).requires_grad_(Z.ndim == 3)
+    K = fn(Xt, Zt, lt, vt)
     torch.sum(K * t(cot)).backward()
     out = lambda a: a.detach().cpu().double().numpy()
-    return out(K), [out(Xt.grad), out(lt.grad), out(vt.grad)]
+    return out(K), [out(Xt.grad), None if Z is None or Z.ndim == 2 else out(Zt.grad), out(lt.grad), out(vt.grad)]
+
+
+def bwd_args(rg, X, Z, ell, var, cot, device, dtype):
+    """``rbf_gram_bwd_*``'s arguments for a gram case: K by the plain gram,
+    gK = cot, and the gradients the case asks for."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    Xt, lt, vt = t(X), t(ell), t(var)
+    Zt = Xt if Z is None else t(Z)
+    return Xt, Zt, lt, vt, rg.rbf_gram_plain(Xt, Zt, lt, vt), t(cot), (True, Z is None or Z.ndim == 3, True, True)
 
 
 def phase_gram_gate(rg):
-    """rbf_gram's forward and its Function's gradients against a float64
-    oracle (autograd of the plain version on the CPU) and against the plain
-    version in float32 on the card."""
+    """rbf_gram's forward and its Function's gradients (the backward kernel)
+    against a float64 oracle (autograd of the plain version on the CPU) and
+    against the plain version in float32 on the card; then the backward
+    kernel's dX, dZ, dℓ and dσ² on their own against the plain backward in
+    float64, within max(3 × the plain backward's float32 error on the card,
+    1e-5), the same bits on two calls, each launch counted."""
     for name, X, Z, ell, var in gram_cases():
-        N, M = X.shape[1], (X if Z is None else Z[None]).shape[1]
+        N, M = X.shape[1], (X if Z is None else Z).shape[-2]
         cot = np.random.RandomState(N + M).randn(ell.shape[0], N, M)
         K64, g64 = gram_and_grads(rg.rbf_gram_plain, X, Z, ell, var, cot, "cpu", torch.float64)
         Kk, gk = gram_and_grads(rg.rbf_gram, X, Z, ell, var, cot, DEVICE, torch.float32)
@@ -750,12 +780,37 @@ def phase_gram_gate(rg):
             f"kernel-vs-plain max abs {np.abs(Kk - Kp).max():.3e}")
         if not err <= tol:
             raise AssertionError(f"rbf_gram {name}: forward error {err:.3e} > {tol:.3e}")
-        for part, a, b, ref in zip(("dX", "dell", "dvar"), gk, gp, g64):
+        for part, a, b, ref in zip(("dX", "dZ", "dell", "dvar"), gk, gp, g64):
+            if ref is None:
+                continue
             e, e_plain = rel(a, ref), rel(b, ref)
             tol = max(3.0 * e_plain, 1e-5)
             log(f"gate rbf_gram {name} {part:4s}: Function {e:.3e}  autograd of plain {e_plain:.3e}  (tol {tol:.3e})")
             if not e <= tol:
                 raise AssertionError(f"rbf_gram {name} {part}: gradient error {e:.3e} > {tol:.3e}")
+
+        args = bwd_args(rg, X, Z, ell, var, cot, DEVICE, torch.float32)
+        ref = rg.rbf_gram_bwd_plain(*bwd_args(rg, X, Z, ell, var, cot, "cpu", torch.float64))
+        plain = rg.rbf_gram_bwd_plain(*args)
+        before = rg.rbf_gram_bwd_cuda.launches
+        first, second = rg.rbf_gram_bwd_cuda(*args), rg.rbf_gram_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        launches = rg.rbf_gram_bwd_cuda.launches - before
+        D = X.shape[-1]
+        want = 2 * (1 if D <= rg.BWD_MAX_DIMS else -(-D // rg.BWD_MAX_DIMS))
+        same = all(a is None or torch.equal(a, b) for a, b in zip(first, second))
+        if launches != want or not same:
+            raise AssertionError(f"rbf_gram backward kernel {name}: launches {launches} (expected {want}), the same "
+                                 f"bits on two calls {same}")
+        for part, a, p, r in zip(("dX", "dZ", "dell", "dvar"), first, plain, ref):
+            if r is None:
+                continue
+            e, e_plain = rel(a.cpu(), r), rel(p.cpu(), r)
+            tol = max(3.0 * e_plain, 1e-5)
+            log(f"gate rbf_gram backward kernel {name} {part:4s}: kernel {e:.3e}  plain backward {e_plain:.3e}  "
+                f"(tol {tol:.3e}); the same bits on two calls")
+            if not e <= tol:
+                raise AssertionError(f"rbf_gram backward kernel {name} {part}: error {e:.3e} > {tol:.3e}")
 
 
 def loss_and_grads(model, X, Y):
@@ -808,7 +863,8 @@ def phase_train(name, cfg, split, *, check=False):
     steps = res.step_losses.numel()
     blocks = res.step_losses.double().reshape(-1, cfg.scan_inner).mean(1).tolist()
     log(f"{name} train: {steps} steps at B={cfg.batch_size} in {wall:.1f} s (build of the kernels excluded); "
-        f"block mean losses {[f'{b:.6g}' for b in blocks]}; launches rbf_gram {counts['rbf_gram']}, chol_inv.cu "
+        f"block mean losses {[f'{b:.6g}' for b in blocks]}; launches rbf_gram {counts['rbf_gram']}, its backward "
+        f"{counts['rbf_gram_bwd']}, chol_inv.cu "
         f"{counts['chol_inv']}, chol_inv_cluster.cu {counts['chol_inv_blocked']} (expected {steps} x {per_step}); "
         f"by shape {counts['rbf_gram_by_shape']}, by n {counts['chol_inv_by_n']} {counts['chol_inv_blocked_by_n']}")
     if not torch.isfinite(res.step_losses).all():
@@ -971,15 +1027,64 @@ def gram_bound_ms(G, N, M, D, shared: bool, per_kernel: bool = False) -> tuple[f
 GRAM_VS_PLAIN_TOL = 1e-5  # relative Frobenius distance, as tests/test_torch_cuda.py
 
 
+def gram_bwd_bound_ms(G, N, M, D, kmm: bool, per_kernel: bool) -> tuple[float, str]:
+    """Least time of the gram's backward: gK read once (the kernel
+    recomputes K from X and Z, so K is not read), X, Z, ell and var read
+    once, dX, dℓ, dσ² and, for K(X, X) (K_mm), dZ written once; per entry
+    the forward's 3D + 3 operations, W and its sum (2), and per input
+    dimension W·diff, its product with diff and the three sums (5; 4
+    without dZ), in f32 outside the tensor cores. K_mn's Z is the shared
+    minibatch, or with ``per_kernel`` one block a kernel."""
+    z_elems = 0 if kmm else G * M * D if per_kernel else M * D
+    reads = G * N * M + G * N * D + z_elems + G * D + G
+    writes = G * N * D * (2 if kmm else 1) + G * D + G
+    t_bytes = 4 * (reads + writes) / PEAK_BYTES_PER_S
+    t_ops = G * N * M * (3 * D + 5 + D * (5 if kmm else 4)) / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+_GRAM_BWD_TIMES = {}  # (G, N, M, D, stacked): the backward's times, measured once for every path at that shape
+
+
+def gram_bwd_times(rg, G, N, M, D, stacked: bool) -> tuple:
+    """(ms with the host, device ms, the plain backward's ms, the largest
+    difference from the plain backward, its relative distance) of the
+    backward kernel at a path's shape: K(X, X) where N == M (every
+    gradient), else K_mn (the minibatch shared, or one block a kernel on a
+    stack's path; no gradient in it)."""
+    key = (G, N, M, D, stacked)
+    if key not in _GRAM_BWD_TIMES:
+        kmm = N == M
+        rng = np.random.RandomState(N * M + 1)
+        X = torch.as_tensor(T_SPAN[0] + rng.rand(G, N, D), dtype=torch.float32, device=DEVICE)
+        Z = X if kmm else torch.as_tensor(T_SPAN[0] + rng.rand(*((G,) if stacked else ()), M, D),
+                                          dtype=torch.float32, device=DEVICE)
+        ell = torch.full((G, D), 0.05, device=DEVICE)
+        var = torch.tensor(np.resize([20.0, 10.0], G), dtype=torch.float32, device=DEVICE)
+        K = rg.rbf_gram_cuda(X, Z, ell, var)
+        gK = torch.as_tensor(rng.randn(G, N, M), dtype=torch.float32, device=DEVICE)
+        args = (X, Z, ell, var, K, gK, (True, kmm, True, True))
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: rg.rbf_gram_bwd_cuda(*args), reps=200)
+            device_ms = graph_ms(lambda: rg.rbf_gram_bwd_cuda(*args))
+            plain_ms = cuda_ms(lambda: rg.rbf_gram_bwd_plain(*args), reps=50)
+            pairs = [(a, b) for a, b in zip(rg.rbf_gram_bwd_cuda(*args), rg.rbf_gram_bwd_plain(*args)) if a is not None]
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        dist = max(rel(a.cpu().numpy(), b.cpu().numpy()) for a, b in pairs)
+        _GRAM_BWD_TIMES[key] = (ms, device_ms, plain_ms, err, dist)
+    return _GRAM_BWD_TIMES[key]
+
+
 def gram_rows(rg, path_counts: dict, card, stacked: bool = False) -> list:
     """One kernels-line row per rbf_gram shape launched on each training
     path: the kernel's ms per call (CUDA events, host included), its device
     ms (CUDA graph), the plain version's ms, the bound, and the kernel's
-    largest difference from the plain version. The
-    kernel's output must be within GRAM_VS_PLAIN_TOL relative of the plain
-    version's at every shape. On a member stack's paths (``stacked``) each
-    member's minibatch is expanded to its kernels, so K_mn's Z is one block
-    a kernel there."""
+    largest difference from the plain version; and one row per shape its
+    backward kernel was launched at (``gram_bwd_times``), against
+    ``rbf_gram_bwd_plain``. The kernels' outputs must be within
+    GRAM_VS_PLAIN_TOL relative of the plain versions' at every shape. On a
+    member stack's paths (``stacked``) each member's minibatch is expanded
+    to its kernels, so K_mn's Z is one block a kernel there."""
     rows = []
     for path, counts in path_counts.items():
         for (G, N, M, D), launches in sorted(counts["rbf_gram_by_shape"].items()):
@@ -1007,6 +1112,21 @@ def gram_rows(rg, path_counts: dict, card, stacked: bool = False) -> list:
                 raise AssertionError(f"{kname}: kernel vs plain {dist:.3e} > {GRAM_VS_PLAIN_TOL:.0e}")
             rows.append({
                 "name": kname, "route": "cuda", "source": GRAM_SOURCE, "replaces": GRAM_REPLACES,
+                "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
+        for (G, N, M, D), launches in sorted(counts.get("rbf_gram_bwd_by_shape", {}).items()):
+            kmm = N == M
+            ms, device_ms, plain_ms, err, dist = gram_bwd_times(rg, G, N, M, D, stacked)
+            b_ms, b_by = gram_bwd_bound_ms(G, N, M, D, kmm, stacked)
+            kname = f"rbf_gram backward ({G},{N},{M}) D={D} {'K_mm' if kmm else 'K_mn'} ({path})"
+            log(f"time {kname}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
+                f"bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| {err:.3e}, relative "
+                f"{dist:.3e} (tol {GRAM_VS_PLAIN_TOL:.0e}); {card}")
+            if not dist <= GRAM_VS_PLAIN_TOL:
+                raise AssertionError(f"{kname}: kernel vs plain {dist:.3e} > {GRAM_VS_PLAIN_TOL:.0e}")
+            rows.append({
+                "name": kname, "route": "cuda", "source": GRAM_SOURCE, "replaces": GRAM_BWD_REPLACES,
                 "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             })
@@ -1284,13 +1404,17 @@ def phase_train_routes(cfg, split):
             linalg.chol_inv_forward = forward
         chol = counts["chol"] + counts["small_cholesky"] + counts["batched_small_cholesky"]
         per_step = 2 if paired else 4  # one factorization per factor, of the pair or of each GP
+        grams = per_step_launches(base)[0] * (1 if paired else 2)  # the pair's grams, or each GP's
         log(f"train A/B {name}: losses {losses[0]:.6f} .. {losses[-1]:.6f}; launches chol.cu {chol} "
             f"(chol {counts['chol']}, small_cholesky {counts['small_cholesky']}, batched "
-            f"{counts['batched_small_cholesky']}), chol_inv.cu {counts['chol_inv']}, rbf_gram {counts['rbf_gram']}")
+            f"{counts['batched_small_cholesky']}), chol_inv.cu {counts['chol_inv']}, rbf_gram {counts['rbf_gram']}, "
+            f"its backward {counts['rbf_gram_bwd']}")
         expected = (0, AB_STEPS * per_step) if route is None else (AB_STEPS * per_step, 0)
-        if (chol, counts["chol_inv"]) != expected:
-            raise AssertionError(f"train A/B {name}: chol.cu {chol}, chol_inv.cu {counts['chol_inv']} launches, "
-                                 f"expected {expected}")
+        if (chol, counts["chol_inv"]) != expected or (counts["rbf_gram"], counts["rbf_gram_bwd"]) != (
+                AB_STEPS * grams, AB_STEPS * grams):
+            raise AssertionError(f"train A/B {name}: chol.cu {chol}, chol_inv.cu {counts['chol_inv']}, rbf_gram "
+                                 f"{counts['rbf_gram']} and its backward {counts['rbf_gram_bwd']} launches, expected "
+                                 f"{expected} and {AB_STEPS * grams} each")
         if name == "chol+newton" and not np.isfinite(losses).all():
             # The documented limit of the algorithm, if the plain version
             # overflows in f32 on the CPU on the same factors too.
@@ -1892,7 +2016,8 @@ def phase_family(name, split) -> dict:
     steps = res.step_losses.numel()
     log(f"family {name} train: {steps} steps through _fit_auto, block mean losses "
         f"{[f'{b:.6g}' for b in res.step_losses.double().reshape(-1, 50).mean(1).tolist()]}; launches rbf_gram "
-        f"{train_counts['rbf_gram']} {train_counts['rbf_gram_by_shape']}, chol_inv.cu {train_counts['chol_inv']} "
+        f"{train_counts['rbf_gram']} {train_counts['rbf_gram_by_shape']}, its backward "
+        f"{train_counts['rbf_gram_bwd']}, chol_inv.cu {train_counts['chol_inv']} "
         f"{train_counts['chol_inv_by_n']} (expected {steps} x {per_step})")
     if steps != FAMILY_STEPS or not torch.isfinite(res.step_losses).all():
         raise AssertionError(f"family {name}: {steps} steps, finite {bool(torch.isfinite(res.step_losses).all())}")
@@ -1902,19 +2027,19 @@ def phase_family(name, split) -> dict:
 
     X = np.asarray(split.Xtrain[:ROWS])
     batch, chunks = 4096, math.ceil(ROWS / 4096)
-    serve_counts = []
+    serve_counts, per_chunk = [], per_step_launches(model, training=False)
     for call in range(2):
         graphs_before = dict(_CHUNK_GRAPHS.get(model, {}))
         zero_counts()
         out = predict_batched(getattr(model, method), X, batch=batch, device=DEVICE)
         torch.cuda.synchronize()
         serve_counts.append(read_counts())
-        check_launches(f"family {name} serving call {call + 1}", serve_counts[-1], chunks, per_step)
+        check_launches(f"family {name} serving call {call + 1}", serve_counts[-1], chunks, per_chunk)
         graphs = _CHUNK_GRAPHS.get(model, {})
         new = [k for k in graphs if graphs_before.get(k) is not graphs[k]]
         log(f"family {name} serving call {call + 1}: {X.shape[0]} rows by {method} in {chunks} chunks of {batch}: "
             f"launches chol_inv.cu {serve_counts[-1]['chol_inv']}, rbf_gram {serve_counts[-1]['rbf_gram']} "
-            f"(expected {chunks} x {per_step}); graphs captured {len(new)}")
+            f"(expected {chunks} x {per_chunk}); graphs captured {len(new)}")
         if len(new) != (1 if call == 0 else 0):
             raise AssertionError(f"family {name}: serving call {call + 1} captured {len(new)} graphs")
         for k, v in out.items():
@@ -2095,8 +2220,11 @@ def by_kernel(by_n: dict) -> dict:
 
 
 def counted_by_kernel(counts) -> dict:
+    """{(wrapper, n): launches} of the chol_inv kernels, and {(gram wrapper,
+    None): launches} of rbf_gram and its backward where they launched."""
     return {**{("chol_inv", n): k for n, k in counts["chol_inv_by_n"].items()},
-            **{("chol_inv_blocked", n): k for n, k in counts["chol_inv_blocked_by_n"].items()}}
+            **{("chol_inv_blocked", n): k for n, k in counts["chol_inv_blocked_by_n"].items()},
+            **{(name, None): counts[name] for name in ("rbf_gram", "rbf_gram_bwd") if counts[name]}}
 
 
 def expected_run_launches(cfg, sizes) -> tuple[int, dict]:
@@ -2419,7 +2547,8 @@ def trainer_rows(ci, trainers: dict, card) -> list:
     by_shape = {}
     for name, run in trainers.items():
         for (kernel, n), k in counted_by_kernel(run["counts"]).items():
-            by_shape.setdefault((kernel, n), {})[name] = k
+            if n is not None:
+                by_shape.setdefault((kernel, n), {})[name] = k
     rows = []
     for (kernel, n), paths in sorted(by_shape.items()):
         launches = sum(paths.values())
@@ -2708,7 +2837,8 @@ def phase_stack_paths(folds) -> dict:
     losses, and every ``chol_inv.cu`` and cluster-kernel launch by n exactly
     a single member's run's (``per_step_launches``, ``expected_run_launches``):
     the count does not grow with the members, whose matrices go in one
-    launch of F·E·2."""
+    launch of F·E·2; with the gram kernel on, rbf_gram's and its backward's
+    launches a step those of one member too (none with it off)."""
     from zigp_tpu_torch.training import fit_batched_scanned, fit_natgrad_batched
 
     out = {}
@@ -2732,6 +2862,9 @@ def phase_stack_paths(folds) -> dict:
                                       num_inner=STACK_INNER, learning_rate=cfg.indp_lr, seeds=seeds,
                                       hyper_every=hyper_every, log_every_blocks=1, log_fn=lines.append)
             want = by_kernel(trainer_launches(sizes, steps, hyper_every=hyper_every))
+            if use_kernel:  # K_mm and K_mn of each factor, all members in one launch, and one backward each
+                grams = per_step_launches(models[0])[0]
+                want.update({("rbf_gram", None): steps * grams, ("rbf_gram_bwd", None): steps * grams})
         torch.cuda.synchronize()
         counts = read_counts()
         wall = time.perf_counter() - t0
@@ -2845,6 +2978,82 @@ def time_stack_paths(folds, card) -> dict:
             f"{[round(v, 1) for v in runs['stack'][2]]} = {members * stack_rate:.1f} fold-steps/s, "
             f"{members * stack_rate / single_rate:.2f} x the single model (median of 3, in turns); stack graph: "
             f"{g.describe()}; {card}")
+    return out
+
+
+def time_gram_bwd_ab(split, folds, card) -> dict:
+    """Graphed steps/s with the gram's backward kernel against its plain
+    backward (``rbf_gram_bwd_plain``, swapped into the Function by the
+    script: the package has no switch), on the flagship, the champion, the
+    105 × 250 grid at B = 8192 and the flagship F = 5 stack, the gram kernel
+    on: blocks of 50 device-sampled steps, each path captured once after a
+    warm-up block on a side stream, then median of 3 passes of one block
+    each, in turns; host clock around work that ends in a synchronise. The
+    kernel path's warm-up launches the backward kernel once a gram a step,
+    the plain path's not at all."""
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.ops.cuda import rbf_gram as rg
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import DataSet, StackedBlocks, capture_block, stack_models
+    from zigp_tpu_torch.training.scan import StagedBlocks
+
+    def plain_backward(ctx, gK):
+        X, Z, ell, var, K = ctx.saved_tensors
+        return rg.rbf_gram_bwd_plain(X, Z, ell, var, K, gK, ctx.needs_input_grad)
+
+    def single(cfg):
+        m = build_onoff_pptr(cfg, split, device=DEVICE, use_kernel=True)
+        st = StagedBlocks(DataSet(split.Xtrain, split.Ytrain), "device", cfg.batch_size, STACK_INNER, device=DEVICE,
+                          dtype=torch.float32)
+        return m, st, trainer_body(cfg, m, 0)[0]
+
+    def stacked(cfg):
+        models, seeds, datas = stack_members(cfg, folds, 1, True)
+        st = StackedBlocks(datas, cfg.batch_size, STACK_INNER, seeds=seeds, device=DEVICE, dtype=torch.float32)
+        stack = stack_models(models)
+        return models[0], st, stack_body(cfg, stack, 0)
+
+    cases = {name: (single, cfg) for name, cfg in train_cfgs().items()}
+    cases["flagship F=5 stack"] = (stacked, stack_cases()["flagship F=5"][0])
+    kernel_backward = rg._RBFGram.__dict__["backward"]
+    out = {}
+    for name, (build, cfg) in cases.items():
+        runs = {}
+        for path in ("kernel", "plain"):
+            if path == "plain":
+                rg._RBFGram.backward = staticmethod(plain_backward)
+            try:
+                model, st, body = build(cfg)
+                st.fill(0)
+                zero_counts()
+                on_side_stream(lambda body=body, st=st: body(st.Xs, st.Ys))
+                warm = read_counts()["rbf_gram_bwd"]
+                step = capture_block(lambda body=body, st=st: body(st.Xs, st.Ys))
+            finally:
+                rg._RBFGram.backward = kernel_backward
+            want = STACK_INNER * per_step_launches(model)[1] if path == "kernel" else 0
+            if warm != want:
+                raise AssertionError(f"time gram backward {name} {path}: {warm} backward kernel launches in the "
+                                     f"warm-up block, expected {want}")
+            runs[path] = (st, step, [])
+        for rep in range(3):
+            for path in (("kernel", "plain") if rep % 2 == 0 else ("plain", "kernel")):
+                st, step, rates = runs[path]
+                st.fill(1 + rep)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = step()
+                torch.cuda.synchronize()
+                rates.append(STACK_INNER / (time.perf_counter() - t0))
+                if not torch.isfinite(losses).all():
+                    raise AssertionError(f"time gram backward {name} {path}: non-finite losses")
+        rate = {path: float(np.median(r[2])) for path, r in runs.items()}
+        out[name] = {**rate, "ratio": rate["kernel"] / rate["plain"]}
+        log(f"time gram backward {name}, B={cfg.batch_size}, graphed blocks of {STACK_INNER}: backward kernel "
+            f"{rate['kernel']:.1f} steps/s {[round(v, 1) for v in runs['kernel'][2]]}, plain backward "
+            f"{rate['plain']:.1f} steps/s {[round(v, 1) for v in runs['plain'][2]]}: {out[name]['ratio']:.3f} x "
+            f"(median of 3, in turns); graphs: kernel {runs['kernel'][1].graph.describe()}, plain "
+            f"{runs['plain'][1].graph.describe()}; {card}")
     return out
 
 
@@ -3001,7 +3210,8 @@ def check_artifact(name, kind, model, served, X) -> dict:
 
     sizes = [Z.shape[0] for Z in first_gp(model).Zs]
     want = {"chol_inv_by_n": {n: 1 for n in sizes if n <= ci.MAX_N},
-            "chol_inv_blocked_by_n": {n: 1 for n in sizes if n > ci.MAX_N}, "rbf_gram": per_step_launches(model)[0]}
+            "chol_inv_blocked_by_n": {n: 1 for n in sizes if n > ci.MAX_N}, "rbf_gram": per_step_launches(model)[0],
+            "rbf_gram_bwd": 0}
     calls = []
     for rows in (X, X[:CLI_SECOND_ROWS]):
         zero_counts()
@@ -3171,12 +3381,14 @@ def cli_rows(ci, rg, res: dict, card) -> list:
     """The kernels-line rows of the CLI phase's paths: ``chol_inv.cu`` and
     the cluster kernel at each (G, n) of the exported programs' served calls
     and of the forecast run; ``rbf_gram`` at each shape of the served calls,
-    and at D = 5 (the exogenous factor) of the forecast run."""
+    and at D = 5 (the exogenous factor) of the forecast run, with its
+    backward."""
     served = {f"exported {name}": counts for name, counts in res["served"].items()}
     rows = stacked_chol_rows(ci, {**served, "cli training, export and forecast": res["counts"]}, card,
                              label="cli", min_G=1)
-    d5 = {k: v for k, v in res["counts"]["rbf_gram_by_shape"].items() if k[3] == 5}
-    rows += gram_rows(rg, {**served, "cli forecast D=5": {"rbf_gram_by_shape": d5}}, card)
+    d5 = {f"rbf_gram{b}_by_shape": {k: v for k, v in res["counts"][f"rbf_gram{b}_by_shape"].items() if k[3] == 5}
+          for b in ("", "_bwd")}
+    rows += gram_rows(rg, {**served, "cli forecast D=5": d5}, card)
     return rows
 
 
@@ -4006,6 +4218,7 @@ def main() -> int:
     trainer_rates = time_trainers(split, card)
     mark("other trainers' times")
     stack_rates = time_stack_paths(folds, card)
+    gram_bwd_ab = time_gram_bwd_ab(split, folds, card)
     pts["stack flagship F=5"], stack_counts["serving"] = phase_stack_serving(folds, card)
     mark("member stack times")
     fold_wall = phase_fold_protocol(split, card)
@@ -4070,7 +4283,8 @@ def main() -> int:
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
         f"by chol_inv forward route: {json.dumps(route_rates)}; other trainers' steps/s {json.dumps(trainer_rates)}, "
         f"graph A/B {json.dumps(trainer_ab)}; fold protocol {fold_wall:.1f} s; "
-        f"member stacks {json.dumps(stack_rates)}; the stack's studies {json.dumps(studies['walls'])}; "
+        f"member stacks {json.dumps(stack_rates)}; the gram's backward kernel against its plain backward "
+        f"{json.dumps(gram_bwd_ab)}; the stack's studies {json.dumps(studies['walls'])}; "
         f"the command line's artifacts points/s {json.dumps(cli_res['pts'])}, walls {json.dumps(cli_res['walls'])}; "
         f"the zoo against the RBF twins {json.dumps(zoo['rates'])}; the toy {json.dumps(toy)}; "
         f"the one-rank NCCL mesh against no mesh {json.dumps(par['nccl']['steps_per_s'])}, torchrun "

@@ -143,3 +143,26 @@ def test_log_param_tree_keys_match_jax(tmp_path, q_cov):
             for stat, x in v.items():
                 np.testing.assert_allclose(got[k][stat], x, rtol=1e-12, atol=1e-15, err_msg=f"{k} {stat}")
     assert len(jax.tree_util.tree_leaves(jm)) == len(list(tm.parameters()))
+
+
+def test_save_final_on_a_mesh_takes_rank_0s_reading(tmp_path):
+    """Ranks that share a checkpoint directory decide the final save on rank
+    0's reading of it (``Mesh.agree``). Here the view of a slower rank: rank
+    0 found no final checkpoint and has already written it, so this rank's
+    own reading says there is nothing to save; it saves all the same, and
+    so meets rank 0 in the save's barrier instead of leaving it waiting."""
+    from zigp_tpu_torch.training.loop import save_final
+
+    class RankOneOfTwo:
+        def agree(self, obj):
+            return True  # rank 0's reading: the final checkpoint was missing
+
+    model = torch.nn.Linear(2, 2)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_at(20, model)  # rank 0's save, already on disk
+    saved = []
+    mgr.save_at = lambda step, model, opt_state: saved.append(step)
+    save_final(mgr, 20, False, model, None, print, mesh=RankOneOfTwo())
+    assert saved == [20]
+    save_final(mgr, 20, False, model, None, print)  # one process: its own reading
+    assert saved == [20]

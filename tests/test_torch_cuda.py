@@ -247,6 +247,7 @@ def _gram_inputs(G, N, M, D, shared, seed=0):
     [
         (2, 10, 10, 2, False), (2, 100, 1000, 1, True), (2, 10, 1000, 2, True), (1, 1, 33, 3, False),
         (3, 67, 45, 3, True), (2, 8, 1000, 4, True), (2, 37, 70, 7, False),  # D > 3: the run-time-D instance
+        (2, 250, 8192, 1, True), (2, 7, 4000, 2, True), (2, 5, 64, 3, False),  # M % 4 == 0: the 16-byte stores
     ],
 )
 def test_rbf_gram_kernel_matches_plain(cuda, G, N, M, D, shared):
@@ -286,6 +287,116 @@ def test_rbf_gram_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
         rg.rbf_gram_cuda(X, Z.cpu(), ell, var)
 
 
+def test_rbf_gram_vec4_instance_has_the_one_column_instances_bits(cuda):
+    """M = 8192 takes the 4-column instance, its first 8191 columns the
+    one-column instance: the same arithmetic, the same bits."""
+    X, Z, ell, var = (torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in _gram_inputs(2, 250, 8192, 1, True))
+    K4 = rg.rbf_gram_cuda(X, Z, ell, var)
+    K1 = rg.rbf_gram_cuda(X, Z[:8191].contiguous(), ell, var)
+    assert torch.equal(K4[..., :8191], K1)
+
+
+# G, N, M, D and the layout: K(X, X) (K_mm), the data shared by the G
+# kernels (K_mn's minibatch, no gradient), the other side shared (its
+# gradient summed over g), both per kernel
+GRAM_BWD_CASES = [
+    (2, 10, 10, 2, "K(X, X)"), (2, 100, 100, 1, "K(X, X)"), (2, 250, 250, 1, "K(X, X)"),
+    (2, 10, 1000, 2, "shared data"), (2, 100, 1000, 1, "shared data"), (2, 250, 8192, 1, "shared data"),
+    (3, 67, 45, 3, "per kernel"), (2, 33, 130, 2, "shared X"), (2, 8, 1000, 5, "shared data"),
+    (2, 37, 70, 7, "per kernel"), (2, 9, 30, 11, "shared X"),  # D > 3: the run-time-D instance; D > 8: 2 launches
+    (2, 20, 2100, 2, "per kernel"), (2, 20, 2101, 1, "K(X, X)"), (2, 9, 3000, 11, "per kernel"),  # M > 1024: chunks
+]
+
+
+def _bwd_args(G, N, M, D, layout, device, dtype, seed=0):
+    """(X, Z, ell, var, K, gK, needs), K by the plain gram in ``dtype``."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(N, D) if layout == "shared X" else rng.rand(G, N, D)
+    Z = rng.rand(M, D) if layout == "shared data" else rng.rand(G, M, D)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), dtype=dtype, device=device)
+    X, Z = t(X), t(Z)
+    Z = X if layout == "K(X, X)" else Z
+    ell, var = t(0.3 + rng.rand(G, D)), t(1.0 + rng.rand(G))
+    K = rg.rbf_gram_plain(X, Z, ell, var)
+    gK = t(rng.randn(G, N, Z.shape[-2]))
+    return X, Z, ell, var, K, gK, (True, layout != "shared data", True, True)
+
+
+@pytest.mark.parametrize("G,N,M,D,layout", GRAM_BWD_CASES)
+def test_rbf_gram_bwd_kernel_matches_f64(cuda, G, N, M, D, layout):
+    """dX, dZ, dℓ and dσ² within max(3 × the plain backward's float32 error,
+    1e-5) of float64; the same bits on a second call; one launch a call (a
+    block of 8 input dimensions each past D = 3)."""
+    args = _bwd_args(G, N, M, D, layout, cuda, torch.float32)
+    ref = rg.rbf_gram_bwd_plain(*_bwd_args(G, N, M, D, layout, "cpu", torch.float64))
+    plain = rg.rbf_gram_bwd_plain(*args)
+    before = rg.rbf_gram_bwd_cuda.launches
+    got = rg.rbf_gram_bwd_cuda(*args)
+    again = rg.rbf_gram_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert rg.rbf_gram_bwd_cuda.launches - before == 2 * (1 if D <= 8 else -(-D // 8))
+    for name, a, b, p, r in zip(("dX", "dZ", "dell", "dvar"), got, again, plain, ref):
+        if r is None:
+            assert a is None and b is None, name
+            continue
+        assert torch.equal(a, b), name
+        e, e_plain = _rel(a.cpu(), r), _rel(p.cpu(), r)
+        assert e <= max(3.0 * e_plain, 1e-5), f"{name}: {e:.3e} vs plain {e_plain:.3e}"
+
+
+def test_rbf_gram_bwd_graph_replay_equals_eager(cuda):
+    X, Z, ell, var, K, gK, needs = _bwd_args(2, 100, 1000, 1, "shared data", cuda, torch.float32)
+    eager = rg.rbf_gram_bwd_cuda(X, Z, ell, var, K, gK, needs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rg.rbf_gram_bwd_cuda(X, Z, ell, var, K, gK, needs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out = rg.rbf_gram_bwd_cuda(X, Z, ell, var, K, gK, needs)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,M,D", [(100, 1000, 1), (10, 1000, 2)])
+def test_rbf_gram_bwd_folded_stack_equals_each_member(cuda, N, M, D):
+    """The vmap rule folds F members into G: one forward and one backward
+    launch, and each member's gradients the bits of its own run."""
+    F, G = 3, 2
+    rng = np.random.RandomState(N + D)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    Z, ell, var = (t(a).requires_grad_(True) for a in (rng.rand(F, G, N, D), 0.3 + rng.rand(F, G, D), 1 + rng.rand(F, G)))
+    Xb, cot = t(rng.rand(M, D)), t(rng.randn(F, G, N, M))
+    before = (rg.rbf_gram_cuda.launches, rg.rbf_gram_bwd_cuda.launches)
+    torch.sum(torch.func.vmap(rg.rbf_gram, in_dims=(0, None, 0, 0))(Z, Xb, ell, var) * cot).backward()
+    torch.cuda.synchronize()
+    assert (rg.rbf_gram_cuda.launches - before[0], rg.rbf_gram_bwd_cuda.launches - before[1]) == (1, 1)
+    assert rg.rbf_gram_bwd_cuda.launches_by_shape[(F * G, N, M, D)] >= 1
+    for f in range(F):
+        Zf, lf, vf = (a[f].detach().clone().requires_grad_(True) for a in (Z, ell, var))
+        torch.sum(rg.rbf_gram(Zf, Xb, lf, vf) * cot[f]).backward()
+        for a, b in ((Z.grad[f], Zf.grad), (ell.grad[f], lf.grad), (var.grad[f], vf.grad)):
+            assert torch.equal(a, b)
+
+
+def test_rbf_gram_bwd_wrapper_raises_on_what_the_kernel_cannot_take(cuda):
+    X, Z, ell, var, K, gK, needs = _bwd_args(2, 8, 5, 2, "per kernel", cuda, torch.float32)
+    before = rg.rbf_gram_bwd_cuda.launches
+    with pytest.raises(TypeError):
+        rg.rbf_gram_bwd_cuda(X.double(), Z.double(), ell.double(), var.double(), K.double(), gK.double(), needs)
+    with pytest.raises(ValueError):
+        rg.rbf_gram_bwd_cuda(X, Z, ell, var, K, gK.cpu(), needs)  # gK on another device
+    with pytest.raises(ValueError):
+        rg.rbf_gram_bwd_cuda(X.transpose(-1, -2).contiguous().transpose(-1, -2), Z, ell, var, K, gK, needs)
+    with pytest.raises(ValueError):
+        rg.rbf_gram_bwd_cuda(X, Z, ell, var, K, gK[:, :, :4], needs)  # gK is not (G, N, M)
+    assert rg.rbf_gram_bwd_cuda.launches == before
+
+
 def test_use_kernel_model_on_card_launches_both_kernels(cuda):
     from zigp_tpu_torch.experiments import configs
     from zigp_tpu_torch.experiments.builders import build_onoff_pptr
@@ -295,10 +406,11 @@ def test_use_kernel_model_on_card_launches_both_kernels(cuda):
     model = build_onoff_pptr(configs.OnOffPptrConfig(grid=configs.KronGridConfig(4, 12)), split, use_kernel=True)
     X = torch.as_tensor(split.Xtrain[:64], dtype=torch.float32, device=cuda)
     Y = torch.as_tensor(split.Ytrain[:64], dtype=torch.float32, device=cuda)
-    g0, c0 = rg.rbf_gram_cuda.launches, ci.chol_inv_cuda.launches
+    g0, b0, c0 = rg.rbf_gram_cuda.launches, rg.rbf_gram_bwd_cuda.launches, ci.chol_inv_cuda.launches
     model.loss(X, Y).backward()
     torch.cuda.synchronize()
     assert rg.rbf_gram_cuda.launches - g0 == 4  # (K_mm + K_mn) x 2 factors, the f/g pair in one launch
+    assert rg.rbf_gram_bwd_cuda.launches - b0 == 4  # each of them differentiated by one backward launch
     assert ci.chol_inv_cuda.launches - c0 == 2
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.requires_grad)
 
@@ -914,7 +1026,9 @@ def test_captured_alternating_block_makes_no_chol_inv_launch_in_its_q_only_steps
     """10 steps in two groups of 5 captured as one graph: its replay launches
     ``chol_inv.cu`` 4 times a group (the hyper step's and the factor
     state's, one a factor for the stacked pair) and never in the 8 q-only
-    steps; equal to the eager block on a twin within GRAPH_TOL."""
+    steps, and the gram's backward kernel once for each of the hyper step's
+    4 grams a group (the factor state and the q-only steps' grams take no
+    gradient); equal to the eager block on a twin within GRAPH_TOL."""
     import copy
 
     from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
@@ -933,7 +1047,10 @@ def test_captured_alternating_block_makes_no_chol_inv_launch_in_its_q_only_steps
                                       (ci.chol_inv_cuda, "launches_by_batch"): {(2, 6): 4, (2, 20): 4},
                                       (rg.rbf_gram_cuda, "launches"): 2 * (4 + 2) + 8 * 2,
                                       (rg.rbf_gram_cuda, "launches_by_shape"):
-                                          graphed.graph.launches[(rg.rbf_gram_cuda, "launches_by_shape")]}
+                                          graphed.graph.launches[(rg.rbf_gram_cuda, "launches_by_shape")],
+                                      (rg.rbf_gram_bwd_cuda, "launches"): 2 * 4,
+                                      (rg.rbf_gram_bwd_cuda, "launches_by_shape"):
+                                          {(2, 6, 6, 2): 2, (2, 6, 256, 2): 2, (2, 20, 20, 1): 2, (2, 20, 256, 1): 2}}
     Xs.copy_(blocks[1][0])
     Ys.copy_(blocks[1][1])
     got = graphed()

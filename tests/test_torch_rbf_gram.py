@@ -6,12 +6,19 @@ the CPU, where the wrapper runs its plain version.
   against ``SquaredExponential.K`` in float64 at rtol 1e-12.
 - The autograd Function's gradients against ``jax.grad`` of the XLA gram in
   float64 (rtol 1e-10: the same derivatives, summed in another order).
+- The plain backward ``rbf_gram_bwd_plain`` (what the CUDA backward kernel
+  computes) against ``jax.vjp`` of the XLA gram in float64 at rtol 1e-10,
+  over the layouts (X and Z per kernel or shared, K(X, X)), D = 1, 2, 3, 5
+  and the gradients asked; the Function's backward on CPU tensors is the
+  plain backward, and launches nothing.
 - At the pptr time column (t ≈ 5, ℓ = 0.005), the Function's float32 dℓ is
   within 1e-3 of float64; the JAX VJP's float32 expansion form is not. The
   second is a fact of the reference (ROADMAP Queue 3), recorded here.
 - ``use_kernel`` on the CPU gives the plain gram, and the f/g pair still
   stacks; the flag reaches every factor, the covariate factor (D > 3) too.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -93,6 +100,62 @@ def test_function_gradients_match_jax_grad_f64(layout):
         np.testing.assert_allclose(Zt.grad.numpy(), np.asarray(jg[1]), rtol=1e-10, atol=1e-13)
     if layout == "shared_data":
         assert Zt.grad is None
+
+
+BWD_NEEDS = {"all": (True, True, True, True), "X and Z": (True, True, False, False),
+             "ell and var": (False, False, True, True), "X alone": (True, False, False, False)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_case(layout, D):
+    """Inputs of G = 2 kernels and JAX's vjp of the XLA gram at them, for
+    every gradient (one JAX call for the four choices of what is asked)."""
+    rng = np.random.RandomState(D)
+    G, N, M = 2, 6, 5
+    X = rng.randn(N, D) if layout == "shared X" else rng.randn(G, N, D)
+    Z = X if layout == "K(X, X)" else rng.randn(M, D) if layout == "shared Z" else rng.randn(G, M, D)
+    ell, var = 0.5 + rng.rand(G, D), 1.0 + rng.rand(G)
+    gK = rng.randn(G, N, Z.shape[-2])
+    per_g = lambda T, g: T if T.ndim == 2 else T[g]
+
+    def gram(X, Z, ell, var):
+        return jnp.stack([_jax_xla_gram(per_g(X, g), per_g(Z, g), ell[g], var[g]) for g in range(G)])
+
+    K, vjp = jax.vjp(jax.jit(gram), *(jnp.asarray(a) for a in (X, Z, ell, var)))
+    return (X, Z, ell, var, np.array(K), gK), [np.asarray(a) for a in vjp(jnp.asarray(gK))]
+
+
+@pytest.mark.parametrize("needs", list(BWD_NEEDS))
+@pytest.mark.parametrize("D", [1, 2, 3, 5])
+@pytest.mark.parametrize("layout", ["per kernel", "shared X", "shared Z", "K(X, X)"])
+def test_bwd_plain_matches_jax_vjp_f64(layout, D, needs):
+    """(dX, dZ, dℓ, dσ²) of sum(gK ⊙ K) for G = 2 kernels; a shared (2-D)
+    side's gradient is the sum over the kernels, as JAX's vjp gives it;
+    what is not asked for is None."""
+    (X, Z, ell, var, K, gK), want = _bwd_case(layout, D)
+    Xt = _t(X)
+    Zt = Xt if layout == "K(X, X)" else _t(Z)
+    got = rg.rbf_gram_bwd_plain(Xt, Zt, _t(ell), _t(var), _t(K), _t(gK), BWD_NEEDS[needs])
+    for name, asked, a, b in zip(("dX", "dZ", "dell", "dvar"), BWD_NEEDS[needs], got, want):
+        if not asked:
+            assert a is None, name
+            continue
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-10, atol=1e-13, err_msg=name)
+
+
+def test_function_backward_on_cpu_is_the_plain_backward(monkeypatch):
+    calls = []
+    plain = rg.rbf_gram_bwd_plain
+    monkeypatch.setattr(rg, "rbf_gram_bwd_plain", lambda *a: calls.append(a[-1]) or plain(*a))
+    rng = np.random.RandomState(4)
+    Z = _t(rng.randn(2, 5, 2)).requires_grad_(True)
+    ell, var = _t(0.5 + rng.rand(2, 2)).requires_grad_(True), _t(1.0 + rng.rand(2))
+    before = rg.rbf_gram_bwd_cuda.launches
+    rg.rbf_gram(Z, _t(rng.randn(7, 2)), ell, var).sum().backward()
+    assert calls == [(True, False, True, False)]  # Z, the shared data, ell, var
+    assert rg.rbf_gram_bwd_cuda.launches == before
+    assert Z.grad is not None and ell.grad is not None
 
 
 def test_single_kernel_and_shared_lengthscale():

@@ -80,7 +80,7 @@ def profile_train(steps: int = 50, *, use_kernel: bool = True, graphed: bool = T
         losses = block(1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    own = [e for e in prof.key_averages() if "chol_inv_kernel" in e.key or "rbf_gram_kernel" in e.key]
+    own = [e for e in prof.key_averages() if "chol_inv_kernel" in e.key or "rbf_gram" in e.key]
     res = {
         "config": "flagship" + ("" if temporal == "rbf" else f", {temporal} temporal")
                   + ("" if use_kernel else ", gram kernel off"), "path": "graphed" if graphed else "eager",

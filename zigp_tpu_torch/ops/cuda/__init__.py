@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), built from ``csrc/`` at
 first use (``_build``) and bound with ctypes: ``chol_inv`` (L and L⁻¹, one
 CTA a matrix to n = 238 and one thread-block cluster a matrix to 512),
-``cholesky`` (L only, any number of columns per step), ``rbf_gram`` and
+``cholesky`` (L only, any number of columns per step), ``rbf_gram`` (the
+gram and its gradient) and
 ``kron_matvec`` (the two-factor Kronecker matvec)."""
 
 from .chol_inv import (
@@ -16,7 +17,7 @@ from .chol_inv import (
 )
 from .cholesky import batched_small_cholesky_cuda, chol_plain, small_cholesky_cuda
 from .kron_matvec import kron_mv_2_cuda, kron_mv_2_plain
-from .rbf_gram import rbf_gram_cuda, rbf_gram_plain  # not the Function: it would hide the module
+from .rbf_gram import rbf_gram_bwd_cuda, rbf_gram_bwd_plain, rbf_gram_cuda, rbf_gram_plain  # not the Function: it would hide the module
 
 __all__ = [
     "chol_inv_cuda",
@@ -26,6 +27,8 @@ __all__ = [
     "chol_inv_cluster_plain",
     "rbf_gram_cuda",
     "rbf_gram_plain",
+    "rbf_gram_bwd_cuda",
+    "rbf_gram_bwd_plain",
     # the JAX package's A/B alternatives to chol_inv (ops/pallas/__init__.py)
     "small_cholesky_cuda",
     "batched_small_cholesky_cuda",

@@ -30,9 +30,10 @@ def counted_wrappers() -> dict:
     from .chol_inv import chol_cuda, chol_inv_blocked, chol_inv_cuda
     from .cholesky import batched_small_cholesky_cuda, small_cholesky_cuda
     from .kron_matvec import kron_mv_2_cuda
-    from .rbf_gram import rbf_gram_cuda
+    from .rbf_gram import rbf_gram_bwd_cuda, rbf_gram_cuda
 
-    return {"rbf_gram": rbf_gram_cuda, "chol_inv": chol_inv_cuda, "chol_inv_blocked": chol_inv_blocked,
+    return {"rbf_gram": rbf_gram_cuda, "rbf_gram_bwd": rbf_gram_bwd_cuda, "chol_inv": chol_inv_cuda,
+            "chol_inv_blocked": chol_inv_blocked,
             "chol": chol_cuda, "small_cholesky": small_cholesky_cuda,
             "batched_small_cholesky": batched_small_cholesky_cuda, "kron_mv_2": kron_mv_2_cuda}
 

@@ -69,18 +69,24 @@ def block_for_interrupt(model, log_fn, interrupt: BaseException, *, mid_step: bo
         raise interrupt
 
 
-def save_final(ckpt_manager, steps_done: int, restored_this_block: bool, model, optimizer, log_fn) -> None:
+def save_final(ckpt_manager, steps_done: int, restored_this_block: bool, model, optimizer, log_fn,
+               mesh=None) -> None:
     """The save at completion (the reference saves after its loop whatever
     the cadence), so restore-and-predict sees the trained state. Not after a
     last-block NaN restore: re-stamping the restored (older) state at
-    ``steps_done`` would present a half-trained model as trained."""
+    ``steps_done`` would present a half-trained model as trained. On a
+    ``mesh`` whose ranks share the directory, rank 0's reading of it decides
+    for every rank: a rank that read it after rank 0 had written this save
+    would skip the save's barrier."""
     if restored_this_block:
         log_fn(
             f"run ended in a NaN-restored state — final checkpoint stays at step "
             f"{ckpt_manager.latest_step() if ckpt_manager else '?'}, not {steps_done}"
         )
-    elif ckpt_manager is not None and ckpt_manager.latest_step() != steps_done:
-        ckpt_manager.save_at(steps_done, model, optimizer)
+    elif ckpt_manager is not None:
+        stale = ckpt_manager.latest_step() != steps_done
+        if stale if mesh is None else mesh.agree(stale):
+            ckpt_manager.save_at(steps_done, model, optimizer)
 
 
 def fit(

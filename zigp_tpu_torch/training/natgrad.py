@@ -616,7 +616,7 @@ def fit_natgrad_scanned(
         raise FloatingPointError(
             f"fit_natgrad_scanned finished at step {steps_done} with a non-finite loss ({final_loss}); the trained "
             "state is unusable. Enable checkpointing (ckpt_manager) to get NaN recovery mid-run.")
-    save_final(ckpt_manager, steps_done, restored_this_block, model, trainer.adam, log_fn)
+    save_final(ckpt_manager, steps_done, restored_this_block, model, trainer.adam, log_fn, mesh=mesh)
     return FitResult(model=model, optimizer=trainer.adam, losses=losses,
                      steps_per_sec=timed_steps / elapsed if timed_steps else 0.0,
                      final_loss=final_loss if not restored_this_block else float("nan"), step_losses=step_losses)

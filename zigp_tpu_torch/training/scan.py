@@ -480,7 +480,7 @@ def fit_scanned(
             f"fit_scanned finished at step {steps_done} with a non-finite loss ({final_loss}); the trained "
             "state is unusable. Enable checkpointing (ckpt_manager) to get NaN recovery mid-run."
         )
-    save_final(ckpt_manager, steps_done, restored_this_block, model, optimizer, log_fn)
+    save_final(ckpt_manager, steps_done, restored_this_block, model, optimizer, log_fn, mesh=mesh)
     return FitResult(
         model=model,
         optimizer=optimizer,
