@@ -278,7 +278,30 @@ so any failure exits non-zero):
    --mesh-data 1 --iters 100`` with a workdir on the rain field's pickle:
    exit 0, rank 0's results written and finite. Every process started is
    stopped and every process group made is destroyed.
-18. A ``kernels`` JSON line (every ``rbf_gram`` row beside a row of its
+18. The JAX package's tools (``phase_tools``). ``python -m
+   zigp_tpu_torch.experiments selfcheck`` in its own process (started
+   first; exit 0 and a PASS line for each of its 15 gates), and
+   ``run_selfcheck()`` in process with its launches counted exactly
+   (``SELFCHECK_LAUNCHES``: ``chol_inv.cu``, the cluster kernel's pair
+   instance at (1, 250, 250), the gram and its backward kernel). Then, the
+   counts zeroed just before and read just after (every kernel of the path
+   launched): ``sampler_ab`` on the flagship (staged, perstep, fused; one
+   pass of 2 blocks of 50; fused equal to staged bit for bit over 3
+   blocks), ``alternating_ab`` (joint, alt50), ``precision_ab`` (highest),
+   ``profile_step`` (flagship, 2 blocks of 50; the port's kernels named,
+   the categories summing to the total), ``scale_utilization`` at B = 8192
+   (one block; counted FLOPs beside ``analytic_matmul_flops``),
+   ``serve_bench`` on 65,536 rows (the champion's artifact within 1e-5 of
+   ``predict_batched``), ``time_to_target`` on the champion cut to 1,000
+   steps, scored every 250 (a finite curve); the native batcher available,
+   ``run_onoff`` trained 2 blocks on it (scored on 2,000 test rows: the
+   exact gated CRPS on the host grows with them), 2 staged host blocks equal to K
+   sequential ``next_batch`` draws; the toy plot's and the inducing
+   monitor's panels on the card within max(3 × the CPU float32 run's error,
+   1e-5) of CPU float64 (nothing drawn: the card's machine has no
+   matplotlib); ``graft_entry.entry()``'s ELBO under the same gate. The
+   phase's walls are printed.
+19. A ``kernels`` JSON line (every ``rbf_gram`` row beside a row of its
    backward kernel at each shape a training path launched it; with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
@@ -290,12 +313,13 @@ so any failure exits non-zero):
    training, export and forecast runs, and its ``rbf_gram`` rows of the
    served calls and at D = 5; the zoo paths' ``chol_inv.cu``, cluster-kernel
    and ``rbf_gram`` rows; the parallel layer's ``chol_inv.cu`` and
-   ``rbf_gram.cu`` rows at each rank's shapes with rank 0's launches), then
-   the card's name and power limit,
+   ``rbf_gram.cu`` rows at each rank's shapes with rank 0's launches; the
+   selfcheck's ``chol_inv.cu`` and cluster-kernel rows at each (G, n), its
+   ``rbf_gram`` and backward rows), then the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
-The script needs one CUDA device, the repository checkout around it, and
-nvcc (``$CUDA_HOME/bin`` or ``PATH``).
+The script needs one CUDA device, the repository checkout around it, nvcc
+(``$CUDA_HOME/bin`` or ``PATH``) and g++ (the native batcher).
 """
 
 from __future__ import annotations
@@ -4096,6 +4120,245 @@ def parallel_rows(ci, rg, par: dict, card) -> list:
     return rows
 
 
+# --- phase 18: the JAX package's tools on the card ------------------------------
+
+TOOLS_INNER = 50
+TOOLS_TTT_STEPS = 1000  # time_to_target's champion run, cut
+TOOLS_TTT_EVAL = 250
+TOOLS_TIMEOUT = 600  # seconds for the selfcheck's own process
+TOOLS_TEST_ROWS = 2000  # run_onoff's test rows on the native batcher
+SELFCHECK_CHECKS = 15  # the gates of run_selfcheck, each a "rel err ... PASS" line
+# run_selfcheck's launches: chol_inv.cu at n = 100 (check 1), in the small model's ELBO (2 factors), its ten
+# steps (20) and the single-path predict (2); the cluster kernel at n = 250 (check 2); the gram once (check 3),
+# 4 in the ELBO (K_mm and K_mn of 2 factors, f and g stacked) and 40 in the ten steps; its backward once
+# (check 3) and 40 in the ten steps
+SELFCHECK_LAUNCHES = {"chol_inv": 25, "chol_inv_blocked": 1, "rbf_gram": 45, "rbf_gram_bwd": 41}
+
+
+def start_selfcheck():
+    """``python -m zigp_tpu_torch.experiments selfcheck`` from the checkout,
+    in its own process, its output read by a thread that notes when it
+    ends: (process, {"t0", "out", "end"}, thread)."""
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "zigp_tpu_torch.experiments", "selfcheck"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env={**os.environ, "OMP_NUM_THREADS": "1"}, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    run = {"t0": time.perf_counter()}
+
+    def read():
+        run["out"] = proc.communicate()[0]
+        run["end"] = time.perf_counter()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, run, reader
+
+
+def finish_selfcheck(proc, run, reader) -> float:
+    """Wait for ``start_selfcheck``'s run: exit 0, a PASS line for every
+    check, "ALL PASS" last. Returns its wall time, from its start to its
+    exit."""
+    reader.join(timeout=TOOLS_TIMEOUT)
+    if reader.is_alive():
+        raise AssertionError(f"selfcheck command: still running after {TOOLS_TIMEOUT} s")
+    out, wall = run["out"], run["end"] - run["t0"]
+    passes = [line for line in out.splitlines() if ": rel err" in line and line.endswith("PASS")]
+    if proc.returncode != 0 or len(passes) != SELFCHECK_CHECKS or not out.rstrip().endswith("selfcheck: ALL PASS"):
+        raise AssertionError(f"selfcheck command: exit {proc.returncode}, {len(passes)} PASS lines:\n{out[-4000:]}")
+    log(f"tools: python -m zigp_tpu_torch.experiments selfcheck exited 0 in {wall:.1f} s, {len(passes)} checks "
+        "passed")
+    return wall
+
+
+def panels_gate(name, card, cpu64, cpu32) -> float:
+    """Every array of a plot's panels computed on the card in float32 within
+    max(3 × the CPU float32 run's error, 1e-5) of CPU float64 (relative
+    Frobenius); the largest share of its tolerance."""
+    flat = lambda d, p="": {f"{p}{k}": v for key, val in d.items()
+                            for k, v in (flat(val, f"{key}.").items() if isinstance(val, dict) else [(key, val)])}
+    card, cpu64, cpu32 = flat(card), flat(cpu64), flat(cpu32)
+    worst = 0.0
+    for key, want in cpu64.items():
+        e_card, e_32 = rel(card[key], want), rel(cpu32[key], want)
+        tol = max(3.0 * e_32, 1e-5)
+        worst = max(worst, e_card / tol)
+        if not e_card <= tol:
+            raise AssertionError(f"{name} panel {key}: card f32 vs cpu f64 {e_card:.3e} > {tol:.3e}")
+    log(f"tools: {name} panels, {len(cpu64)} arrays on the card within bound of CPU float64 (largest share of its "
+        f"tolerance {worst:.2f})")
+    return worst
+
+
+def phase_tools(split, card) -> dict:
+    """Phase 18: the selfcheck as a command (its own process, started first)
+    and in process with its launches counted exactly; then, with the counts
+    zeroed just before and read just after, the harnesses cut short
+    (``sampler_ab`` with staged = fused bit for bit, ``alternating_ab``,
+    ``precision_ab``, ``profile_step`` naming the port's kernels with its
+    categories summing to its total, ``scale_utilization`` at B = 8192,
+    ``serve_bench`` on 65,536 rows, ``time_to_target`` on the champion cut
+    to 1,000 steps), the native batcher (``run_onoff`` trained on it, a
+    staged block equal to K sequential draws), the plots' panels on the card
+    against CPU float64, and ``graft_entry.entry()``'s ELBO against CPU
+    float64. Every kernel of the main path must have been launched."""
+    from zigp_tpu_torch import graft_entry
+    from zigp_tpu_torch.experiments import (alternating_ab, measure, precision_ab, profile_step, runners,
+                                            sampler_ab, scale_utilization, serve_bench, time_to_target)
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig, best_onoff_config
+    from zigp_tpu_torch.experiments.selfcheck import run_selfcheck
+    from zigp_tpu_torch.experiments.toy import build_toy_model
+    from zigp_tpu_torch.io import native
+    from zigp_tpu_torch.io.datasets import synthetic_toydata
+    from zigp_tpu_torch.training import StagedBlocks
+    from zigp_tpu_torch.utils import plotting
+
+    t_phase = time.perf_counter()
+    tl = lambda s: log(f"tools: {s}")
+    walls = {}
+    proc, run, reader = start_selfcheck()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = run_selfcheck(tl)
+        torch.cuda.synchronize()
+        sc_counts = read_counts()
+        walls["selfcheck in process"] = time.perf_counter() - t0
+        got = {k: sc_counts[k] for k in SELFCHECK_LAUNCHES}
+        log(f"tools: run_selfcheck() in {walls['selfcheck in process']:.1f} s, launches {got} (expected "
+            f"{SELFCHECK_LAUNCHES}); {card}")
+        if got != SELFCHECK_LAUNCHES or got != res["launches"]:
+            raise AssertionError(f"selfcheck launches {got} (its own count {res['launches']}), expected "
+                                 f"{SELFCHECK_LAUNCHES}")
+
+        kw = dict(split=split, device=DEVICE)
+        zero_counts()
+        t0 = time.perf_counter()
+        sab = sampler_ab.run_sampler_ab(configs=("flagship",), variants=("staged", "perstep", "fused"),
+                                        num_inner=TOOLS_INNER, num_blocks=2, repeats=1, log_fn=tl, build_kw=kw)
+        built = measure.build_config("flagship", **kw)
+        staged, fused = (measure.losses_of(measure.prepare_step(*built, step_factory=sampler_ab._FACTORIES[v],
+                                                                num_inner=TOOLS_INNER)[0], range(3))
+                         for v in ("staged", "fused"))
+        if not np.array_equal(staged, fused):
+            raise AssertionError(f"sampler_ab: fused differs from staged by {np.abs(staged - fused).max():.3e}")
+        log(f"tools: sampler_ab fused = staged bit for bit over 3 blocks of {TOOLS_INNER} (3 replays of each "
+            "captured block after its warm-up)")
+        aab = alternating_ab.run_alternating_ab(configs=("flagship",), variants=("joint", "alt50"),
+                                                num_inner=TOOLS_INNER, num_blocks=2, repeats=1, log_fn=tl, build_kw=kw)
+        pab = precision_ab.run_precision_ab(configs=("flagship",), num_inner=TOOLS_INNER, num_blocks=2, repeats=1,
+                                            log_fn=tl, build_kw=kw)
+        walls["A/B harnesses"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prof = profile_step.profile_step("flagship", num_inner=TOOLS_INNER, num_blocks=2, log_fn=tl, build_kw=kw)
+        walls["profile_step"] = time.perf_counter() - t0
+        named = set(prof["port_kernels_us"])
+        cats = sum(prof["by_category"].values())
+        if not {"chol_inv_kernel", "rbf_gram_kernel", "rbf_gram_bwd_kernel"} <= named:
+            raise AssertionError(f"profile_step: the port's kernels not named in {sorted(prof['by_category'])}")
+        if not abs(cats - prof["total_us"]) <= 1e-9 * prof["total_us"]:
+            raise AssertionError(f"profile_step: categories sum to {cats} µs, total {prof['total_us']} µs")
+        t0 = time.perf_counter()
+        (util,) = scale_utilization.probe(batches=(8192,), num_inner=TOOLS_INNER, num_blocks=1, repeats=1, log_fn=tl,
+                                          build_kw={"device": DEVICE}, split=split)
+        walls["scale_utilization"] = time.perf_counter() - t0
+        if not (np.isfinite(util["flops_per_step_counted"]) and util["flops_per_step_counted"] > 0):
+            raise AssertionError(f"scale_utilization: counted FLOPs {util['flops_per_step_counted']}")
+        log(f"tools: scale_utilization B=8192: counted {util['flops_per_step_counted']:.6g} FLOPs a step beside "
+            f"analytic {util['flops_per_step_analytic']:.6g} (counted/analytic {util['counted_vs_analytic']:.4f}), "
+            f"{util['steps_per_sec']:.1f} steps/s; {card}")
+        t0 = time.perf_counter()
+        sb = serve_bench.run(batch=16384, rows=ROWS, build_kw=kw, log_fn=tl)
+        walls["serve_bench"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ttt = time_to_target.run_time_to_target(eval_every=TOOLS_TTT_EVAL, split=split, device=DEVICE, log_fn=tl,
+                                                cfg=dataclasses.replace(best_onoff_config(), num_iter=TOOLS_TTT_STEPS))
+        walls["time_to_target"] = time.perf_counter() - t0
+        curve = [c["test_rmse"] for c in ttt["curve"]]
+        if not (curve and np.isfinite(curve).all() and ttt["curve"][-1]["step"] == TOOLS_TTT_STEPS):
+            raise AssertionError(f"time_to_target: curve {ttt['curve']}")
+
+        t0 = time.perf_counter()
+        if not native.available():
+            raise AssertionError(f"the native batcher is not available: {native.build_error()}")
+        kinds = []
+        make = runners.make_dataset
+        runners.make_dataset = lambda x, y, **k: kinds.append(make(x, y, **k)) or kinds[-1]
+        try:
+            cfg = dataclasses.replace(OnOffPptrConfig(), num_iter=2 * TOOLS_INNER, scan_inner=TOOLS_INNER,
+                                      log_every=TOOLS_INNER)
+            # the test set cut: the exact gated CRPS on the host grows with its rows
+            scored = type(split)(split.Xtrain, split.Ytrain, split.Xtest[:TOOLS_TEST_ROWS],
+                                 split.Ytest[:TOOLS_TEST_ROWS])
+            onoff = runners.run_onoff(scored, cfg, device=DEVICE, use_kernel=True, log_fn=tl)
+        finally:
+            runners.make_dataset = make
+        bad = non_finite({k: v for k, v in onoff.items() if k != "model"})
+        if bad or len(kinds) != 1 or not isinstance(kinds[0], native.NativeDataSet):
+            raise AssertionError(f"run_onoff on the native batcher: non-finite {bad}, data sets {kinds}")
+        a, b = (native.NativeDataSet(split.Xtrain, split.Ytrain, seed=7) for _ in range(2))
+        blocks = StagedBlocks(a, "host", 1000, TOOLS_INNER, device=DEVICE, dtype=torch.float32)
+        for block in range(2):
+            blocks.fill(block)
+            want = [b.next_batch(1000) for _ in range(TOOLS_INNER)]
+            for got, k in ((blocks.Xs, 0), (blocks.Ys, 1)):
+                if not np.array_equal(got.cpu().numpy(), np.stack([w[k] for w in want]).astype(np.float32)):
+                    raise AssertionError("a staged native block differs from K sequential next_batch draws")
+        walls["native batcher"] = time.perf_counter() - t0
+        log(f"tools: run_onoff trained {2 * TOOLS_INNER} steps on the native batcher (test rmse "
+            f"{onoff['test_rmse']:.4f}); 2 staged blocks of {TOOLS_INNER} x 1000 rows equal sequential draws")
+
+        t0 = time.perf_counter()
+        x, y, _ = synthetic_toydata(450, seed=0)
+        toy64, _, _ = build_toy_model(x=x, y=y, device="cpu", dtype=torch.float64)
+        copies = [copy.deepcopy(toy64).to(device=d, dtype=torch.float32) for d in (DEVICE, "cpu")]
+        panels_gate("the toy plot", *(plotting.onoff_1d_panels(m, x, y) for m in (copies[0], toy64, copies[1])))
+        trained = onoff["model"]
+        mon = [copy.deepcopy(trained).to(device="cpu", dtype=dt) for dt in (torch.float64, torch.float32)]
+        panels_gate("the inducing monitor", *(plotting.inducing_monitor_panels(m, split.Xtrain, split.Ytrain)
+                                              for m in (trained, *mon)))
+        fn, args = graft_entry.entry()
+        elbo = float(fn(*args))
+        e64, e32 = (float(f(*a)) for f, a in (graft_entry.entry("cpu", d) for d in (torch.float64, torch.float32)))
+        e_card, e_cpu = abs(elbo - e64) / abs(e64), abs(e32 - e64) / abs(e64)
+        log(f"tools: graft_entry.entry() ELBO card f32 {elbo:.8g}, cpu f64 {e64:.8g}, cpu f32 {e32:.8g}: card vs f64 "
+            f"{e_card:.3e} (tol {max(3 * e_cpu, 1e-5):.3e})")
+        if not e_card <= max(3.0 * e_cpu, 1e-5):
+            raise AssertionError(f"graft_entry: card ELBO off CPU float64 by {e_card:.3e}")
+        walls["panels and graft_entry"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = read_counts()
+        walls["selfcheck command"] = finish_selfcheck(proc, run, reader)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    main = {k: counts[k] for k in LAUNCH_KEYS}
+    log(f"tools: launches on the harnesses' paths {main}; by shape {counts['rbf_gram_by_shape']}, by n "
+        f"{counts['chol_inv_by_n']} {counts['chol_inv_blocked_by_n']}")
+    missing = [k for k, v in main.items() if v == 0]
+    if missing:
+        raise AssertionError(f"tools: {missing} not launched on the harnesses' paths")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"tools: phase walls {json.dumps(walls)}; {card}")
+    return {"selfcheck_counts": sc_counts, "counts": counts, "walls": walls, "selfcheck": res,
+            "sampler_ab": sab["steps_per_sec_median"], "alternating_ab": aab["steps_per_sec_median"],
+            "precision_ab": pab["steps_per_sec_median"], "profile_step": {k: prof[k] for k in (
+                "per_step_us", "wall_us_per_step", "steps_per_sec", "port_kernels_us", "by_category")},
+            "scale_utilization": util, "serve_bench": sb, "time_to_target": {k: v for k, v in ttt.items()
+                                                                            if k != "curve"}}
+
+
+def tools_rows(ci, rg, tools: dict, card) -> list:
+    """The kernels-line rows of the selfcheck's shapes (new on the main
+    path: single matrices and its small model's grams), with its launches:
+    ``chol_inv.cu`` and the cluster kernel at every (G, n), the gram and its
+    backward at every shape."""
+    counts = {"selfcheck": tools["selfcheck_counts"]}
+    return stacked_chol_rows(ci, counts, card, label="tools", min_G=1) + gram_rows(rg, counts, card)
+
+
 def memoize_inducing_init() -> None:
     """Memoize the builders' ``kron_inducing_init`` for this script: a pure
     function of the training rows, the grid and the seed (it seeds numpy
@@ -4241,6 +4504,8 @@ def main() -> int:
 
     par = phase_parallel(split, card)
     mark("the parallel layer")
+    tools = phase_tools(split, card)
+    mark("the tools")
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
@@ -4278,6 +4543,7 @@ def main() -> int:
     kernels += cli_rows(ci, rg, cli_res, card)
     kernels += zoo_rows(ci, rg, zoo, card)
     kernels += parallel_rows(ci, rg, par, card)
+    kernels += tools_rows(ci, rg, tools, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
@@ -4289,6 +4555,10 @@ def main() -> int:
         f"the zoo against the RBF twins {json.dumps(zoo['rates'])}; the toy {json.dumps(toy)}; "
         f"the one-rank NCCL mesh against no mesh {json.dumps(par['nccl']['steps_per_s'])}, torchrun "
         f"{par['torchrun_s']:.1f} s; "
+        f"the tools: walls {json.dumps(tools['walls'])}, sampler_ab {json.dumps(tools['sampler_ab'])}, "
+        f"alternating_ab {json.dumps(tools['alternating_ab'])}, precision_ab {json.dumps(tools['precision_ab'])}, "
+        f"profile_step {json.dumps(tools['profile_step'])}, scale_utilization {json.dumps(tools['scale_utilization'])}, "
+        f"serve_bench {json.dumps(tools['serve_bench'])}, time_to_target {json.dumps(tools['time_to_target'])}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,6 +15,8 @@ CPU, against the JAX package's.
   --kernel-spatial matern32``), each kernel built as the flags say.
 - Every guard rail and every "not ported" exit, each with its message, the
   latter before any data is read.
+- ``selfcheck --device cpu`` exiting 0; ``toy --plot`` writing its PNG;
+  ``run_onoff`` with ``monitor_every`` writing the monitor's PNGs.
 """
 
 import dataclasses
@@ -346,8 +348,6 @@ def test_natgrad_with_mesh_model_warns_and_trains_on_one_rank(synth_pptr, tmp_pa
 
 
 NOT_PORTED = {
-    "toy --plot toy.png": "toy --plot is not ported",
-    "selfcheck": "'selfcheck' is not ported",
     "onoff --solve-precision high": "--solve-precision high is not ported",
     "cv --solve-precision mixed": "--solve-precision mixed is not ported",
 }
@@ -357,7 +357,51 @@ NOT_PORTED = {
 def test_not_ported_exits_before_any_work(argv, tmp_path):
     """A data path that does not exist: reading it would raise
     FileNotFoundError, so the exit comes first."""
-    extra = [] if argv.split()[0] in ("toy", "selfcheck") else ["--data", str(tmp_path / "absent.pickle"), "--device", "cpu"]
+    extra = ["--data", str(tmp_path / "absent.pickle"), "--device", "cpu"]
     with pytest.raises(SystemExit, match=NOT_PORTED[argv]):
         tcli.main(argv.split() + extra)
     assert not (tmp_path / "runs").exists()
+
+
+def test_selfcheck_through_the_cli(monkeypatch):
+    """``selfcheck --device cpu`` exits 0 through ``run_selfcheck`` on the
+    CPU (whose every check ``tests/test_torch_selfcheck.py`` runs); without
+    a card the default ``--device cuda`` stops before any check."""
+    from zigp_tpu_torch.experiments import selfcheck
+
+    calls = []
+    monkeypatch.setattr(selfcheck, "run_selfcheck", lambda **kw: calls.append(kw) or {})
+    assert tcli.main(["selfcheck", "--device", "cpu"]) == 0
+    assert [str(kw["device"]) for kw in calls] == ["cpu"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device is available; pass --device cpu"):
+        tcli.main(["selfcheck"])
+    assert len(calls) == 1
+
+
+def test_toy_plot_writes_the_png(tmp_path, monkeypatch):
+    """``toy --plot`` on a synthetic ``toydata.mat`` under ``ZIGP_DATA_DIR``."""
+    from zigp_tpu_torch.io import datasets
+
+    datasets.save_toydata(*datasets.synthetic_toydata(120, seed=0), str(tmp_path / "toydata.mat"))
+    monkeypatch.setattr(datasets, "DEFAULT_DATA_DIR", str(tmp_path))
+    png = tmp_path / "toy.png"
+    assert tcli.main(["toy", "--maxiter", "3", "--plot", str(png), *CPU]) == 0
+    assert png.read_bytes()[:4] == b"\x89PNG"
+
+
+def test_run_onoff_draws_the_inducing_monitor(synth_pptr, tmp_path):
+    """``cfg.monitor_every`` (a config field; neither CLI has a flag for it)
+    with a workdir: ``run_onoff`` writes a monitor PNG at each crossing."""
+    from zigp_tpu_torch.experiments import configs, runners
+    from zigp_tpu_torch.io.datasets import load_pptr, make_cv_splits
+
+    split = make_cv_splits(load_pptr(synth_pptr))[0]
+    cfg = configs.OnOffPptrConfig(grid=configs.KronGridConfig(num_spatial=3, num_temporal=8), num_iter=10,
+                                  scan_inner=5, batch_size=32, monitor_every=5, log_every=5)
+    res = runners.run_onoff(split, cfg, workdir=str(tmp_path), log_fn=lambda s: None, device="cpu",
+                            dtype=torch.float64)
+    assert np.isfinite(res["test_rmse"])
+    assert sorted(p.name for p in tmp_path.glob("monitor_*.png")) == ["monitor_00000005.png",
+                                                                      "monitor_00000010.png"]
+    assert (tmp_path / "monitor_00000010.png").read_bytes()[:4] == b"\x89PNG"

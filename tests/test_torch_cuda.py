@@ -1241,3 +1241,56 @@ def test_one_rank_nccl_mesh_graphed_block_equals_the_no_mesh_block_bit_for_bit(c
     assert torch.equal(meshed.step_losses, plain.step_losses)
     for (n, a), b in zip(meshed.model.named_parameters(), plain.model.parameters()):
         assert torch.equal(a, b), n
+
+
+def test_selfcheck_on_the_card_launches_every_production_kernel(cuda):
+    """``run_selfcheck()`` on the card: every gate passes and each check's
+    launches are exact (the check raises otherwise); in all, chol_inv.cu at
+    n = 100 (check 1), in the ELBO (2), the ten steps (20) and the
+    single-path predict (2); the cluster kernel once (n = 250); the gram 1 +
+    4 + 40 times and its backward 1 + 40."""
+    from zigp_tpu_torch.experiments.selfcheck import run_selfcheck
+
+    res = run_selfcheck(lambda s: None)
+    assert res["launches"] == {"chol_inv": 25, "chol_inv_blocked": 1, "rbf_gram": 45, "rbf_gram_bwd": 41}
+    assert res["scan_ab"]["err"] <= 5e-3
+
+
+def test_measure_block_equals_fit_scanned_on_the_same_seed(cuda):
+    """``measure.prepare_step``'s blocks (the warm-up block, the capture, then
+    replays) give ``fit_scanned``'s device-sampler losses on the same seed,
+    bit for bit, both with the gram kernel on."""
+    import copy
+
+    from zigp_tpu_torch.experiments import configs, measure
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+    from zigp_tpu_torch.training import DataSet, fit_scanned, make_optimizer
+
+    split = synthetic_pptr(12, 120, seed=0)
+    cfg = configs.OnOffPptrConfig(grid=configs.KronGridConfig(6, 40), batch_size=256)
+    model = build_onoff_pptr(cfg, split, use_kernel=True)
+    arrays = (split.Xtrain, split.Ytrain)
+    step, _, _ = measure.prepare_step(model, arrays, 256, cfg, num_inner=10)
+    got = measure.losses_of(step, range(3))
+    assert step.ready and step.runner.graphed is not None
+    ref = copy.deepcopy(model)
+    res = fit_scanned(ref, DataSet(*arrays), num_iter=30, batch_size=256, num_inner=10,
+                      optimizer=make_optimizer(ref, default_lr=cfg.indp_lr), sampler="device", sampler_seed=0,
+                      log_every_blocks=0, log_fn=lambda s: None)
+    np.testing.assert_array_equal(got, res.step_losses.numpy())
+
+
+def test_serve_bench_on_the_card(cuda):
+    """``serve_bench.run`` at 10,000 rows: the artifact's fields within 1e-5
+    of ``predict_batched``'s, every exported call through the kernels' ops."""
+    from zigp_tpu_torch.experiments import configs, serve_bench
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.io.datasets import synthetic_pptr
+
+    split = synthetic_pptr(20, 600, seed=0)
+    model = build_onoff_pptr(configs.best_onoff_config(), split, use_kernel=True)
+    before = ci.chol_inv_cuda.launches
+    res = serve_bench.run(batch=4096, rows=10_000, model=model, X=split.Xtrain, repeats=1, log_fn=lambda s: None)
+    assert res["max_rel_diff"] <= serve_bench.GATE and res["device"] == torch.cuda.get_device_name(0)
+    assert ci.chol_inv_cuda.launches > before

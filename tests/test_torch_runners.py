@@ -47,6 +47,7 @@ from zigp_tpu_torch.io.datasets import Split, kfold_indices, make_cv_splits
 from zigp_tpu_torch.likelihoods import LogNormal
 from zigp_tpu_torch.models import KronSVGP
 from zigp_tpu_torch.models import composites as tcomposites
+from zigp_tpu_torch.training import DataSet
 from zigp_tpu_torch.utils import metrics as tmetrics
 
 from .test_torch_train import _jraws
@@ -293,10 +294,14 @@ def _run_cv_recording(cv_module, runners_module, split, **kw):
 
 @pytest.fixture(scope="module")
 def numpy_batches():
-    """The JAX runners' minibatches from the numpy DataSet the port copies
-    (the native batcher draws other batches)."""
+    """Both packages' runners draw their minibatches from the numpy DataSet
+    (the port's copy of the JAX one), whichever data set ``make_dataset``
+    would give: the same kind in both, whether or not a worker's native
+    library loaded. ``tests/test_torch_native.py`` holds ``run_onoff`` on the
+    native batches of both."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jrunners, "make_dataset", lambda x, y, seed=121, **kw: JDataSet(x, y, seed=seed))
+    mp.setattr(trunners, "make_dataset", lambda x, y, seed=121, **kw: DataSet(x, y, seed=seed))
     yield
     mp.undo()
 

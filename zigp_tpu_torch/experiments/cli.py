@@ -3,7 +3,8 @@
 Counterpart of ``zigp_tpu/experiments/cli.py``, with the same subcommands
 and flags:
 
-    python -m zigp_tpu_torch.experiments toy        [--maxiter 8000] [--cpu-x64]
+    python -m zigp_tpu_torch.experiments toy        [--maxiter 8000] [--cpu-x64] [--plot PATH]
+    python -m zigp_tpu_torch.experiments selfcheck  [--device cuda|cpu]
     python -m zigp_tpu_torch.experiments cvsplits   [--out DIR]
     python -m zigp_tpu_torch.experiments onoff      --fold 1 [--iters N] [--workdir DIR]
     python -m zigp_tpu_torch.experiments svgp       --fold 1 ...
@@ -34,10 +35,11 @@ The command line calls ``parallel.initialize`` before any work (NCCL on the
 card, gloo on the CPU); a mesh that is not the launch's world ends the run
 with the launch to use. Rank 0 alone prints and writes the results.
 
-What the port does not have stops the run with a "not ported" error before
-any work: ``selfcheck``, ``toy --plot`` and ``--solve-precision
-high|mixed`` (left unported on purpose: ``highest`` is the port's only
-precision).
+``selfcheck`` is ``experiments.selfcheck.run_selfcheck`` on ``--device``;
+``toy --plot`` draws ``utils.plotting.plot_onoff_1d`` and stops before any
+work when matplotlib is missing. What the port does not have stops the run
+with a "not ported" error before any work: ``--solve-precision high|mixed``
+(left unported on purpose: ``highest`` is the port's only precision).
 """
 
 from __future__ import annotations
@@ -256,7 +258,7 @@ def _parser() -> argparse.ArgumentParser:
 
     p_toy = sub.add_parser("toy", help="toy 1-D on/off GP (notebook workflow)")
     p_toy.add_argument("--maxiter", type=int, default=8000)
-    p_toy.add_argument("--plot", type=str, default=None, help="save diagnostic plot here (not ported)")
+    p_toy.add_argument("--plot", type=str, default=None, help="save diagnostic plot here (needs matplotlib)")
     p_toy.add_argument("--cpu-x64", action="store_true", dest="cpu_x64",
                        help="run on the CPU in float64 (--device cpu --dtype float64), "
                             "the reference notebook's own numeric regime")
@@ -266,8 +268,11 @@ def _parser() -> argparse.ArgumentParser:
     p_cv.add_argument("--out", type=str, default="runs/cv")
     p_cv.add_argument("--data", type=str, default=None)
 
-    sub.add_parser("selfcheck", help="on-device numerics self-check (not ported: "
-                                     "chip_smoke.py gates the kernels)")
+    p_sc = sub.add_parser("selfcheck", help="on-device numerics self-check: the kernels and the f32 ELBO "
+                                            "against float64 oracles, kernels-vs-library scanned steps "
+                                            "(seconds; run after any driver, CUDA or torch change)")
+    p_sc.add_argument("--device", type=str, default="cuda",
+                      help="cuda (default: the card's kernels) or cpu (their plain versions)")
 
     for name in ("onoff", "svgp", "classifier", "hurdle", "zi"):
         p_var = sub.add_parser(name)
@@ -433,28 +438,28 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Stop with a "not ported" error for what the port does not have,
     before any data is read or any model built."""
-    if args.cmd == "selfcheck":
-        raise SystemExit("error: 'selfcheck' is not ported to zigp_tpu_torch (chip_smoke.py gates the kernels "
-                         "on the card)")
-    if args.cmd == "toy" and args.plot:
-        raise SystemExit("error: toy --plot is not ported to zigp_tpu_torch yet (utils/plotting); drop the flag")
     if getattr(args, "solve_precision", None) in ("high", "mixed"):
         raise SystemExit(f"error: --solve-precision {args.solve_precision} is not ported to zigp_tpu_torch "
                          "(left out on purpose: the card's reduced-precision products are TF32, coarser "
                          "than the TPU's 3-pass bf16); highest is the port's precision")
 
 
-def _placement_kw(args) -> dict:
-    """The runners' device, dtype and gram-kernel keywords from --device and
-    --dtype: the card must be present when asked for."""
-    import torch
-
+def _device(args):
+    """--device, resolved: the card must be present when asked for."""
     from ..core.config import resolve_device
 
     try:
-        device = resolve_device(args.device)
+        return resolve_device(args.device)
     except RuntimeError:
         raise SystemExit("error: no CUDA device is available; pass --device cpu to run on the CPU") from None
+
+
+def _placement_kw(args) -> dict:
+    """The runners' device, dtype and gram-kernel keywords from --device and
+    --dtype."""
+    import torch
+
+    device = _device(args)
     return dict(device=device, dtype=getattr(torch, args.dtype), use_kernel=device.type == "cuda")
 
 
@@ -464,6 +469,10 @@ def _main_toy(args) -> int:
     if args.cpu_x64:
         args.device, args.dtype = "cpu", "float64"
     placed = _placement_kw(args)
+    if args.plot:
+        from ..utils.plotting import require_matplotlib
+
+        require_matplotlib("toy --plot")
     from ..io import datasets
 
     path = os.path.join(datasets.DEFAULT_DATA_DIR, "toydata.mat")
@@ -472,7 +481,12 @@ def _main_toy(args) -> int:
     from .configs import ToyOnOffConfig
     from .toy import run_toy
 
-    run_toy(ToyOnOffConfig(maxiter=args.maxiter), device=placed["device"], dtype=placed["dtype"])
+    res = run_toy(ToyOnOffConfig(maxiter=args.maxiter), device=placed["device"], dtype=placed["dtype"])
+    if args.plot:
+        from ..utils.plotting import plot_onoff_1d
+
+        plot_onoff_1d(res["model"], res["x"], res["y"], save_path=args.plot)
+        print(f"plot saved to {args.plot}")
     return 0
 
 
@@ -508,6 +522,12 @@ def _main(args) -> int:
 
     if args.cmd == "toy":
         return _main_toy(args)
+
+    if args.cmd == "selfcheck":
+        from .selfcheck import run_selfcheck
+
+        run_selfcheck(device=_device(args))
+        return 0
 
     placed = _placement_kw(args)
     if args.cmd == "cv":

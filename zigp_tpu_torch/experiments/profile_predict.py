@@ -81,23 +81,20 @@ def summarize(prof, wall_ms: float) -> dict:
     """wall_ms, the summed device time and the number of the profiled
     kernels, the device's idle share (1 − device time / wall time; one
     stream, so kernels do not overlap), the TOP kernels by device time, and
-    the device time under each user annotation."""
-    on_device = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-    ]
-    # a user annotation (Adam's "Optimizer.step#Adam.step") spans kernels
-    # that are counted on their own: report it apart, never in the sum
-    notes = [e for e in on_device if getattr(e, "is_user_annotation", False)]
-    kernels = [e for e in on_device if e not in notes]
-    dev = lambda e: float(e.device_time_total)  # µs
-    row = lambda e: {"name": e.key[:90], "device_ms": dev(e) / 1e3, "calls": e.count}
-    device_ms = sum(dev(e) for e in kernels) / 1e3
+    the device time under each user annotation, which spans kernels counted
+    on their own and is never in the sum (``utils.xprof``'s aggregation of
+    the profiler's ``key_averages``)."""
+    from ..utils import xprof
+
+    records = xprof.profiler_records(prof)
+    s = xprof.summarize_events(records)
+    row = lambda name, us, calls: {"name": name[:90], "device_ms": us / 1e3, "calls": calls}
+    device_ms = s["total_us"] / 1e3
     return {
-        "wall_ms": wall_ms, "device_ms": device_ms, "kernel_calls": sum(e.count for e in kernels),
+        "wall_ms": wall_ms, "device_ms": device_ms, "kernel_calls": sum(s["calls"].values()),
         "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-        "top": [row(e) for e in sorted(kernels, key=dev, reverse=True)[:TOP]],
-        "annotations": [row(e) for e in notes],
+        "top": [row(name, us, s["calls"][name]) for name, us in list(s["by_op"].items())[:TOP]],
+        "annotations": [row(r.name, r.us, r.calls) for r in records if r.cat in xprof.OVERLAPPING_CATS],
     }
 
 

@@ -25,7 +25,6 @@ Every runner takes ``device`` (``None`` = the CUDA card), ``dtype`` and
 ``use_kernel`` (the ``rbf_gram`` kernel for the factor grams). Training,
 prediction and the latent moments run on the device; the y-scale moments
 and every metric run on the host in float64 (``utils.metrics``).
-The inducing-monitor plot of ``run_onoff`` is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ from ..core.config import resolve_device
 from ..core.parameters import hyperparam_summary
 from ..io.checkpoint import CheckpointManager
 from ..io.datasets import Split
+from ..io.native import make_dataset
 from ..likelihoods import Gamma, Gaussian, LogNormal
 from ..models import hurdle_combine, hurdle_on_indices, zero_inflated_combine
 from ..training import (
@@ -279,16 +279,19 @@ def train_onoff_pptr(
     workdir: Optional[str] = None,
     resume: bool = False,
     monitor_cb: Optional[Callable] = None,
+    data=None,
 ) -> FitResult:
     """Build the on/off model of ``cfg`` for ``split`` (or take ``model``)
     and train it by ``_fit_auto`` with ``kind="onoff"`` (checkpoints in
-    ``workdir/ckpt_onoff``, metrics in ``workdir/metrics_onoff.jsonl``).
-    ``device=None`` is the CUDA card; ``use_kernel`` builds the factor
-    grams with the ``rbf_gram`` kernel."""
+    ``workdir/ckpt_onoff``, metrics in ``workdir/metrics_onoff.jsonl``) on
+    ``data`` (by default the numpy ``DataSet`` of the split's training
+    rows). ``device=None`` is the CUDA card; ``use_kernel`` builds the
+    factor grams with the ``rbf_gram`` kernel."""
     if model is None:
         model = build_onoff_pptr(cfg, split, device=device, dtype=dtype, use_kernel=use_kernel)
-    return _fit_auto(model, DataSet(split.Xtrain, split.Ytrain), cfg, learning_rate=cfg.indp_lr, log_fn=log_fn,
-                     kind="onoff", workdir=workdir, resume=resume, monitor_cb=monitor_cb)
+    ds = data if data is not None else DataSet(split.Xtrain, split.Ytrain)
+    return _fit_auto(model, ds, cfg, learning_rate=cfg.indp_lr, log_fn=log_fn, kind="onoff", workdir=workdir,
+                     resume=resume, monitor_cb=monitor_cb)
 
 
 # {owner of a predict function: {(function, batch, trailing shape, dtype, device): ChunkGraph}}
@@ -460,12 +463,31 @@ def run_onoff(
     dtype: torch.dtype = torch.float32,
     use_kernel: bool = False,
 ) -> dict:
-    """The zero-inflated on/off GP on a pptr split: train, recalibrate the
-    noise when ``cfg.recalibrate_noise``, predict the test set, score."""
+    """The zero-inflated on/off GP on a pptr split: train on the native
+    batcher's batches (``io.native.make_dataset``, as the JAX runner),
+    recalibrate the noise when ``cfg.recalibrate_noise``, predict the test
+    set, score. With a ``workdir`` and ``cfg.monitor_every`` the inducing
+    monitor (``utils.plotting.plot_inducing_monitor``) is drawn every that
+    many steps into ``workdir/monitor_<step>.png``; when the run is long
+    enough to draw one and matplotlib is missing, the run stops before
+    training."""
     cfg = cfg or OnOffPptrConfig()
+    monitor_cb = None
+    if workdir and getattr(cfg, "monitor_every", 0):
+        from ..utils.plotting import plot_inducing_monitor, require_matplotlib
+
+        if cfg.monitor_every <= cfg.num_iter:
+            require_matplotlib(f"the inducing monitor (monitor_every {cfg.monitor_every}; 0 turns it off)")
+
+        def monitor_cb(step, m):
+            path = os.path.join(workdir, f"monitor_{step:08d}.png")
+            plot_inducing_monitor(m, split.Xtrain, split.Ytrain, save_path=path)
+            log_fn(f"inducing monitor saved to {path}")
+
     t0 = time.time()
     res = train_onoff_pptr(cfg, split, device=device, dtype=dtype, use_kernel=use_kernel, log_fn=log_fn,
-                           workdir=workdir, resume=resume)
+                           workdir=workdir, resume=resume, monitor_cb=monitor_cb,
+                           data=make_dataset(split.Xtrain, split.Ytrain))
     train_time = time.time() - t0
     model = res.model
     _log_hyperparams(model, log_fn)

@@ -142,7 +142,11 @@ def _draw(generator: torch.Generator, seed: int, N: int, count: int) -> torch.Te
 
 
 def _next_batches(data, batch_size: int, num_inner: int):
-    """The next ``num_inner`` batches of a DataSet, stacked: (K, B, ...) numpy."""
+    """The next ``num_inner`` batches of a DataSet, stacked: (K, B, ...) numpy.
+    A data set with ``next_block`` (``io.native.NativeDataSet``) stages them
+    in one call, as the JAX package's ``stage_batches`` does."""
+    if hasattr(data, "next_block"):
+        return data.next_block(batch_size, num_inner)
     xs, ys = zip(*(data.next_batch(batch_size) for _ in range(num_inner)))
     return np.stack(xs), np.stack(ys)
 
