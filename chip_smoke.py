@@ -301,7 +301,22 @@ so any failure exits non-zero):
    1e-5) of CPU float64 (nothing drawn: the card's machine has no
    matplotlib); ``graft_entry.entry()``'s ELBO under the same gate. The
    phase's walls are printed.
-19. A ``kernels`` JSON line (every ``rbf_gram`` row beside a row of its
+19. The rest of the JAX package's public API (``phase_api``): the split in
+   raw hours through ``io.Preprocessing`` (``filter_time`` to the pptr
+   window, ``scale``), the flagship (10 × 100, B = 1000, the gram kernel on)
+   built from its ``kernel_params`` inside ``jitter_level(1e-4)`` and still
+   holding 1e-4 after the block; 2 graphed blocks of 50 steps and 65,536
+   rows through ``predict_batched``, each with the counts zeroed just before
+   and read just after (``chol_inv.cu`` at n = 10 and 100, the gram and its
+   backward, exact); the served fields within 1e-4 of an eager pass made
+   under other settings, and a second call under them the same bits. Then
+   ``kron_mv``, ``kron_solve_lower`` and ``kron_chol_solve`` in float32 on
+   the card at the flagship's factors and the 105 × 250 grid's, L from the
+   ``chol_inv`` route (``chol_inv.cu``; the cluster kernel at n = 250),
+   each within max(3 × the CPU float32 run's error, 1e-5) of CPU float64,
+   and ``kron_chol_solve`` against ``kron_linv_solve`` with the kernel's
+   L⁻¹; each solve's ms and the phase's wall beside the card.
+20. A ``kernels`` JSON line (every ``rbf_gram`` row beside a row of its
    backward kernel at each shape a training path launched it; with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
@@ -315,6 +330,7 @@ so any failure exits non-zero):
    and ``rbf_gram`` rows; the parallel layer's ``chol_inv.cu`` and
    ``rbf_gram.cu`` rows at each rank's shapes with rank 0's launches; the
    selfcheck's ``chol_inv.cu`` and cluster-kernel rows at each (G, n), its
+   ``rbf_gram`` and backward rows; phase 19's ``chol_inv.cu``, cluster-kernel,
    ``rbf_gram`` and backward rows), then the card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
@@ -4359,6 +4375,195 @@ def tools_rows(ci, rg, tools: dict, card) -> list:
     return stacked_chol_rows(ci, counts, card, label="tools", min_G=1) + gram_rows(rg, counts, card)
 
 
+# --- phase 19: the rest of the JAX package's public API -------------------------
+
+API_JITTER = 1e-4  # the jitter_level the flagship is created in
+API_INNER = 50
+API_SOLVE_COLS = 4  # right-hand sides of each Kronecker solve
+API_GRAPH_TOL = 1e-4  # the served fields against an eager pass, relative
+
+
+def raw_hours(split):
+    """``split`` with its time column back to raw ndatehour (``synthetic_pptr``
+    gives hours ÷ 1000, as the CV splits do): what ``Preprocessing`` reads."""
+    Xs = []
+    for X in (split.Xtrain, split.Xtest):
+        X = np.array(X, dtype=np.float64)
+        X[:, 2] *= 1000.0
+        Xs.append(X)
+    return type(split)(Xs[0], np.array(split.Ytrain), Xs[1], np.array(split.Ytest))
+
+
+def api_solve_gate(name, fn, args32, args64, cpu32) -> tuple[float, float]:
+    """``fn`` on the card in float32 against the same inputs in float64 on
+    the CPU, within max(3 × the CPU float32 run's error, 1e-5)."""
+    got = fn(*args32)
+    want = fn(*args64)
+    e_card = rel(got.cpu().numpy(), want.numpy())
+    e_cpu = rel(fn(*cpu32).numpy(), want.numpy())
+    tol = max(3.0 * e_cpu, 1e-5)
+    if got.shape != want.shape or not e_card <= tol:
+        raise AssertionError(f"api {name}: card f32 vs cpu f64 {e_card:.3e} > {tol:.3e} (shape {tuple(got.shape)})")
+    return e_card, tol
+
+
+def phase_api(split, card) -> dict:
+    """Phase 19: the flagship made through the JAX package's public API on
+    the card. ``Preprocessing`` of the split in raw hours (the pptr window,
+    min-max scaling), the flagship built from its ``kernel_params`` inside
+    ``jitter_level(API_JITTER)`` and still holding that jitter after the
+    block; trained 2 graphed blocks of 50 steps and served on 65,536 rows
+    through ``predict_batched``, the counts zeroed just before each and read
+    just after (exact); the served fields within API_GRAPH_TOL of an eager
+    pass made while the settings say otherwise, and a second call then the
+    same bits. Then ``kron_mv``, ``kron_solve_lower`` and
+    ``kron_chol_solve`` in float32 at the flagship's factors and the
+    105 × 250 grid's (L from the ``chol_inv`` route: ``chol_inv.cu`` and,
+    at n = 250, the cluster kernel), each against CPU float64 within
+    max(3 × CPU float32's error, 1e-5); ``kron_chol_solve`` against
+    ``kron_linv_solve`` with the kernel's L⁻¹ within max(3 × that gap on
+    the CPU in float32, 1e-5). Times beside the card."""
+    from zigp_tpu_torch.core.config import jitter_level, settings
+    from zigp_tpu_torch.experiments.builders import build_onoff_pptr
+    from zigp_tpu_torch.experiments.configs import KernelInit, KronGridConfig, OnOffPptrConfig
+    from zigp_tpu_torch.experiments.profile_predict import predict_chunks_eager
+    from zigp_tpu_torch.experiments.runners import _fit_auto, predict_batched
+    from zigp_tpu_torch.io import Preprocessing
+    from zigp_tpu_torch.io.datasets import PPTR_HOURS
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.training import DataSet
+
+    t_phase = time.perf_counter()
+    pre = Preprocessing(raw_hours(split)).filter_time(*PPTR_HOURS).scale()
+    data = pre.model_data
+    variance, ells = pre.kernel_params
+    log(f"api: Preprocessing: train {data.Xtrain.shape}, test {data.Xtest.shape}, mins {pre.scale_params.mins}, "
+        f"ranges {pre.scale_params.ranges}; kernel_params variance {variance:.6g}, lengthscales {ells}")
+    init_s, init_t = KernelInit(tuple(ells[:2]), variance), KernelInit(tuple(ells[2:]), variance)
+    cfg = dataclasses.replace(OnOffPptrConfig(), fk_spatial=init_s, fk_temporal=init_t, gk_spatial=init_s,
+                              gk_temporal=init_t, jitter=None, num_iter=2 * API_INNER, scan_inner=API_INNER,
+                              sampler="device", log_every=API_INNER)
+    before = (settings().jitter, settings().jitter_f32)
+    with jitter_level(API_JITTER):
+        model = build_onoff_pptr(cfg, data, device=DEVICE, dtype=torch.float32, use_kernel=True)
+    held = {gp: getattr(model, gp).jitter_for(torch.float32) for gp in ("f", "g")}
+    log(f"api: flagship {[Z.shape[0] for Z in model.f.Zs]} built inside jitter_level({API_JITTER}); after the block "
+        f"the settings are {(settings().jitter, settings().jitter_f32)}, the model's jitter {held}")
+    if set(held.values()) != {API_JITTER} or (settings().jitter, settings().jitter_f32) != before:
+        raise AssertionError(f"api: jitter after the block {held}, settings {settings()}")
+    if not model._pairable():
+        raise AssertionError("api: f and g do not run as one stacked pass")
+
+    per_step = per_step_launches(model)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = _fit_auto(model, DataSet(data.Xtrain, data.Ytrain), cfg, learning_rate=cfg.indp_lr, kind="onoff",
+                    log_fn=lambda s: log(f"api train: {s}"))
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_counts()
+    steps = res.step_losses.numel()
+    log(f"api train: {steps} steps in {train_wall:.2f} s, block mean losses "
+        f"{[f'{b:.6g}' for b in res.step_losses.double().reshape(-1, API_INNER).mean(1).tolist()]}; launches "
+        f"{ {k: train_counts[k] for k in LAUNCH_KEYS} } (expected {steps} x {per_step})")
+    if steps != 2 * API_INNER or not torch.isfinite(res.step_losses).all():
+        raise AssertionError(f"api train: {steps} steps, finite {bool(torch.isfinite(res.step_losses).all())}")
+    check_launches("api train", train_counts, steps, per_step)
+
+    X = np.asarray(data.Xtrain[:ROWS])
+    batch, chunks = 4096, math.ceil(ROWS / 4096)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = predict_batched(model.predict, X, batch=batch, device=DEVICE)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_counts = read_counts()
+    check_launches("api serving", serve_counts, chunks, per_step_launches(model, training=False))
+    for k, v in out.items():
+        if v.shape[0] != X.shape[0] or not np.isfinite(v).all():
+            raise AssertionError(f"api serving: {k} has shape {v.shape} or non-finite values")
+    with jitter_level(1e-1):  # nothing the model runs may read it
+        with torch.inference_mode():
+            eager = predict_chunks_eager(model.predict, X, batch, device=DEVICE)
+        again = predict_batched(model.predict, X, batch=batch, device=DEVICE)
+    graph_err = {k: rel(out[k], eager[k]) for k in out}
+    same_bits = all(np.array_equal(out[k], again[k]) for k in out)
+    log(f"api serving: {X.shape[0]} rows in {chunks} chunks of {batch} in {serve_wall:.3f} s (the first call: the "
+        f"capture); launches { {k: serve_counts[k] for k in LAUNCH_KEYS} }; graphed vs eager (settings changed) "
+        f"largest {max(graph_err.values()):.3e} (tol {API_GRAPH_TOL:.0e}); a second call under changed settings "
+        f"the same bits: {same_bits}")
+    if not max(graph_err.values()) <= API_GRAPH_TOL or not same_bits:
+        raise AssertionError(f"api serving: graphed vs eager {graph_err}, second call same bits {same_bits}")
+
+    grid_cfg = dataclasses.replace(OnOffPptrConfig(), grid=KronGridConfig(num_spatial=105, num_temporal=250),
+                                   fk_spatial=init_s, fk_temporal=init_t, gk_spatial=init_s, gk_temporal=init_t)
+    grid = build_onoff_pptr(grid_cfg, data, device=DEVICE, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(19)
+    zero_counts()
+    with torch.no_grad():
+        factors = {name: (gp.gram_factors(), *gp.factor_state()) for name, gp in (("flagship", model.f),
+                                                                                  ("grid 105x250", grid.f))}
+    torch.cuda.synchronize()
+    solve_counts = read_counts()
+    by_n = {**solve_counts["chol_inv_by_n"], **solve_counts["chol_inv_blocked_by_n"]}
+    log(f"api solves: factor L from the chol_inv route, launches by n {by_n}")
+    want_n = {10: 1, 100: 1, 105: 1, 250: 1}
+    if by_n != want_n or solve_counts["chol_inv_blocked"] != 1:
+        raise AssertionError(f"api solves: chol_inv launches by n {by_n}, expected {want_n} (250 on the cluster "
+                             f"kernel: {solve_counts['chol_inv_blocked']})")
+    solves, times = {}, {}
+    for name, (Ks, Ls, Linvs) in factors.items():
+        N = int(np.prod([K.shape[-1] for K in Ks]))
+        b = torch.randn(N, API_SOLVE_COLS, generator=gen, dtype=torch.float64)
+        on = lambda ts: [t.to(device=DEVICE, dtype=torch.float32) for t in ts]
+        f64 = lambda ts: [t.detach().cpu().double() for t in ts]
+        f32 = lambda ts: [t.detach().cpu().float() for t in ts]
+        b32, b64, bcpu = b.float().to(DEVICE), b, b.float()
+        cases = {
+            "kron_mv": (lambda A, x: linalg.kron_mv(A, x), Ks),
+            "kron_mv (N,)": (lambda A, x: linalg.kron_mv(A, x[:, 0]), Ks),
+            "kron_solve_lower": (lambda L, x: linalg.kron_solve_lower(L, x), Ls),
+            "kron_chol_solve": (lambda L, x: linalg.kron_chol_solve(L, x), Ls),
+        }
+        with torch.no_grad():
+            for case, (fn, mats) in cases.items():
+                err, tol = api_solve_gate(f"{case} {name}", fn, (on(mats), b32), (f64(mats), b64), (f32(mats), bcpu))
+                ms = cuda_ms(lambda: fn(on(mats), b32), reps=50)
+                solves[f"{case} {name}"] = {"err": err, "tol": tol, "ms": ms}
+                log(f"api {case} {name}: card f32 vs cpu f64 {err:.3e} (tol {tol:.3e}), {ms:.4f} ms a call; {card}")
+            # kron_chol_solve against kron_linv_solve with the kernel's L⁻¹;
+            # on the CPU the same gap with the library's float32 inverse of the same L
+            chol32 = linalg.kron_chol_solve(on(Ls), b32)
+            linv32 = linalg.kron_linv_solve(on(Linvs), b32)
+            gap = rel(chol32.cpu().numpy(), linv32.cpu().numpy())
+            Lc = f32(Ls)
+            lib_inv = [torch.linalg.solve_triangular(L, torch.eye(L.shape[-1]), upper=False) for L in Lc]
+            gap_cpu = rel(linalg.kron_chol_solve(Lc, bcpu).numpy(), linalg.kron_linv_solve(lib_inv, bcpu).numpy())
+            tol = max(3.0 * gap_cpu, 1e-5)
+            log(f"api kron_chol_solve vs kron_linv_solve (the kernel's L⁻¹) {name}: {gap:.3e} (tol {tol:.3e}, the "
+                f"CPU f32 gap with the library's L⁻¹ {gap_cpu:.3e})")
+            if not gap <= tol:
+                raise AssertionError(f"api {name}: kron_chol_solve vs kron_linv_solve {gap:.3e} > {tol:.3e}")
+            solves[f"chol vs linv {name}"] = {"err": gap, "tol": tol}
+    missing = [k for k in ("chol_inv", "rbf_gram", "rbf_gram_bwd") if train_counts[k] == 0] + \
+              [k for k in ("chol_inv", "rbf_gram") if serve_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"api: {missing} not launched on the phase's path")
+    wall = time.perf_counter() - t_phase
+    log(f"api: phase wall {wall:.1f} s (training {train_wall:.2f} s, first serving call {serve_wall:.3f} s); {card}")
+    return {"train": train_counts, "serve": serve_counts, "solve": solve_counts, "solves": solves,
+            "walls": {"phase": wall, "train": train_wall, "serve": serve_wall}}
+
+
+def api_rows(ci, rg, api: dict, card) -> list:
+    """The kernels-line rows of phase 19's shapes with its launches:
+    ``chol_inv.cu`` and the cluster kernel at every (G, n) of its training,
+    serving and solves, the gram and its backward at every shape."""
+    counts = {"api train": api["train"], "api serve": api["serve"], "api solves": api["solve"]}
+    return (stacked_chol_rows(ci, counts, card, label="api", min_G=1)
+            + gram_rows(rg, {k: counts[k] for k in ("api train", "api serve")}, card))
+
+
 def memoize_inducing_init() -> None:
     """Memoize the builders' ``kron_inducing_init`` for this script: a pure
     function of the training rows, the grid and the seed (it seeds numpy
@@ -4506,6 +4711,8 @@ def main() -> int:
     mark("the parallel layer")
     tools = phase_tools(split, card)
     mark("the tools")
+    api = phase_api(split, card)
+    mark("the public API")
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
@@ -4544,6 +4751,7 @@ def main() -> int:
     kernels += zoo_rows(ci, rg, zoo, card)
     kernels += parallel_rows(ci, rg, par, card)
     kernels += tools_rows(ci, rg, tools, card)
+    kernels += api_rows(ci, rg, api, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
@@ -4559,6 +4767,7 @@ def main() -> int:
         f"alternating_ab {json.dumps(tools['alternating_ab'])}, precision_ab {json.dumps(tools['precision_ab'])}, "
         f"profile_step {json.dumps(tools['profile_step'])}, scale_utilization {json.dumps(tools['scale_utilization'])}, "
         f"serve_bench {json.dumps(tools['serve_bench'])}, time_to_target {json.dumps(tools['time_to_target'])}; "
+        f"the public API: walls {json.dumps(api['walls'])}, solves {json.dumps(api['solves'])}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

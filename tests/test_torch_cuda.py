@@ -1294,3 +1294,15 @@ def test_serve_bench_on_the_card(cuda):
     res = serve_bench.run(batch=4096, rows=10_000, model=model, X=split.Xtrain, repeats=1, log_fn=lambda s: None)
     assert res["max_rel_diff"] <= serve_bench.GATE and res["device"] == torch.cuda.get_device_name(0)
     assert ci.chol_inv_cuda.launches > before
+
+
+def test_make_mesh_takes_an_index_less_cuda_device(cuda):
+    """``make_mesh(1, 1, devices=["cuda"])``: the current card, stored by its
+    index (``torch.cuda.set_device`` refuses a device without one)."""
+    from zigp_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1, devices=["cuda"])
+    assert mesh.device == torch.device("cuda", torch.cuda.current_device())
+    assert mesh.device.index is not None and torch.cuda.current_device() == mesh.device.index
+    x = torch.ones(3, device=mesh.device)
+    assert torch.equal(mesh.all_reduce_data(x), x)

@@ -77,6 +77,24 @@ def positive_param(value, **kw) -> Parameter:
     return param(value, bijectors.positive, **kw)
 
 
+def is_parameter(x) -> bool:
+    return isinstance(x, Parameter)
+
+
+def constrained(module: nn.Module) -> dict[str, torch.Tensor]:
+    """{raw's parameter name: constrained value} of every raw of ``module``:
+    a Parameter's raw maps to its ``.value``, any other tensor passes
+    through as it is (the JAX ``constrained(tree)``). The names are those of
+    ``lr_labels`` and ``io.convert`` (``f.kernels.0.lengthscales.raw``, the
+    JAX leaf ``.f.kernels[0].lengthscales``)."""
+    out = {}
+    for name, p in module.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        m = module.get_submodule(owner) if owner else module
+        out[name] = m.value if is_parameter(m) and leaf == "raw" else p
+    return out
+
+
 def _label(p: Parameter, default_label: str) -> str:
     if not p.trainable:
         return "frozen"

@@ -314,8 +314,7 @@ def run_selfcheck(log_fn=print, *, device=None) -> dict:
                        [Zsp, np.linspace(*_TSPAN, 64)[:, None]], jitter=1e-5, whiten=True, seed=17,
                        q_mu_init=rng.randn(8 * 64, 1)).to(device=device, dtype=torch.float32)
     Xtp = _t(_elbo_batch(256, seed=17)[0], device)
-    index = torch.cuda.current_device() if on_card and device.index is None else device.index
-    mesh1 = make_mesh(n_data=1, n_model=1, devices=[torch.device(device.type, index)])
+    mesh1 = make_mesh(n_data=1, n_model=1, devices=[device])
     with _Launches() as launches, torch.no_grad():
         mu_tp, var_tp, kl_tp = tp_whitened_kron_predict_and_kl(
             mesh1, gp.kernels, [Z.value for Z in gp.Zs], gp.q_mu.value, gp.q_sqrt.value, Xtp, gp.input_masks,

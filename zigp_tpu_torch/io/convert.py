@@ -4,13 +4,14 @@ The keys are the JAX model's pytree paths as ``jax.tree_util.keystr`` prints
 them (``.f.kernels[0].lengthscales.raw``); the values are the unconstrained
 raws as numpy arrays. The port's parameter names are the same paths in
 PyTorch's dotted form (``f.kernels.0.lengthscales.raw``), so the mapping is a
-rewrite of the string and needs no JAX.
+rewrite of the string and needs no JAX. A JAX model's jitter is a static
+float, resolved when it was created; it crosses as an explicit jitter.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,10 +33,21 @@ def dump_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
     return {jax_key(n): p.detach().cpu().numpy().copy() for n, p in model.named_parameters()}
 
 
-def load_jax_arrays(model: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
+def set_jitter(model: nn.Module, jitter: float) -> None:
+    """Give every GP of ``model`` (each submodule with ``jitter_for``) the
+    explicit ``jitter``: the float a JAX model stores (``KronGP.jitter``,
+    resolved when it was created)."""
+    for m in model.modules():
+        if hasattr(m, "jitter_for"):
+            m.jitter = float(jitter)
+
+
+def load_jax_arrays(model: nn.Module, arrays: Dict[str, np.ndarray], *, jitter: Optional[float] = None) -> None:
     """Copy raws keyed by JAX path into ``model``'s parameters, in place, cast
     to each parameter's dtype and device. Raises on a missing key, an unknown
-    key or a shape mismatch, before anything is written."""
+    key or a shape mismatch, before anything is written. ``jitter``: the JAX
+    model's stored jitter, carried across as the port model's explicit one
+    (``set_jitter``)."""
     params = dict(model.named_parameters())
     expected = {jax_key(n): n for n in params}
     missing = sorted(set(expected) - set(arrays))
@@ -53,6 +65,8 @@ def load_jax_arrays(model: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
         for key, name in expected.items():
             p = params[name]
             p.copy_(torch.as_tensor(np.asarray(arrays[key]), dtype=p.dtype))
+    if jitter is not None:
+        set_jitter(model, jitter)
 
 
 def stack_size(stack: nn.Module) -> int:

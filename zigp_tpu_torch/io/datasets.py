@@ -4,10 +4,12 @@ Counterpart of ``zigp_tpu/io/datasets.py:22-286``: the ``Split`` record,
 ``load_toydata``, ``load_pptr``, the 5-fold ``make_cv_splits`` (a numpy KFold: the same folds
 as scikit-learn's ``KFold(shuffle=True)``, which the card's machine does not
 have), the rolling-origin ``make_forecast_splits`` with its exogenous
-covariates ``augment_forecast_covariates`` (copies, array for array), and the
+covariates ``augment_forecast_covariates`` (copies, array for array), the
 inducing-grid init ``kron_inducing_init``, which returns the JAX package's
 centres exactly for the same seed (scipy ``kmeans`` under
-``np.random.seed``).
+``np.random.seed``), and the reference's pptr preprocessing
+(``onofftf/utils_pptr.py``: time filter, min-max scaling, heuristic kernel
+init) as ``Preprocessing``, a copy of the JAX package's.
 
 ``synthetic_pptr`` is the port's own: a set shaped like the real one (105
 stations over Finland, hourly points, about 90 % exact zeros) made from a
@@ -21,8 +23,8 @@ from __future__ import annotations
 
 import os
 import pickle
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -320,3 +322,72 @@ def kron_inducing_init(
     Z_s = _kmeans_knots(Xtrain[:, 0:2], num_spatial)
     Z_t = np.linspace(Xtrain[:, 2].min(), Xtrain[:, 2].max(), num_temporal)[:, None]
     return [Z_s, Z_t] + exog
+
+
+@dataclass
+class ScaleParams:
+    mins: Dict[str, float] = field(default_factory=dict)
+    ranges: Dict[str, float] = field(default_factory=dict)
+
+
+class Preprocessing:
+    """pptr preprocessing pipeline (onofftf/utils_pptr.py:4-123): time-window
+    filter on the ndatehour column, min-max scaling of lat/lon/time with
+    recorded scale params, heuristic kernel initialisation."""
+
+    COLS = ("lat", "lon", "ndatehour")
+
+    def __init__(self, split: Split):
+        self.split = Split(
+            split.Xtrain.copy(), split.Ytrain.copy(), split.Xtest.copy(), split.Ytest.copy()
+        )
+        self.scale_params = ScaleParams()
+        self._scaled_loc = False
+        self._scaled_time = False
+
+    def filter_time(self, min_idx: float = 0.0, max_idx: float = np.inf) -> "Preprocessing":
+        s = self.split
+        tr = (s.Xtrain[:, 2] >= min_idx) & (s.Xtrain[:, 2] <= max_idx)
+        te = (s.Xtest[:, 2] >= min_idx) & (s.Xtest[:, 2] <= max_idx)
+        self.split = Split(s.Xtrain[tr], s.Ytrain[tr], s.Xtest[te], s.Ytest[te])
+        return self
+
+    def scale(self, scale_loc: bool = True, scale_time: bool = True) -> "Preprocessing":
+        s = self.split
+        allX = np.concatenate([s.Xtrain, s.Xtest])
+        cols = []
+        if scale_loc:
+            cols += [0, 1]
+            self._scaled_loc = True
+        if scale_time:
+            cols += [2]
+            self._scaled_time = True
+        for c in cols:
+            name = self.COLS[c]
+            lo, hi = allX[:, c].min(), allX[:, c].max()
+            self.scale_params.mins[name] = float(lo)
+            self.scale_params.ranges[name] = float(hi - lo)
+            s.Xtrain[:, c] = (s.Xtrain[:, c] - lo) / (hi - lo)
+            s.Xtest[:, c] = (s.Xtest[:, c] - lo) / (hi - lo)
+        return self
+
+    @property
+    def model_data(self) -> Split:
+        return self.split
+
+    @property
+    def kernel_params(self) -> Tuple[float, List[float]]:
+        """Heuristic init (utils_pptr.py:104-123): variance = max(Y);
+        lengthscale 3/range per scaled dim, 3.0 otherwise."""
+        variance = float(np.max(self.split.Ytrain))
+        ells = []
+        for name in ("lat", "lon"):
+            if self._scaled_loc:
+                ells.append(round(3.0 / self.scale_params.ranges[name], 4))
+            else:
+                ells.append(3.0)
+        if self._scaled_time:
+            ells.append(round(3.0 / self.scale_params.ranges["ndatehour"], 4))
+        else:
+            ells.append(3.0)
+        return variance, ells

@@ -7,6 +7,7 @@ from .kron import (
     KronOnOffSVGP,
     KronSVGP,
     LatentPrediction,
+    gen_input_masks,
 )
 from .onoff import OnOffPrediction, OnOffSVGP, gated_y_from, gated_y_samples
 from .svgp import SVGP
@@ -24,6 +25,7 @@ __all__ = [
     "SVGP",
     "gated_y_from",
     "gated_y_samples",
+    "gen_input_masks",
     "hurdle_combine",
     "hurdle_on_indices",
     "zero_inflated_combine",

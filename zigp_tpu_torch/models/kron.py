@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from ..core.bijectors import FillLowerTriangular
-from ..core.config import default_jitter
+from ..core.config import jitter_pair, resolve_jitter
 from ..core.parameters import param, positive_param
 from ..ops import conditionals, gauss_kl, linalg
 from ..ops.probit import probit_expectations
@@ -82,7 +82,8 @@ class KronGP(nn.Module):
     (``q_sqrt``, the reference's family) or Kronecker-factored full
     (S = ⊗_p C_p C_pᵀ, ``q_cov="kron"``)."""
 
-    def __init__(self, kernels, Zs, q_mu, q_sqrt, input_masks, jitter, whiten=False, q_sqrt_factors=None):
+    def __init__(self, kernels, Zs, q_mu, q_sqrt, input_masks, jitter, default_jitters, whiten=False,
+                 q_sqrt_factors=None):
         super().__init__()
         self.kernels = nn.ModuleList(kernels)
         self.Zs = nn.ModuleList(Zs)
@@ -90,10 +91,11 @@ class KronGP(nn.Module):
         self.q_sqrt = q_sqrt
         self.q_sqrt_factors = None if q_sqrt_factors is None else nn.ModuleList(q_sqrt_factors)
         self.input_masks = tuple(tuple(m) for m in input_masks)
-        # None: the package's default for the dtype the grams are built in,
-        # resolved where it is added (``jitter_for``), as the JAX package
-        # takes its default in the precision it runs.
+        # None: the default pair frozen at creation, resolved by the dtype the
+        # grams are built in (``jitter_for``), as the JAX package takes its
+        # default in the precision it runs.
         self.jitter = None if jitter is None else float(jitter)
+        self.default_jitters = tuple(float(j) for j in default_jitters)
         self.whiten = whiten
         # column picks as index tensors, moved to the device with the module
         for p, m in enumerate(self.input_masks):
@@ -129,6 +131,7 @@ class KronGP(nn.Module):
             q_sqrt=positive_param(np.ones((M, 1)), lr=lr, trainable=factors is None),
             input_masks=gen_input_masks(Zs),
             jitter=jitter,
+            default_jitters=jitter_pair(),
             whiten=whiten,
             q_sqrt_factors=factors,
         )
@@ -152,12 +155,14 @@ class KronGP(nn.Module):
         which the JAX package's tree structures carry."""
         shapes = tuple((n, tuple(p.shape)) for n, p in self.named_parameters())
         kernels = tuple(k.signature() for k in self.kernels)
-        return shapes, self.input_masks, self.jitter, self.whiten, kernels
+        jitters = tuple(self.jitter_for(dt) for dt in (torch.float64, torch.float32))
+        return shapes, self.input_masks, jitters, self.whiten, kernels
 
     def jitter_for(self, dtype: torch.dtype) -> float:
         """The absolute jitter added to a gram of ``dtype``: the model's own,
-        or ``default_jitter(dtype)`` (1e-6 in float64, 1e-5 in float32)."""
-        return self.jitter if self.jitter is not None else default_jitter(dtype)
+        or the default pair frozen by ``create`` resolved by ``dtype`` (1e-6
+        in float64 and 1e-5 in float32 unless ``jitter_level`` was in force)."""
+        return self.jitter if self.jitter is not None else resolve_jitter(self.default_jitters, dtype)
 
     def values(self) -> GPValues:
         return GPValues(

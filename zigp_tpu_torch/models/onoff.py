@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.config import default_jitter
+from ..core.config import jitter_pair, resolve_jitter
 from ..core.parameters import param
 from ..ops import conditionals, linalg
 from ..ops.probit import probit_expectations
@@ -61,7 +61,7 @@ class OnOffSVGP(nn.Module):
     (``ops.probit``), the field names of the JAX model."""
 
     def __init__(self, kernf, kerng, likelihood, Zf, Zg, u_fm, u_gm, u_fs_sqrt, u_gs_sqrt, mean_const, num_data,
-                 whiten, q_diag, jitter, exact_owen_t):
+                 whiten, q_diag, jitter, default_jitters, exact_owen_t):
         super().__init__()
         self.kernf = kernf
         self.kerng = kerng
@@ -76,8 +76,10 @@ class OnOffSVGP(nn.Module):
         self.num_data = int(num_data)
         self.whiten = whiten
         self.q_diag = q_diag
-        # None: the default for the dtype the grams are built in (``jitter_for``)
+        # None: the default pair frozen at creation, resolved by the dtype the
+        # grams are built in (``jitter_for``)
         self.jitter = None if jitter is None else float(jitter)
+        self.default_jitters = tuple(float(j) for j in default_jitters)
         self.exact_owen_t = exact_owen_t
 
     @classmethod
@@ -119,11 +121,12 @@ class OnOffSVGP(nn.Module):
             whiten=whiten,
             q_diag=q_diag,
             jitter=jitter,
+            default_jitters=jitter_pair(),
             exact_owen_t=exact_owen_t,
         )
 
     def jitter_for(self, dtype: torch.dtype) -> float:
-        return self.jitter if self.jitter is not None else default_jitter(dtype)
+        return self.jitter if self.jitter is not None else resolve_jitter(self.default_jitters, dtype)
 
     def prior_kl(self) -> torch.Tensor:
         if self.whiten:

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..core.bijectors import FillLowerTriangular
-from ..core.config import default_jitter
+from ..core.config import jitter_pair, resolve_jitter
 from ..core.parameters import param, positive_param
 from ..ops import conditionals, gauss_kl, linalg
 
@@ -51,7 +51,8 @@ def joint_samples(fmean: torch.Tensor, fcov: torch.Tensor, eps: torch.Tensor, ji
 
 
 class SVGP(nn.Module):
-    def __init__(self, kernel, likelihood, Z, q_mu, q_sqrt, mean_const, num_data, whiten, q_diag, jitter):
+    def __init__(self, kernel, likelihood, Z, q_mu, q_sqrt, mean_const, num_data, whiten, q_diag, jitter,
+                 default_jitters):
         super().__init__()
         self.kernel = kernel
         self.likelihood = likelihood
@@ -62,8 +63,10 @@ class SVGP(nn.Module):
         self.num_data = int(num_data)
         self.whiten = whiten
         self.q_diag = q_diag
-        # None: the default for the dtype the gram is built in (``jitter_for``)
+        # None: the default pair frozen at creation, resolved by the dtype the
+        # grams are built in (``jitter_for``)
         self.jitter = None if jitter is None else float(jitter)
+        self.default_jitters = tuple(float(j) for j in default_jitters)
 
     @classmethod
     def create(
@@ -96,10 +99,11 @@ class SVGP(nn.Module):
             whiten=whiten,
             q_diag=q_diag,
             jitter=jitter,
+            default_jitters=jitter_pair(),
         )
 
     def jitter_for(self, dtype: torch.dtype) -> float:
-        return self.jitter if self.jitter is not None else default_jitter(dtype)
+        return self.jitter if self.jitter is not None else resolve_jitter(self.default_jitters, dtype)
 
     def prior_kl(self) -> torch.Tensor:
         if self.whiten:

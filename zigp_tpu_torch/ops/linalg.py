@@ -1,9 +1,9 @@
 """Dense and Kronecker-factored linear algebra for serving and training.
 
 Counterpart of ``zigp_tpu/ops/linalg.py``: ``add_jitter``, the ``chol_inv``
-dispatch with its matmul-only backward, the factored Kronecker solves against
-precomputed triangular inverses, and the diagonal and log-determinant pieces
-of the KL. The JAX package routes every solve-replacing product through
+dispatch with its matmul-only backward, the factored Kronecker products and
+solves (against per-factor Cholesky factors or precomputed triangular
+inverses), and the diagonal and log-determinant pieces of the KL. The JAX package routes every solve-replacing product through
 ``hdot``/``bdot`` to pin it at exact float32; here those are plain matmuls,
 exact in float32 because ``core.config`` turns TF32 off at import.
 
@@ -174,19 +174,29 @@ def chol_inv_stacked(Ks: Sequence[torch.Tensor]):
     return [(L[p, ..., :n, :n], Linv[p, ..., :n, :n]) for p, n in enumerate(ns)]
 
 
-def _apply_factor_mats(mats: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """(⊗_p mats[p]) x without forming the product: x (..., N, K) with
-    N = Π M_p, mats[p] (..., M_p, M_p). Each factor is applied as a matmul
-    on x reshaped to (M_p, N / M_p) per column, then its index is rotated to
-    the back; after all factors the row-major order is restored (the
-    reshape-shuffle matvec of ``zigp_tpu``'s ``_apply_factor_ops``)."""
+def _apply_factor_ops(ops, x: torch.Tensor) -> torch.Tensor:
+    """(⊗_p A_p) x without forming the product, where ``ops[p] = (op, M_p)``
+    and ``op(X)`` computes A_p X on X (..., K, M_p, N / M_p): x (..., N, K)
+    with N = Π M_p. Each factor is applied to x reshaped to (M_p, N / M_p)
+    per column, then its index is rotated to the back; after all factors
+    the row-major order is restored (the reshape-shuffle matvec of
+    ``zigp_tpu``'s ``_apply_factor_ops``)."""
     *batch, N, K = x.shape
     b = x.transpose(-1, -2)  # (..., K, N): columns are independent
-    for A in mats:
-        s = A.shape[-1]
+    for op, s in ops:
         X = b.reshape(*batch, K, s, N // s)
-        b = (A.unsqueeze(-3) @ X).transpose(-1, -2).reshape(*batch, K, N)
+        b = op(X).transpose(-1, -2).reshape(*batch, K, N)
     return b.transpose(-1, -2)
+
+
+def _apply_factor_mats(mats: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """(⊗_p mats[p]) x: mats[p] (..., M_p, M_p), x (..., N, K)."""
+    return _apply_factor_ops([(lambda X, A=A: A.unsqueeze(-3) @ X, A.shape[-1]) for A in mats], x)
+
+
+def _columns(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of an (N, K) x, for x given as (N,) or (N, K)."""
+    return fn(x[:, None])[:, 0] if x.ndim == 1 else fn(x)
 
 
 def kron_linv_lower(Linvs: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
@@ -198,6 +208,50 @@ def kron_linv_solve(Linvs: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Ten
     """x = (⊗_p K_p)⁻¹ b = (⊗ L_p⁻ᵀ)(⊗ L_p⁻¹) b given the triangular inverses."""
     half = kron_linv_lower(Linvs, b)
     return _apply_factor_mats([Li.transpose(-1, -2) for Li in Linvs], half)
+
+
+def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve K x = b given L = chol(K); b (N,) or (N, K)."""
+    return _columns(lambda B: torch.cholesky_solve(B, L, upper=False), b)
+
+
+# The JAX package's Kronecker algebra (``zigp_tpu/ops/linalg.py:256-358``) on
+# (N,) or (N, K) right-hand sides, factored: the product is never formed.
+
+
+def kron_dense(*mats: torch.Tensor) -> torch.Tensor:
+    """Dense Kronecker product. Tests and debugging only: O(Π M_p²) memory
+    (the reference's ``tf_kron``, onofftf/main.py:334-348)."""
+    out = mats[0]
+    for A in mats[1:]:
+        out = torch.kron(out, A)
+    return out
+
+
+def kron_mv(mats: Sequence[torch.Tensor], x: torch.Tensor, *, precision=None) -> torch.Tensor:
+    """y = (⊗_p mats[p]) x without materializing the Kronecker product.
+
+    ``precision`` is accepted for the JAX signature and has no torch
+    meaning: the JAX package passes ``jax.lax.Precision`` to pick the TPU's
+    bf16 or exact f32 products, and every float32 product of the port is
+    full float32 already (``core.config`` turns TF32 off at import)."""
+    return _columns(lambda X: _apply_factor_mats(mats, X), x)
+
+
+def kron_solve_lower(Ls: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
+    """x = (⊗_p L_p)⁻¹ b for lower-triangular factors L_p: (⊗ L_p)⁻¹ =
+    ⊗ L_p⁻¹, so the factored matvec with a triangular solve a factor
+    (replaces the reference's dense Cholesky-of-Kronecker,
+    onofftf/main.py:355-358)."""
+    ops = [(lambda X, L=L: torch.linalg.solve_triangular(L.unsqueeze(-3), X, upper=False), L.shape[-1])
+           for L in Ls]
+    return _columns(lambda B: _apply_factor_ops(ops, B), b)
+
+
+def kron_chol_solve(Ls: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
+    """x = (⊗_p K_p)⁻¹ b given the factors' Cholesky factors L_p = chol(K_p)."""
+    ops = [(lambda X, L=L: torch.cholesky_solve(X, L.unsqueeze(-3), upper=False), L.shape[-1]) for L in Ls]
+    return _columns(lambda B: _apply_factor_ops(ops, B), b)
 
 
 # The KL's pieces (``zigp_tpu/ops/linalg.py:261-397``), batched over leading

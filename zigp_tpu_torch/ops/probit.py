@@ -71,3 +71,8 @@ def probit_expectations(gmean: torch.Tensor, gvar: torch.Tensor, *, exact: bool 
     e_phi_sq = 0.5 * (e_phi_sq + torch.abs(e_phi_sq))
     var_phi = 0.5 * (var_phi + torch.abs(var_phi))
     return ProbitExpectations(cdfz, e_phi_sq, var_phi)
+
+
+def probit(x: torch.Tensor) -> torch.Tensor:
+    """Clipped probit link used by the classifier (scripts/classifier.py:216)."""
+    return normcdf_clipped(x)

@@ -143,8 +143,9 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *, devices: Option
     takes the world size over ``n_model``. Raises, as the JAX package does
     when the devices are too few, unless n_data · n_model is the world size;
     the message says how to launch. ``devices``: each rank's device, indexed
-    by rank (e.g. ``["cuda:0", "cuda:0"]`` for two gloo ranks on one card);
-    by default ``cuda:LOCAL_RANK`` under NCCL and the CPU otherwise. An NCCL
+    by rank (e.g. ``["cuda:0", "cuda:0"]`` for two gloo ranks on one card;
+    ``"cuda"`` without an index is the current card, which the mesh stores
+    by its index); by default ``cuda:LOCAL_RANK`` under NCCL and the CPU otherwise. An NCCL
     mesh that puts two ranks on one GPU raises (NCCL refuses it)."""
     world = world_size()
     if n_model < 1:
@@ -164,7 +165,9 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *, devices: Option
     else:
         device = _default_device(backend)
     if device.type == "cuda":
-        torch.cuda.set_device(device)
+        if device.index is None:  # "cuda": the current card, named by its index
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device.index)
     mesh = Mesh(n_data, n_model, device)
     if backend == "nccl":
         # asked over gloo: an NCCL collective between two ranks on one GPU
