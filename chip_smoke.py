@@ -287,7 +287,8 @@ so any failure exits non-zero):
    counts zeroed just before and read just after (every kernel of the path
    launched): ``sampler_ab`` on the flagship (staged, perstep, fused; one
    pass of 2 blocks of 50; fused equal to staged bit for bit over 3
-   blocks), ``alternating_ab`` (joint, alt50), ``precision_ab`` (highest),
+   blocks), ``alternating_ab`` (joint, alt50), ``precision_ab`` (highest;
+   the other policies are phase 20's),
    ``profile_step`` (flagship, 2 blocks of 50; the port's kernels named,
    the categories summing to the total), ``scale_utilization`` at B = 8192
    (one block; counted FLOPs beside ``analytic_matmul_flops``),
@@ -316,7 +317,30 @@ so any failure exits non-zero):
    each within max(3 × the CPU float32 run's error, 1e-5) of CPU float64,
    and ``kron_chol_solve`` against ``kron_linv_solve`` with the kernel's
    L⁻¹; each solve's ms and the phase's wall beside the card.
-20. A ``kernels`` JSON line (every ``rbf_gram`` row beside a row of its
+20. ``--solve-precision`` on the card (``phase_precision``). The 3-pass
+   bf16 product ``bf16x3_mm.cu`` against the float64 value of its own three
+   products of the split parts (within 2·K·2⁻²⁴·Σ|a||b|: a lost cross term
+   misses by about 2⁻⁹) and against the float64 product of the unsplit
+   inputs (within max(3 × its plain version's error, 1e-5)), at
+   (2, n, n)·(2, n, B) for n = 10, 32, 100, 105, 200, 250 and B = 1000,
+   4000, 8192, 16384, with A transposed and with B given transposed at
+   B = 8192, (2, n, n)ᵀ·(2, n, n), the backward's (2, n, 8192)·(2, 8192, n)
+   with k split over CTAs, the batch of dots of the factored contraction and
+   its backward's outer products; NaN in one row of A gives NaN in that row
+   alone, in the tiles, split or not, and in the dots. Then the
+   flagship, the champion and the 105 × 250 grid at B = 8192 trained
+   graphed by ``precision_ab`` cut short (a warm-up block, the capture, 2
+   timed blocks of 50), "highest", "high" and "mixed" in turns, two passes:
+   steps/s against "highest", ``bf16x3_mm``'s launches exactly the run's
+   steps × an eager step's (none under "highest"), "highest" after the
+   switches the same bits as before them; each configuration's loss and
+   gradients under "high" against CPU float64 within max(3 × the CPU "high"
+   plain run's error, 1e-5); the F = 5 flagship stack under "mixed" with one
+   launch a site, each member's slice of every launch the bits of the
+   kernel on that member alone; 65,536 rows served by the flagship and the
+   champion under "high" against "highest" (points/s, the fields' largest
+   differences).
+21. A ``kernels`` JSON line (every ``rbf_gram`` row beside a row of its
    backward kernel at each shape a training path launched it; with the families' ``chol_inv.cu`` rows at G = 1
    and the hurdle's pair, the classifier's ``rbf_gram`` rows at G = 1, and
    the other trainers' ``chol_inv.cu`` and cluster-kernel rows with their
@@ -331,7 +355,10 @@ so any failure exits non-zero):
    ``rbf_gram.cu`` rows at each rank's shapes with rank 0's launches; the
    selfcheck's ``chol_inv.cu`` and cluster-kernel rows at each (G, n), its
    ``rbf_gram`` and backward rows; phase 19's ``chol_inv.cu``, cluster-kernel,
-   ``rbf_gram`` and backward rows), then the card's name and power limit,
+   ``rbf_gram`` and backward rows; ``bf16x3_mm.cu`` at every (G, M, N, K)
+   of phase 20's runs under "high" and "mixed", its stack and its serving,
+   with exact-float32 ``torch.matmul`` as the library call), then the
+   card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
 The script needs one CUDA device, the repository checkout around it, nvcc
@@ -4263,8 +4290,8 @@ def phase_tools(split, card) -> dict:
             "captured block after its warm-up)")
         aab = alternating_ab.run_alternating_ab(configs=("flagship",), variants=("joint", "alt50"),
                                                 num_inner=TOOLS_INNER, num_blocks=2, repeats=1, log_fn=tl, build_kw=kw)
-        pab = precision_ab.run_precision_ab(configs=("flagship",), num_inner=TOOLS_INNER, num_blocks=2, repeats=1,
-                                            log_fn=tl, build_kw=kw)
+        pab = precision_ab.run_precision_ab(configs=("flagship",), policies=("highest",), num_inner=TOOLS_INNER,
+                                            num_blocks=2, repeats=1, log_fn=tl, build_kw=kw)  # the others: phase 20
         walls["A/B harnesses"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         prof = profile_step.profile_step("flagship", num_inner=TOOLS_INNER, num_blocks=2, log_fn=tl, build_kw=kw)
@@ -4564,6 +4591,353 @@ def api_rows(ci, rg, api: dict, card) -> list:
             + gram_rows(rg, {k: counts[k] for k in ("api train", "api serve")}, card))
 
 
+PREC_INNER = 50
+PREC_BLOCKS = 2  # timed blocks of each pass, after the warm-up block and the capture
+PREC_POLICIES = ("highest", "high", "mixed")
+PREC_CONFIGS = {"flagship": None, "champion": None, "scale": 8192}  # measure's configurations, the grid at B = 8192
+PREC_SERVE_PASSES = 5
+PREC_GATE_NS = (10, 32, 100, 105, 200, 250)
+PREC_GATE_BS = (1000, 4000, 8192, 16384)
+PREC_SPLIT_C = 2.0  # the kernel against the split's float64 value: within 2·K·2⁻²⁴·Σ|a||b| (truncating accumulation)
+BF16X3_SOURCE = "zigp_tpu_torch/ops/cuda/csrc/bf16x3_mm.cu"
+BF16X3_REPLACES = "zigp_tpu/ops/linalg.py:56"  # no Pallas kernel: XLA's Precision.HIGH dot (hdot/bdot, :56-118)
+PEAK_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate (NVIDIA data sheet)
+
+
+def bf16x3_bound_ms(G, M, N, K) -> tuple[float, str]:
+    """Least time for C (G, M, N) = A (G, M, K) B (G, K, N) in three bf16
+    passes: A and B read once, C written once, against 3·2·G·M·N·K
+    operations on the bf16 tensor cores (a batch of dots, M = N = 1, on the
+    float32 units)."""
+    t_bytes = 4 * G * (M * K + K * N + M * N) / PEAK_BYTES_PER_S
+    t_ops = 6 * G * M * N * K / (PEAK_F32_FLOP_PER_S if M == N == 1 else PEAK_BF16_FLOP_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16x3_split64(a: torch.Tensor, b: torch.Tensor):
+    """(hi·hi + hi·lo + lo·hi in float64, K·2⁻²⁴·Σ|a||b|) of float32 a, b on
+    the card."""
+    from zigp_tpu_torch.ops.cuda.bf16x3 import split_bf16
+
+    (ah, al), (bh, bl) = split_bf16(a), split_bf16(b)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    bound = a.shape[-1] * 2.0**-24 * (a.double().abs() @ b.double().abs())
+    return ah @ bh + (ah @ bl + al @ bh), bound
+
+
+def bf16x3_gate_cases(gen):
+    """(name, a, b) at the path's shapes, in every instance of the kernel's
+    plan: (2, n, n)·(2, n, B) for every n and B, at B = 8192 with A
+    transposed (L⁻ᵀ V) and with B given transposed, (2, n, n)ᵀ·(2, n, n) (the
+    chol_inv VJP, the KL trace), the backward's (2, n, B)·(2, B, n) (k split
+    over CTAs), the batch of dots of the factored contraction's later
+    factor, (2·B, 1, n)·(2·B, n, 1) with the factor read through its
+    strides, and its backward's outer products (2·B, 1, 1)·(2·B, 1, n) (a
+    thread an output)."""
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=DEVICE)
+    for n in PREC_GATE_NS:
+        A = r(2, n, n)
+        for B in PREC_GATE_BS:
+            yield f"(2,{n},{n})x(2,{n},{B})", A, r(2, n, B)
+        yield f"(2,{n},{n})T x(2,{n},8192)", r(2, n, n).transpose(-1, -2), r(2, n, 8192)
+        yield f"(2,{n},{n})x(2,8192,{n})T", A, r(2, 8192, n).transpose(-1, -2)
+        yield f"(2,{n},{n})T x(2,{n},{n})", r(2, n, n).transpose(-1, -2), r(2, n, n)
+        yield f"split k (2,{n},8192)x(2,8192,{n})T", r(2, n, 8192), r(2, n, 8192).transpose(-1, -2)
+        F = r(2, n, 8192)
+        yield f"dots (2,8192,1,{n})x(2,8192,{n},1)", r(2, 8192, 1, n), F.transpose(-1, -2).unsqueeze(-1)
+        yield f"short k (2,8192,1,1)x(2,8192,1,{n})", r(2, 8192, 1, 1), F.transpose(-1, -2).unsqueeze(-2)
+
+
+def phase_bf16x3_gate(bx) -> dict:
+    """The kernel against the float64 value of its own three products
+    (within ``PREC_SPLIT_C``·K·2⁻²⁴·Σ|a||b|: a lost cross term misses by
+    about 2⁻⁹ of it) and against the float64 product of the unsplit inputs
+    (within max(3 × the plain version's error, 1e-5)); NaN carried; one
+    launch a call."""
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    worst = {"split": 0.0, "exact": 0.0}
+    for name, a, b in bf16x3_gate_cases(gen):
+        before = bx.bf16x3_mm_cuda.launches
+        c = bx.bf16x3_mm_cuda(a, b)
+        torch.cuda.synchronize()
+        if bx.bf16x3_mm_cuda.launches != before + 1:
+            raise AssertionError(f"bf16x3 {name}: {bx.bf16x3_mm_cuda.launches - before} launches")
+        plain = bx.bf16x3_mm_plain(a, b)
+        split, bound = bf16x3_split64(a, b)
+        share = float(((c.double() - split).abs() / (PREC_SPLIT_C * bound).clamp_min(1e-300)).max())
+        exact = a.double() @ b.double()
+        e_k, e_p = rel(c.cpu(), exact.cpu()), rel(plain.cpu(), exact.cpu())
+        tol = max(3.0 * e_p, 1e-5)
+        worst["split"], worst["exact"] = max(worst["split"], share), max(worst["exact"], e_k / tol)
+        log(f"gate bf16x3 {name}: largest share of {PREC_SPLIT_C:g}·K·2^-24·Σ|a||b| against the split's float64 "
+            f"{share:.3f}; vs float64 {e_k:.3e} (plain {e_p:.3e}, tol {tol:.3e}); max |kernel - plain| "
+            f"{(c - plain).abs().max().item():.3e}")
+        if c.shape != exact.shape or not share <= 1.0 or not e_k <= tol:
+            raise AssertionError(f"bf16x3 {name}: split share {share:.3f}, error {e_k:.3e} > {tol:.3e}")
+    for name, (a, b) in {"tiles": (torch.randn(2, 100, 100, device=DEVICE), torch.randn(2, 100, 1000, device=DEVICE)),
+                         "split k": (torch.randn(2, 100, 8192, device=DEVICE), torch.randn(2, 8192, 100, device=DEVICE)),
+                         "dots": (torch.randn(6, 1, 250, device=DEVICE), torch.randn(6, 250, 1, device=DEVICE))}.items():
+        a[1, a.shape[1] // 2, 7] = float("nan")
+        c = bx.bf16x3_mm_cuda(a, b)
+        row = c[1, a.shape[1] // 2]
+        rest = torch.cat([c[0].flatten(), c[1, : a.shape[1] // 2].flatten(), c[2:].flatten()])
+        if not torch.isnan(row).all() or not torch.isfinite(rest).all():
+            raise AssertionError(f"bf16x3 NaN ({name}): the row NaN {bool(torch.isnan(row).all())}, the rest finite "
+                                 f"{bool(torch.isfinite(rest).all())}")
+    log(f"gate bf16x3: every case within bound (largest shares {worst}); NaN in one row of A gives NaN in that row "
+        "of C alone, in the tiles, with k split and in the dots")
+    return worst
+
+
+def policy_runs(policies, measure, precision_ab, configs, kw):
+    """``precision_ab`` at ``configs`` cut to one warm-up block, the capture
+    and PREC_BLOCKS timed blocks of PREC_INNER, two passes of ``policies`` in
+    turns; every run's launches counted (the counts zeroed just before its
+    first block and read just after its last) with its steps (warm-up and
+    timed blocks)."""
+    from zigp_tpu_torch.ops import linalg
+
+    runs = []
+    rate, warm = measure.measure_rate, measure.warm_up
+
+    def warm_counted(step):
+        runs[-1]["warm_blocks"] = warm(step)
+        return runs[-1]["warm_blocks"]
+
+    def rate_counted(step, model, opt, *, num_inner, num_blocks):
+        runs.append({"policy": linalg.solve_precision()})
+        zero_counts()
+        out = rate(step, model, opt, num_inner=num_inner, num_blocks=num_blocks)
+        torch.cuda.synchronize()
+        runs[-1].update(counts=read_counts(), steps=(runs[-1]["warm_blocks"] + num_blocks) * num_inner,
+                        steps_per_s=out[0], loss=out[1])
+        return out
+
+    measure.measure_rate, measure.warm_up = rate_counted, warm_counted
+    try:
+        summary = precision_ab.run_precision_ab(configs=configs, policies=policies, num_inner=PREC_INNER,
+                                                num_blocks=PREC_BLOCKS, repeats=2, log_fn=lambda s: log(f"precision: {s}"),
+                                                build_kw=kw)
+    finally:
+        measure.measure_rate, measure.warm_up = rate, warm
+    return summary, runs
+
+
+def eager_step_launches(model, X, Y, policy) -> int:
+    """``bf16x3_mm`` launches of one eager loss and backward under ``policy``."""
+    from zigp_tpu_torch.ops import linalg
+
+    linalg.set_solve_precision(policy)
+    try:
+        zero_counts()
+        loss_and_grads(model, X, Y)
+        torch.cuda.synchronize()
+        return read_counts()["bf16x3_mm"]
+    finally:
+        linalg.set_solve_precision("highest")
+
+
+def phase_precision(split, card) -> dict:
+    """Phase 20: ``--solve-precision`` on the card. The kernel's gate
+    (``phase_bf16x3_gate``); the flagship, the champion and the 105 × 250 grid
+    (B = 8192) trained graphed by ``precision_ab`` cut short under "highest",
+    "high" and "mixed" in turns, two passes: steps/s against "highest",
+    ``bf16x3_mm``'s launches exactly the steps × an eager step's (zero under
+    "highest"), "highest" after the switches the same bits as before them;
+    each config's loss and gradients at its built state under "high" against
+    CPU float64 within max(3 × the CPU "high" plain run's error, 1e-5); the
+    F = 5 flagship stack under "mixed": one launch a site, each member's
+    slice of every launch the bits of the kernel on that member alone; and
+    65,536 rows served under "high" against "highest" (points/s, the fields'
+    largest differences)."""
+    from zigp_tpu_torch.experiments import measure, precision_ab
+    from zigp_tpu_torch.experiments.configs import OnOffPptrConfig
+    from zigp_tpu_torch.experiments.runners import predict_batched
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+    from zigp_tpu_torch.training import stack_models
+    from zigp_tpu_torch.training.batched import stacked_loss
+
+    t_phase = time.perf_counter()
+    gate = phase_bf16x3_gate(bx)
+    walls_phase = {"gate": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    kw = dict(split=split, device=DEVICE)
+    built = {c: measure.build_config(c, batch_override=b, **kw) for c, b in PREC_CONFIGS.items()}
+    per_step = {}
+    for c, (model, _, B, _) in built.items():
+        X, Y = split.Xtrain[:B], split.Ytrain[:B]
+        per_step[c] = {p: eager_step_launches(model, X, Y, p) for p in PREC_POLICIES}
+        linalg.set_solve_precision("high")
+        try:
+            check_f32_against_cpu_f64(f"precision {c} high", model, X, Y)
+        finally:
+            linalg.set_solve_precision("highest")
+    log(f"precision: bf16x3_mm launches of one eager step by policy {per_step}")
+    walls_phase["builds and float64 checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    rates, runs_by = {}, {}
+    orig_build = measure.build_config
+    measure.build_config = lambda c, **k: built[c]  # the models built above, each run on its own copy
+    try:
+        for c in PREC_CONFIGS:
+            summary, runs = policy_runs(PREC_POLICIES, measure, precision_ab, (c,), kw)
+            runs_by[c] = runs
+            rates[c] = summary["steps_per_sec_median"][c]
+            losses = summary["final_block_loss"][c]
+            for r in runs:
+                want = r["steps"] * per_step[c][r["policy"]]
+                got = r["counts"]["bf16x3_mm"]
+                log(f"precision {c} {r['policy']}: {r['steps_per_s']:.1f} steps/s, {r['steps']} steps, bf16x3_mm "
+                    f"launches {got} (expected {r['steps']} x {per_step[c][r['policy']]}), chol_inv "
+                    f"{r['counts']['chol_inv']}, cluster {r['counts']['chol_inv_blocked']}, loss {r['loss']!r}")
+                if got != want:
+                    raise AssertionError(f"precision {c} {r['policy']}: bf16x3_mm launches {got}, expected {want}")
+            if losses["highest"][0] != losses["highest"][1]:
+                raise AssertionError(f"precision {c}: highest after the switches {losses['highest'][1]!r} is not "
+                                     f"the bits of highest before them {losses['highest'][0]!r}")
+            if per_step[c]["high"] <= per_step[c]["mixed"] or per_step[c]["mixed"] == 0 or per_step[c]["highest"]:
+                raise AssertionError(f"precision {c}: launches a step by policy {per_step[c]}")
+            log(f"precision {c}: steps/s medians {json.dumps(rates[c])} (against highest: "
+                f"{ {p: rates[c][p] / rates[c]['highest'] for p in PREC_POLICIES} }); highest the same bits after the "
+                f"switches ({losses['highest'][0]!r}); {card}")
+    finally:
+        measure.build_config = orig_build
+    walls_phase["policy runs"] = time.perf_counter() - t0
+
+    # the member stack under "mixed": one launch a site, each member its own bits
+    t0 = time.perf_counter()
+    folds = cv_folds(split)
+    cfg = OnOffPptrConfig()
+    models, _, _ = stack_members(cfg, folds)
+    stack = stack_models(models)
+    B = cfg.batch_size
+    X = torch.as_tensor(np.stack([f.Xtrain[:B] for f in folds]), dtype=torch.float32, device=DEVICE)
+    Y = torch.as_tensor(np.stack([f.Ytrain[:B] for f in folds]), dtype=torch.float32, device=DEVICE)
+    calls, op, product = [], bx.bf16x3_mm_op, bx.bf16x3_mm_cuda
+
+    def recorded(a, b):
+        c = op(a, b)
+        calls.append((a, b, c))
+        return c
+
+    single = eager_step_launches(models[0], folds[0].Xtrain[:B], folds[0].Ytrain[:B], "mixed")
+    zero_counts()
+    linalg.set_solve_precision("mixed")
+    bx.bf16x3_mm_op = recorded  # the Function looks the op up at call time
+    try:
+        stack.zero_grad(set_to_none=True)
+        stacked_loss(stack, X, Y).sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        bx.bf16x3_mm_op = op
+        linalg.set_solve_precision("highest")
+    stack_launches = read_counts()["bf16x3_mm"]
+    own = 0
+    for a, b, c in calls:
+        if a.shape[0] != STACK_F:
+            raise AssertionError(f"precision stack: a launch of batch {tuple(a.shape)} does not lead with the members")
+        for f in range(STACK_F):
+            if not torch.equal(c[f], product(a[f], b[f])):
+                raise AssertionError(f"precision stack: member {f} of a {tuple(a.shape)} launch is not its own bits")
+            own += 1
+    log(f"precision stack F={STACK_F} mixed: bf16x3_mm launches {stack_launches} for one loss and backward (one "
+        f"member alone {single}); every member's slice of every launch its own run's bits ({own} compared)")
+    if stack_launches != single or len(calls) != single:
+        raise AssertionError(f"precision stack: {stack_launches} launches, one member's {single}")
+    stack_counts = {"bf16x3_mm": stack_launches, "bf16x3_mm_by_shape": {}}
+    for a, b, _ in calls:
+        key = (int(np.prod(a.shape[:-2])), a.shape[-2], b.shape[-1], a.shape[-1])
+        stack_counts["bf16x3_mm_by_shape"][key] = stack_counts["bf16x3_mm_by_shape"].get(key, 0) + 1
+    del calls
+    walls_phase["stack"] = time.perf_counter() - t0
+
+    # serving 65,536 rows: "high" against "highest", a copy of the model each (its chunk graph keeps its policy),
+    # the first call of each its capture, then PREC_SERVE_PASSES warm calls in turns
+    t_serve = time.perf_counter()
+    serve = {}
+    for c in ("flagship", "champion"):
+        Xs = np.asarray(split.Xtrain[:ROWS])
+        models, out, walls = {}, {}, {p: [] for p in ("highest", "high")}
+        for policy in walls:
+            linalg.set_solve_precision(policy)
+            try:
+                models[policy] = copy.deepcopy(built[c][0])
+                zero_counts()
+                out[policy] = predict_batched(models[policy].predict, Xs, batch=4096, device=DEVICE)  # the capture
+                torch.cuda.synchronize()
+                counts = read_counts()
+            finally:
+                linalg.set_solve_precision("highest")
+            if (policy == "high") != (counts["bf16x3_mm"] > 0):
+                raise AssertionError(f"precision serving {c} {policy}: bf16x3_mm launches {counts['bf16x3_mm']}")
+            if policy == "high":
+                serve[f"{c} serve"] = counts
+        for _ in range(PREC_SERVE_PASSES):
+            for policy, m in models.items():
+                t0 = time.perf_counter()
+                again = predict_batched(m.predict, Xs, batch=4096, device=DEVICE)
+                torch.cuda.synchronize()
+                walls[policy].append(time.perf_counter() - t0)
+                if not all(np.array_equal(again[k], out[policy][k]) for k in again):
+                    raise AssertionError(f"precision serving {c} {policy}: a replayed call differs from the first")
+        pts = {p: ROWS / sorted(w)[len(w) // 2] for p, w in walls.items()}
+        diffs = {k: {"max_abs": float(np.abs(out["high"][k] - out["highest"][k]).max()),
+                     "rel": rel(out["high"][k], out["highest"][k])} for k in out["high"]}
+        if not all(np.isfinite(v).all() for v in out["high"].values()):
+            raise AssertionError(f"precision serving {c}: non-finite fields under high")
+        serve[c] = {"points_per_s": pts, "diffs": diffs}
+        log(f"precision serving {c}: {ROWS} rows, points/s (median of {PREC_SERVE_PASSES} calls in turns) "
+            f"{json.dumps(pts)}; high against highest {json.dumps(diffs)}; {card}")
+    walls_phase["serving"] = time.perf_counter() - t_serve
+
+    wall = time.perf_counter() - t_phase
+    log(f"precision: phase wall {wall:.1f} s ({json.dumps(walls_phase)}); {card}")
+    path_counts = {f"{c} {r['policy']}": r["counts"] for c, runs in runs_by.items() for r in runs[:len(PREC_POLICIES)]
+                   if r["policy"] != "highest"}
+    path_counts["stack F=5 mixed"] = stack_counts
+    path_counts.update({k: v for k, v in serve.items() if k.endswith(" serve")})
+    return {"gate": gate, "rates": rates, "per_step": per_step, "serve": {c: serve[c] for c in ("flagship", "champion")},
+            "counts": path_counts, "wall": wall}
+
+
+_BF16X3_TIMES = {}  # (G, M, N, K): the kernel's times at a shape, measured once
+
+
+def bf16x3_rows(bx, prec: dict, card) -> list:
+    """The kernels-line rows of ``bf16x3_mm`` at every (G, M, N, K) a
+    phase-20 path launched, with the launches; ms and device ms of the
+    kernel, the plain version's ms and exact-float32 ``torch.matmul``'s as
+    the library call, on contiguous operands of the shape."""
+    rows = []
+    for path, counts in prec["counts"].items():
+        for (G, M, N, K), launches in sorted(counts["bf16x3_mm_by_shape"].items()):
+            if (G, M, N, K) not in _BF16X3_TIMES:
+                a = torch.randn(G, M, K, device=DEVICE)
+                b = torch.randn(G, K, N, device=DEVICE)
+                c = bx.bf16x3_mm_cuda(a, b)
+                err = (c - bx.bf16x3_mm_plain(a, b)).abs().max().item()
+                reps = 20
+                times = (cuda_ms(lambda: bx.bf16x3_mm_cuda(a, b), reps=reps),
+                         graph_ms(lambda: bx.bf16x3_mm_cuda(a, b), reps=reps),
+                         cuda_ms(lambda: bx.bf16x3_mm_plain(a, b), reps=reps),
+                         cuda_ms(lambda: torch.matmul(a, b), reps=reps), err)
+                _BF16X3_TIMES[(G, M, N, K)] = times
+            ms, device_ms, plain_ms, lib_ms, err = _BF16X3_TIMES[(G, M, N, K)]
+            b_ms, b_by = bf16x3_bound_ms(G, M, N, K)
+            name = f"bf16x3_mm G={G} M={M} N={N} K={K} ({path})"
+            log(f"time {name}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+                f"f32 {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| "
+                f"{err:.3e}; {card}")
+            rows.append({"name": name, "route": "cuda", "source": BF16X3_SOURCE, "replaces": BF16X3_REPLACES,
+                         "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    if not rows:
+        raise AssertionError("bf16x3_mm: not launched on phase 20's paths")
+    return rows
+
+
 def memoize_inducing_init() -> None:
     """Memoize the builders' ``kron_inducing_init`` for this script: a pure
     function of the training rows, the grid and the seed (it seeds numpy
@@ -4594,6 +4968,7 @@ def main() -> int:
     from zigp_tpu_torch.experiments.configs import KronGridConfig, OnOffPptrConfig, best_onoff_config
     from zigp_tpu_torch.io.datasets import synthetic_pptr
     from zigp_tpu_torch.ops.cuda import _build
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
     from zigp_tpu_torch.ops.cuda import chol_inv as ci
     from zigp_tpu_torch.ops.cuda import rbf_gram as rg
 
@@ -4713,6 +5088,8 @@ def main() -> int:
     mark("the tools")
     api = phase_api(split, card)
     mark("the public API")
+    prec = phase_precision(split, card)
+    mark("the solve precision")
 
     kernels = []
     serving = {name: ([Z.shape[0] for Z in model.f.Zs], by_n) for name, (model, _, by_n, _, _) in runs.items()}
@@ -4752,6 +5129,7 @@ def main() -> int:
     kernels += parallel_rows(ci, rg, par, card)
     kernels += tools_rows(ci, rg, tools, card)
     kernels += api_rows(ci, rg, api, card)
+    kernels += bf16x3_rows(bx, prec, card)
 
     log(f"serving points/s: {json.dumps(pts)}; training steps/s, eager vs graphed: {json.dumps(graphed_rates)}; "
         f"graph A/B largest relative loss differences {json.dumps(graph_ab)}; "
@@ -4768,6 +5146,9 @@ def main() -> int:
         f"profile_step {json.dumps(tools['profile_step'])}, scale_utilization {json.dumps(tools['scale_utilization'])}, "
         f"serve_bench {json.dumps(tools['serve_bench'])}, time_to_target {json.dumps(tools['time_to_target'])}; "
         f"the public API: walls {json.dumps(api['walls'])}, solves {json.dumps(api['solves'])}; "
+        f"the solve precision: steps/s {json.dumps(prec['rates'])}, bf16x3_mm launches a step "
+        f"{json.dumps(prec['per_step'])}, serving {json.dumps(prec['serve'])}, gate {json.dumps(prec['gate'])}, "
+        f"wall {prec['wall']:.1f} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

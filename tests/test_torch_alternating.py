@@ -60,7 +60,9 @@ from zigp_tpu_torch.utils.logging import MetricLogger
 
 from .test_torch_runners import _jsplit, _tiny, _tiny_split
 from .test_torch_train import _jraws
-from .torch_helpers import jax_rows, jax_rows_as_port  # noqa: F401 (a fixture)
+from .torch_helpers import jax_rows, jax_rows_as_port, one_torch_thread_per_module  # noqa: F401 (fixtures)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 LR = 1e-2

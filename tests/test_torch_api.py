@@ -270,13 +270,6 @@ MODULE_MAP = {"ops/pallas": "ops/cuda"}
 # "package:name" (a JAX __all__ entry) or "module:name" (a JAX public def or
 # class) that the port does not have under that name, with the reason
 EXCEPTIONS = {
-    "ops/linalg:set_solve_precision": "no one-flag analog on Hopper: TF32 is coarser than the TPU's 3-pass HIGH and "
-                                      "is off on every contraction (ROADMAP Queue 1 item 4)",
-    "ops/linalg:bdot": "solve-replacing product pinned to exact f32 on the TPU; plain matmuls are exact f32 here",
-    "ops/linalg:hdot": "solve-replacing product pinned to exact f32 on the TPU; plain matmuls are exact f32 here",
-    "ops/linalg:bulk_precision": "the TPU's bulk-contraction precision switch; no torch meaning with TF32 off",
-    "ops/conditionals:KronConditionalState": "nothing in the JAX package constructs it; the port's factor state is "
-                                             "(Ls, Linvs)",
     "training/alternating:make_alternating_device_step": "a device-sampling step builder: StagedBlocks with "
                                                          "BlockRunner does its work (make_alternating_block)",
     "training:make_alternating_device_step": "as training/alternating:make_alternating_device_step",

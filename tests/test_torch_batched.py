@@ -65,6 +65,16 @@ from .test_torch_alternating import close_to_jax, models
 from .test_torch_runners import _jsplit, _tiny, _tiny_split
 from .test_torch_train import _jraws, _with_raws
 from .torch_helpers import jax_rows_as_port  # noqa: F401 (a fixture)
+from .torch_helpers import jax_scan_unroll, one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lean_run():
+    """One torch thread, and the JAX anchors' scans compiled at unroll 1
+    (``torch_helpers.one_torch_thread``, ``jax_scan_unroll``)."""
+    with one_torch_thread(), jax_scan_unroll(1):
+        yield
+
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 LR = 1e-2

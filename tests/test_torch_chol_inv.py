@@ -22,6 +22,10 @@ from zigp_tpu_torch.ops import linalg
 from zigp_tpu_torch.ops.cuda import chol_inv as ci
 from zigp_tpu_torch.ops.cuda import cholesky as sc
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 
 def _spd(rng, shape):
     *batch, n, _ = shape

@@ -30,6 +30,10 @@ import torch
 from zigp_tpu.ops.pallas.chol_inv import chol_inv_blocked as jax_chol_inv_blocked
 from zigp_tpu_torch.ops.cuda import chol_inv as ci
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 NB = ci.NB
 
 

@@ -13,8 +13,9 @@ CPU, against the JAX package's.
   forecast --covariates``; ``cv --batched``; ``ensemble``; the kernel zoo's
   flags (``--kernel-temporal 'periodic*rbf' --kernel-period``, ``cv
   --kernel-spatial matern32``), each kernel built as the flags say.
-- Every guard rail and every "not ported" exit, each with its message, the
-  latter before any data is read.
+- Every guard rail, each with its message; ``--solve-precision high`` and
+  ``cv --solve-precision mixed`` training in float32 through the 3-pass
+  product, the policy logged and put back.
 - ``selfcheck --device cpu`` exiting 0; ``toy --plot`` writing its PNG;
   ``run_onoff`` with ``monitor_every`` writing the monitor's PNGs.
 """
@@ -29,6 +30,10 @@ import torch
 
 from zigp_tpu.experiments import cli as jcli
 from zigp_tpu_torch.experiments import cli as tcli
+
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 
 @pytest.fixture(autouse=True)
@@ -309,7 +314,7 @@ def test_kernel_zoo_flags_train_end_to_end(argv, synth_pptr, tmp_path, monkeypat
 
 
 # ---------------------------------------------------------------------------
-# guard rails and "not ported" exits
+# guard rails and the solve precision
 # ---------------------------------------------------------------------------
 
 GUARDS = {
@@ -347,20 +352,32 @@ def test_natgrad_with_mesh_model_warns_and_trains_on_one_rank(synth_pptr, tmp_pa
     assert (wd / "1" / "results_onoff.pickle").exists()
 
 
-NOT_PORTED = {
-    "onoff --solve-precision high": "--solve-precision high is not ported",
-    "cv --solve-precision mixed": "--solve-precision mixed is not ported",
+PRECISION_RUNS = {
+    "onoff --solve-precision high": ("high", "1/modelsumm_onoff.log"),
+    "cv --models onoff --solve-precision mixed": ("mixed", "modelsumm_cv.log"),
 }
 
 
-@pytest.mark.parametrize("argv", list(NOT_PORTED))
-def test_not_ported_exits_before_any_work(argv, tmp_path):
-    """A data path that does not exist: reading it would raise
-    FileNotFoundError, so the exit comes first."""
-    extra = ["--data", str(tmp_path / "absent.pickle"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match=NOT_PORTED[argv]):
-        tcli.main(argv.split() + extra)
-    assert not (tmp_path / "runs").exists()
+@pytest.mark.parametrize("argv", list(PRECISION_RUNS))
+def test_solve_precision_trains_under_the_policy(argv, synth_pptr, tmp_path):
+    """float32 on the CPU: the run's products go through the 3-pass product
+    (its plain version here), the log names the policy as the JAX CLI's does,
+    the results are written, and the policy is "highest" again after."""
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.ops.cuda import bf16x3
+
+    policy, log = PRECISION_RUNS[argv]
+    calls = []
+    product = bf16x3.bf16x3_mm_cuda
+    wd = tmp_path / "wd"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bf16x3, "bf16x3_mm_cuda", lambda a, b: calls.append(linalg.solve_precision()) or product(a, b))
+        assert tcli.main(argv.split() + ["--data", synth_pptr, "--workdir", str(wd), "--iters", "10", "--batch", "32",
+                                         *SMALL, "--device", "cpu", "--dtype", "float32"]) == 0
+    assert calls and set(calls) == {policy}
+    assert f"solve precision: {policy}" in (wd / log).read_text()
+    assert (wd / "1" / "results_onoff.pickle").exists()
+    assert linalg.solve_precision() == "highest"
 
 
 def test_selfcheck_through_the_cli(monkeypatch):

@@ -1306,3 +1306,116 @@ def test_make_mesh_takes_an_index_less_cuda_device(cuda):
     assert mesh.device.index is not None and torch.cuda.current_device() == mesh.device.index
     x = torch.ones(3, device=mesh.device)
     assert torch.equal(mesh.all_reduce_data(x), x)
+
+
+# --- the 3-pass bf16 product of the solve-precision policy (csrc/bf16x3_mm.cu) ---
+
+
+def _split64(a, b):
+    """hi·hi + hi·lo + lo·hi in float64 of float32 a, b, and K·2⁻²⁴·Σ|a||b|."""
+    from zigp_tpu_torch.ops.cuda.bf16x3 import split_bf16
+
+    (ah, al), (bh, bl) = split_bf16(a), split_bf16(b)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    return ah @ bh + (ah @ bl + al @ bh), a.shape[-1] * 2.0**-24 * (a.double().abs() @ b.double().abs())
+
+
+@pytest.mark.parametrize("n", [10, 32, 100, 105, 200, 250])
+@pytest.mark.parametrize("B, layout", [(1000, "ab"), (4000, "ab"), (8192, "ab"), (16384, "ab"), (8192, "aT b"),
+                                       (8192, "a bT"), (None, "aT a"), (8192, "dots"), (8192, "split k"),
+                                       (8192, "short k")])
+def test_bf16x3_matches_its_split_and_float64(cuda, n, B, layout):
+    """The kernel against the float64 value of its own three products
+    (within 2·K·2⁻²⁴·Σ|a||b|, the bound of float32 accumulation with
+    truncation; a lost cross term misses by about 2⁻⁹) and against the
+    float64 product within max(3 × the plain version's error, 1e-5); one
+    launch a call."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    a, b = {
+        "ab": lambda: (r(2, n, n), r(2, n, B)),
+        "aT b": lambda: (r(2, n, n).transpose(-1, -2), r(2, n, B)),
+        "a bT": lambda: (r(2, n, n), r(2, B, n).transpose(-1, -2)),
+        "aT a": lambda: (r(2, n, n).transpose(-1, -2), r(2, n, n)),
+        "dots": lambda: (r(2, B, 1, n), r(2, n, B).transpose(-1, -2).unsqueeze(-1)),
+        "split k": lambda: (r(2, n, B), r(2, n, B).transpose(-1, -2)),
+        "short k": lambda: (r(2, B, 1, 1), r(2, n, B).transpose(-1, -2).unsqueeze(-2)),
+    }[layout]()
+    before = bx.bf16x3_mm_cuda.launches
+    c = bx.bf16x3_mm_cuda(a, b)
+    torch.cuda.synchronize()
+    assert bx.bf16x3_mm_cuda.launches == before + 1
+    split, bound = _split64(a, b)
+    assert torch.all((c.double() - split).abs() <= 2.0 * bound)
+    exact = a.double() @ b.double()
+    e_k = float(torch.linalg.norm(c.double() - exact) / torch.linalg.norm(exact))
+    e_p = float(torch.linalg.norm(bx.bf16x3_mm_plain(a, b).double() - exact) / torch.linalg.norm(exact))
+    assert e_k <= max(3.0 * e_p, 1e-5)
+
+
+@pytest.mark.parametrize("M, N, K", [(100, 1000, 64), (1, 1, 64), (100, 100, 8192), (100, 1, 1)])
+def test_bf16x3_carries_nan(cuda, M, N, K):
+    """In every instance of the plan: tiles, dots, k split, short k."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    a = torch.randn(4, M, K, device=cuda)
+    b = torch.randn(4, K, N, device=cuda)
+    a[2, M // 2, K // 2] = float("nan")
+    c = bx.bf16x3_mm_cuda(a, b)
+    assert torch.isnan(c[2, M // 2]).all()
+    c[2, M // 2] = 0.0
+    assert torch.isfinite(c).all()
+
+
+def test_bf16x3_refuses_what_it_cannot_take(cuda):
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    with pytest.raises(TypeError):
+        bx.bf16x3_mm_cuda(torch.randn(2, 3, 4, device=cuda, dtype=torch.float64),
+                          torch.randn(2, 4, 5, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        bx.bf16x3_mm_cuda(torch.randn(2, 3, 4, device=cuda), torch.randn(2, 5, 5, device=cuda))
+    with pytest.raises(ValueError):
+        bx.bf16x3_mm_cuda(torch.randn(2, 3, 4, device=cuda), torch.randn(2, 4, 5))
+
+
+def test_graphed_block_under_mixed_matches_eager(cuda):
+    """A block captured under "mixed" against the same steps run eagerly
+    under "mixed", within GRAPH_TOL, each replay counting its 3-pass
+    launches; after a switch to "highest" the replay still launches them
+    (the graph keeps the policy it captured)."""
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+    from zigp_tpu_torch.ops.cuda.graphs import on_side_stream
+    from zigp_tpu_torch.training import make_graphed_scan_step, make_scan_train_step
+
+    model, opt, blocks = _graph_setup(cuda)
+    twin, topt = _twin(model)
+    Xs, Ys = (b.clone() for b in blocks[0])
+    linalg.set_solve_precision("mixed")
+    try:
+        on_side_stream(lambda: make_scan_train_step(opt)(model, Xs, Ys))
+        before = bx.bf16x3_mm_cuda.launches
+        make_scan_train_step(topt)(twin, Xs, Ys)
+        per_block = bx.bf16x3_mm_cuda.launches - before
+        graphed = make_graphed_scan_step(opt, model, Xs, Ys)
+        Xs.copy_(blocks[1][0])
+        Ys.copy_(blocks[1][1])
+        want = make_scan_train_step(topt)(twin, *blocks[1])
+    finally:
+        linalg.set_solve_precision("highest")
+    before = bx.bf16x3_mm_cuda.launches
+    got = graphed()
+    torch.cuda.synchronize()
+    assert per_block > 0 and bx.bf16x3_mm_cuda.launches - before == per_block
+    assert torch.isfinite(got).all() and _rel_max(got, want) <= GRAPH_TOL
+
+
+def test_opcheck_of_the_bf16x3_op(cuda):
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    a = torch.randn(2, 30, 17, device=cuda)
+    torch.library.opcheck(bx.bf16x3_mm_op, (a, torch.randn(2, 17, 70, device=cuda)))
+    torch.library.opcheck(bx.bf16x3_mm_op, (a.transpose(-1, -2), torch.randn(2, 30, 5, device=cuda)))

@@ -21,7 +21,16 @@ from zigp_tpu_torch.experiments import configs as tconfigs
 from zigp_tpu_torch.experiments.cv_batched import run_cv_batched
 from zigp_tpu_torch.io.datasets import Split
 
-from .torch_helpers import draw_jax_rows
+from .torch_helpers import draw_jax_rows, jax_scan_unroll, one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lean_run():
+    """One torch thread, and the JAX anchors' scans compiled at unroll 1
+    (``torch_helpers.one_torch_thread``, ``jax_scan_unroll``)."""
+    with one_torch_thread(), jax_scan_unroll(1):
+        yield
+
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 MODELS = ["onoff", "svgp", "classifier", "hurdle", "hurdlej", "zi"]

@@ -25,7 +25,9 @@ from zigp_tpu_torch.io.datasets import Split
 
 from .test_torch_cv_batched import _cfgs
 from .test_torch_runners import _same
-from .torch_helpers import jax_rows_as_port  # noqa: F401 (a fixture)
+from .torch_helpers import jax_rows_as_port, one_torch_thread_per_module  # noqa: F401 (fixtures)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 quiet = lambda s: None  # noqa: E731

@@ -27,6 +27,10 @@ from zigp_tpu_torch.ops import linalg
 from zigp_tpu_torch.ops.cuda import chol_inv as ci
 from zigp_tpu_torch.ops.cuda import rbf_gram as rg
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 CPU64 = dict(device="cpu", dtype=torch.float64)
 OUTPUTS = {
     "onoff": ["fmean", "fvar", "gfmean", "gfmeanu", "gfvar", "gmean", "gvar", "pgmean", "pgvar"],

@@ -16,6 +16,9 @@ carried into the port by name (``io.convert``):
 - the likelihoods' predictive moments and NLPDs, the Gauss–Hermite nodes,
   and a warm GH or Gamma step building no tensor from host data (a
   host-to-device copy, which a CUDA graph capture refuses).
+
+The JAX anchors run under ``jax.jit``: one compile a call, where the eager
+JAX ops compiled one by one (about 470 compiles in the first test).
 """
 
 import jax
@@ -40,6 +43,16 @@ from zigp_tpu_torch.training import make_optimizer, make_scan_train_step
 
 from .test_golden import GOLDEN_KRON_CLF_ELBO, GOLDEN_KRON_SVGP_ELBO, _kron_fixture
 from .test_torch_train import _jraws, _with_raws
+from .torch_helpers import jax_scan_unroll, one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lean_run():
+    """One torch thread, and the JAX anchors' scans compiled at unroll 1
+    (``torch_helpers.one_torch_thread``, ``jax_scan_unroll``)."""
+    with one_torch_thread(), jax_scan_unroll(1):
+        yield
+
 
 HEADS = ["gaussian", "lognormal", "gamma", "bernoulli", "bernoulli_gh"]
 AMOUNT_HEADS = ["lognormal", "gamma", "gaussian"]
@@ -113,7 +126,7 @@ def _hurdle_models(head, *, whiten=False, q_cov="diag", pair=True):
 def _grads_match(jm, tm, X, Y, rtol=1e-8):
     """ELBO at rtol 1e-10 and every trainable raw's gradient at ``rtol``;
     returns the number of gradients checked."""
-    jelbo, jg = jax.value_and_grad(lambda m: m.elbo(jnp.asarray(X), jnp.asarray(Y)))(jm)
+    jelbo, jg = jax.jit(jax.value_and_grad(lambda m: m.elbo(jnp.asarray(X), jnp.asarray(Y))))(jm)
     jg = _jraws(jg)
     tm.zero_grad()
     elbo = tm.elbo(_t(X), _t(Y))
@@ -157,7 +170,7 @@ def test_svgp_elbo_and_gradients_match_jax(head, whiten, q_cov):
 @pytest.mark.parametrize("head", ["gaussian", "bernoulli_gh"])
 def test_svgp_factor_state_injected_and_num_data_match_jax(head):
     jm, tm, X, Y = _svgp_models(head)
-    want = float(jm.elbo(jnp.asarray(X), jnp.asarray(Y), num_data=37))
+    want = float(jax.jit(lambda m: m.elbo(jnp.asarray(X), jnp.asarray(Y), num_data=37))(jm))
     with torch.no_grad():
         st = tm.factor_state()
         np.testing.assert_allclose(float(tm.elbo(_t(X), _t(Y), num_data=37, factor_state=st)), want, rtol=1e-10)
@@ -168,7 +181,8 @@ def test_svgp_predictions_match_jax():
     jm, tm, X, _ = _svgp_models("bernoulli")
     with torch.no_grad():
         lat, cls = tm.predict_latent(_t(X)), tm.predict_class(_t(X))
-    for got, want in zip((*lat, *cls), (*jm.predict_f(jnp.asarray(X)), *jm.predict_prob(jnp.asarray(X)))):
+    want = jax.jit(lambda m: (*m.predict_f(jnp.asarray(X)), *m.predict_prob(jnp.asarray(X))))(jm)
+    for got, want in zip((*lat, *cls), want):
         assert got.shape == (X.shape[0], 1)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-14)
 
@@ -236,7 +250,7 @@ def test_hurdle_predict_matches_jax():
     jm, tm, X, _ = _hurdle_models("gamma")
     with torch.no_grad():
         got = tm.predict(_t(X))
-    want = jm.predict(jnp.asarray(X))
+    want = jax.jit(lambda m: m.predict(jnp.asarray(X)))(jm)
     for f in got._fields:
         np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)), rtol=1e-10, atol=1e-14,
                                    err_msg=f)

@@ -54,6 +54,9 @@ from zigp_tpu_torch.utils.logging import MetricLogger
 
 from .test_golden import _kron_fixture
 from .test_torch_train import _jraws, _pair_models, _small_cfg
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 LR = 1e-2
 B, K = 8, 2  # K = 2 keeps the JAX package's scan compile short

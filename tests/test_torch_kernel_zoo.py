@@ -57,6 +57,9 @@ from zigp_tpu_torch.training import (
 
 from .test_torch_runners import _jsplit, _tiny, _tiny_split
 from .test_torch_train import _jraws, _with_raws
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 

@@ -29,6 +29,10 @@ import torch
 from zigp_tpu.ops.pallas.kron_matvec import kron_mv_2
 from zigp_tpu_torch.ops.cuda import kron_matvec as km
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 EDGE = km.MAX_CLUSTER * km.TM  # the cluster's reach
 SHAPES = [(1, 1, 1), (3, 1, 5), (2, 6, 9), (2, 10, 100), (2, 105, 250), (1, 33, 70), (1, EDGE, 40),
           (1, EDGE + 1, 40)]

@@ -13,8 +13,9 @@ harnesses on it (``sampler_ab``, ``alternating_ab``, ``precision_ab``,
 - ``sampler_ab``: ``fused`` gives ``staged``'s losses bit for bit;
   ``perstep``'s draws are a function of the block key; ``alternating_ab``'s
   ``alt<K>`` equals ``fit_scanned(alternating=K)`` bit for bit;
-- ``precision_ab``, ``profile_step`` and ``scale_utilization`` stop on
-  ``high`` / ``mixed`` before any work;
+- ``precision_ab``, ``profile_step`` and ``scale_utilization`` run under
+  ``high`` / ``mixed`` in float32, through the 3-pass product, record the
+  policy and put "highest" back;
 - ``profile_step``'s summary: categories summing to the total, per-step
   numbers; ``scale_utilization``'s counted FLOPs and null shares off the
   card; ``serve_bench``'s artifact within 1e-5 of ``predict_batched``;
@@ -50,7 +51,9 @@ from zigp_tpu_torch.experiments.builders import build_onoff_pptr
 from zigp_tpu_torch.training import DataSet, fit_scanned, make_optimizer
 
 from .test_torch_runners import _jsplit, _tiny_split
-from .torch_helpers import jax_rows_as_port  # noqa: F401  (a fixture)
+from .torch_helpers import jax_rows_as_port, one_torch_thread_per_module  # noqa: F401 (fixtures)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 
@@ -168,19 +171,45 @@ def test_harness_runs_in_round_robin(tiny_configs):
     assert set(out["steps_per_sec_median"]["scale"]) == {"joint", "alt2"}
     out = precision_ab.run_precision_ab(configs=("champion",), num_inner=4, num_blocks=1, repeats=1,
                                         log_fn=lambda s: None, build_kw=tiny_configs)
-    assert list(out["steps_per_sec_median"]["champion"]) == ["highest"]
+    assert list(out["steps_per_sec_median"]["champion"]) == ["highest", "mixed"]  # the JAX harness's default
 
 
-@pytest.mark.parametrize("main, argv", [
-    (precision_ab.main, ["--policies", "highest,mixed", "--synthetic"]),
-    (profile_step.main, ["--solve-precision", "high", "--synthetic"]),
-    (scale_utilization.main, ["--solve-precision", "mixed", "--synthetic"]),
-])
-def test_reduced_precision_is_not_ported(monkeypatch, main, argv):
-    monkeypatch.setattr(measure, "build_config", lambda *a, **k: pytest.fail("built before the refusal"))
-    monkeypatch.setattr(measure, "load_split", lambda *a, **k: pytest.fail("read data before the refusal"))
-    with pytest.raises(SystemExit, match="is not ported"):
-        main(argv + ["--device", "cpu"])
+PRECISION_RUNS = {
+    "precision_ab mixed": "mixed",
+    "profile_step high": "high",
+    "scale_utilization mixed": "mixed",
+}
+
+
+@pytest.mark.parametrize("run", list(PRECISION_RUNS))
+def test_reduced_precision_runs_and_records_its_policy(run, tiny_configs, tmp_path):
+    """float32 at the tiny grid: the 3-pass products run under the policy
+    (their plain version on the CPU), the summary names it, and "highest"
+    is back when the harness returns."""
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.ops.cuda import bf16x3
+
+    policy = PRECISION_RUNS[run]
+    kw = {**tiny_configs, "dtype": torch.float32}
+    calls = []
+    product = bf16x3.bf16x3_mm_cuda
+    quiet = dict(num_inner=4, num_blocks=1, log_fn=lambda s: None)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bf16x3, "bf16x3_mm_cuda", lambda a, b: calls.append(linalg.solve_precision()) or product(a, b))
+        if run.startswith("precision_ab"):
+            out = precision_ab.run_precision_ab(configs=("champion",), policies=("highest", policy), repeats=1,
+                                                build_kw=kw, **quiet)
+            assert list(out["steps_per_sec_median"]["champion"]) == ["highest", policy]
+        elif run.startswith("profile_step"):
+            s = profile_step.profile_step("flagship", solve_precision=policy, build_kw=kw, **quiet)
+            assert s["solve_precision"] == policy and s["steps"] == 4
+        else:
+            kw.pop("split")
+            rows = scale_utilization.probe(batches=(16,), solve_precision=policy, build_kw=kw, split=_tiny_split(),
+                                           grid=(3, 5), repeats=1, **quiet)
+            assert rows[0]["solve_precision"] == policy
+    assert calls and set(calls) == {policy}
+    assert linalg.solve_precision() == "highest"
 
 
 def test_profile_step_summary(tiny_configs, tmp_path):

@@ -52,6 +52,15 @@ from zigp_tpu_torch.utils.logging import MetricLogger
 
 from .test_torch_alternating import _route_cfg, close_to_jax, jax_rows, models
 from .test_torch_train import _jraws
+from .torch_helpers import jax_scan_unroll, one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lean_run():
+    """One torch thread, and the JAX anchors' scans compiled at unroll 1
+    (``torch_helpers.one_torch_thread``, ``jax_scan_unroll``)."""
+    with one_torch_thread(), jax_scan_unroll(1):
+        yield
 
 
 def _t(a):

@@ -22,6 +22,10 @@ from zigp_tpu_torch.ops import probit as tprobit
 from zigp_tpu_torch.ops.kernels import RBF as TRBF
 from zigp_tpu_torch.ops.kernels import RBFValues
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 RTOL = 1e-9
 
 

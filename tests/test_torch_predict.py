@@ -40,6 +40,10 @@ from zigp_tpu_torch.experiments.runners import predict_batched
 from zigp_tpu_torch.io import datasets as tdatasets
 from zigp_tpu_torch.io.convert import dump_arrays, load_jax_arrays
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 ATOL_SHARE = {"flagship": 2e-8, "champion": 1e-9}  # see the module docstring
 FIELDS = ("gfmean", "gfvar", "gfmeanu", "fmean", "fvar", "gmean", "gvar", "pgmean", "pgvar")
 

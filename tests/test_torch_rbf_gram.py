@@ -33,6 +33,10 @@ from zigp_tpu_torch.ops.cuda import rbf_gram as rg
 from zigp_tpu_torch.ops.kernels import RBF as TRBF
 from zigp_tpu_torch.ops.kernels import RBFValues
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 T_SPAN = (4.368, 5.447)  # the pptr time column, hours ÷ 1000
 
 

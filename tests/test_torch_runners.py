@@ -51,6 +51,16 @@ from zigp_tpu_torch.training import DataSet
 from zigp_tpu_torch.utils import metrics as tmetrics
 
 from .test_torch_train import _jraws
+from .torch_helpers import jax_scan_unroll, one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _lean_run():
+    """One torch thread, and the JAX anchors' scans compiled at unroll 1
+    (``torch_helpers.one_torch_thread``, ``jax_scan_unroll``)."""
+    with one_torch_thread(), jax_scan_unroll(1):
+        yield
+
 
 RTOL = 1e-7  # runner metrics, port against JAX, both trained in float64
 CPU64 = dict(device="cpu", dtype=torch.float64)

@@ -36,6 +36,9 @@ from zigp_tpu_torch.models import OnOffPrediction, gated_y_from, gated_y_samples
 from zigp_tpu_torch.ops import conditionals as tcond
 
 from .test_torch_train import _jraws, _with_raws
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 RTOL = 1e-10
 CPU64 = dict(device="cpu", dtype=torch.float64)

@@ -25,6 +25,9 @@ from zigp_tpu_torch.experiments import selfcheck as tsc
 from zigp_tpu_torch.io.convert import load_jax_arrays
 
 from .test_torch_train import _jraws
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 # the JAX package's results (zigp_tpu/experiments/selfcheck.py, run_selfcheck)
 JAX_KEYS = {

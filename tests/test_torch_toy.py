@@ -51,6 +51,9 @@ from zigp_tpu_torch.training import scipy_optimize
 
 from .oracles import SEKernelNp, conditional_dense, gauss_kl_dense, onoff_elbo_dense
 from .test_torch_train import _jraws, _with_raws
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -54,6 +54,9 @@ from zigp_tpu_torch.training import (
 from zigp_tpu_torch.training.scan import block_seed
 
 from .test_golden import GOLDEN_KRON_ONOFF_ELBO, _kron_fixture
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
 
 
 def _t(a):

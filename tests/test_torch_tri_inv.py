@@ -21,6 +21,10 @@ from zigp_tpu.ops.pallas import chol_inv as jchol_inv
 from zigp_tpu_torch.ops import linalg
 from zigp_tpu_torch.ops.cuda import chol_inv as ci
 
+from .torch_helpers import one_torch_thread_per_module  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_per_module")
+
 NS = [1, 2, 3, 10, 100, 105, 128, 250]
 # jitted: eager JAX dispatches (and compiles) every op of the DC levels alone
 jax_tri_inv_dc = jax.jit(jchol_inv.tri_inv_dc)

@@ -8,6 +8,8 @@ The ranks are spawned processes that import this module and the port, never
 JAX: JAX is imported inside the functions that use it, which only the test
 process calls."""
 
+import contextlib
+import inspect
 import os
 import pickle
 import traceback
@@ -15,6 +17,57 @@ import traceback
 import numpy as np
 import pytest
 import torch
+
+
+@contextlib.contextmanager
+def jax_scan_unroll(value: int = 1):
+    """The JAX package's scanned step builders (``training.scan``,
+    ``batched``, ``alternating``, ``natgrad``) with ``value`` as the default
+    of their ``unroll`` keyword while inside. ``lax.scan``'s unroll factor
+    lays the loop out for XLA to overlap adjacent steps on the TPU; it
+    changes what is compiled, not what is computed, and at 8 (4 in natgrad)
+    it multiplies the CPU compile time of every JAX anchor of the port's
+    trainers. A builder called with an explicit ``unroll`` is unaffected."""
+    from zigp_tpu.training import alternating, batched, natgrad, scan
+
+    saved = []
+    for mod in (scan, batched, alternating, natgrad):
+        fns = [f for f in vars(mod).values() if inspect.isfunction(f) and f.__module__ == mod.__name__]
+        for cls in (c for c in vars(mod).values() if inspect.isclass(c) and c.__module__ == mod.__name__):
+            fns += [f for f in vars(cls).values() if inspect.isfunction(f)]
+        for f in fns:
+            if f.__kwdefaults__ and "unroll" in f.__kwdefaults__:
+                saved.append((f, f.__kwdefaults__["unroll"]))
+                f.__kwdefaults__["unroll"] = value
+    try:
+        yield
+    finally:
+        for f, v in saved:
+            f.__kwdefaults__["unroll"] = v
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch's intra-op threads at one while inside. The test run gives each
+    of its worker processes the machine's cores; with every worker's torch
+    spreading each small float64 op over all of them, the workers spend more
+    time contending than computing (the five slowest files ran 2.2 × faster
+    in summed time with one thread). A test compares both sides of a check
+    inside the block, so both see the same setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread_per_module():
+    """``one_torch_thread`` around a test module (``pytestmark =
+    pytest.mark.usefixtures("one_torch_thread_per_module")``)."""
+    with one_torch_thread():
+        yield
 
 
 def jax_rows(key_pair, count, N):

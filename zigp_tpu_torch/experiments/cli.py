@@ -37,9 +37,10 @@ with the launch to use. Rank 0 alone prints and writes the results.
 
 ``selfcheck`` is ``experiments.selfcheck.run_selfcheck`` on ``--device``;
 ``toy --plot`` draws ``utils.plotting.plot_onoff_1d`` and stops before any
-work when matplotlib is missing. What the port does not have stops the run
-with a "not ported" error before any work: ``--solve-precision high|mixed``
-(left unported on purpose: ``highest`` is the port's only precision).
+work when matplotlib is missing. ``--solve-precision highest|high|mixed``
+sets ``ops.linalg.set_solve_precision`` before any model is built and logs
+"solve precision: …", as the JAX CLI does; ``main`` puts the policy back
+as it found it when the command ends, so an in-process caller keeps its own.
 """
 
 from __future__ import annotations
@@ -238,9 +239,13 @@ def _common(p):
                    help="init shape alpha of the gamma head (1 = exponential)")
     p.add_argument("--solve-precision", type=str, default=None, dest="solve_precision",
                    choices=("highest", "high", "mixed"),
-                   help="precision of the solve-replacing contractions: "
-                        "highest (exact float32, the port's only one); high "
-                        "and mixed are not ported")
+                   help="precision of the solve-replacing products "
+                        "(ops.linalg.hdot/bdot): highest = exact float32 "
+                        "(default); high = the 3-pass bf16 product "
+                        "(ops.cuda.bf16x3, about 1e-5 relative) on every one; "
+                        "mixed = 3-pass only on the batch-scaled projections "
+                        "of the conditionals, exact float32 on the "
+                        "factor-space products incl. the chol_inv VJP")
     p.add_argument("--mesh-data", type=int, default=None, dest="mesh_data",
                    help="shard the minibatch over this many ranks (data "
                         "parallelism; batch size must divide it; launch with "
@@ -372,8 +377,8 @@ def _parser() -> argparse.ArgumentParser:
                            "configs (for --split forecast prefer reference)")
     p_cv.add_argument("--solve-precision", type=str, default=None, dest="solve_precision",
                       choices=("highest", "high", "mixed"),
-                      help="precision of the solve-replacing contractions "
-                           "(highest only; high and mixed are not ported)")
+                      help="precision of the solve-replacing products for "
+                           "every variant (see the training subcommands)")
     p_cv.add_argument("--grid", type=str, default=None,
                       help="inducing grid for every variant: SxT or LATxLONxT")
     p_cv.add_argument("--batched", action="store_true",
@@ -435,13 +440,14 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args) -> None:
-    """Stop with a "not ported" error for what the port does not have,
-    before any data is read or any model built."""
-    if getattr(args, "solve_precision", None) in ("high", "mixed"):
-        raise SystemExit(f"error: --solve-precision {args.solve_precision} is not ported to zigp_tpu_torch "
-                         "(left out on purpose: the card's reduced-precision products are TF32, coarser "
-                         "than the TPU's 3-pass bf16); highest is the port's precision")
+def _set_solve_precision(args, log) -> None:
+    """--solve-precision: the policy, set before any model or step is
+    built, and logged."""
+    if getattr(args, "solve_precision", None):
+        from ..ops import linalg
+
+        linalg.set_solve_precision(args.solve_precision)
+        log(f"solve precision: {args.solve_precision}")
 
 
 def _device(args):
@@ -492,15 +498,18 @@ def _main_toy(args) -> int:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
+    from ..ops import linalg
     from ..parallel.distributed import initialize
     from ..parallel.mesh import MeshLaunchError
 
     initialize()
+    policy = linalg.solve_precision()
     try:
         return _main(args)
     except MeshLaunchError as e:
         raise SystemExit(f"error: {e}") from None
+    finally:
+        linalg.set_solve_precision(policy)
 
 
 def _main(args) -> int:
@@ -536,8 +545,7 @@ def _main(args) -> int:
     split = _load_fold(args)
     workdir = os.path.join(args.workdir, str(args.fold))
     log = _setup_logging(workdir, args.cmd)
-    if getattr(args, "solve_precision", None):
-        log(f"solve precision: {args.solve_precision}")
+    _set_solve_precision(args, log)
 
     def _cfgkw(cfg):
         kw = {}
@@ -699,8 +707,7 @@ def _main_cv(args, placed: dict) -> int:
 
     os.makedirs(args.workdir, exist_ok=True)
     log = _setup_logging(args.workdir, "cv")
-    if args.solve_precision:
-        log(f"solve precision: {args.solve_precision}")
+    _set_solve_precision(args, log)
     bases = preset_configs(args.preset)
     variants = [m.strip() for m in args.models.split(",") if m.strip()]
     if args.preset == "reference" and {"svgp", "hurdle"} & set(variants) and not args.whiten:

@@ -26,6 +26,7 @@ CUDA).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import time
@@ -268,12 +269,22 @@ def build_kw_of(args, dtype: torch.dtype = torch.float32) -> dict:
     return dict(data=args.data, synthetic=args.synthetic, device=args.device, dtype=dtype)
 
 
-def refuse_precision(policy: Optional[str]) -> None:
-    """``--solve-precision`` other than ``highest`` stops before any work,
-    as the command line does."""
-    if policy not in (None, "highest"):
-        raise SystemExit(f"error: --solve-precision {policy} is not ported to zigp_tpu_torch (left out on purpose: "
-                         "the card's reduced-precision products are TF32); highest is the port's precision")
+@contextlib.contextmanager
+def solve_precision(policy: Optional[str]):
+    """``--solve-precision``: the policy (``ops.linalg.set_solve_precision``)
+    in force inside, from before any model or step is built; "highest"
+    again after, whatever happens, as the JAX harnesses put it back. None
+    leaves the policy as it is. Yields the policy in force."""
+    from ..ops import linalg
+
+    if policy is None:
+        yield linalg.solve_precision()
+        return
+    linalg.set_solve_precision(policy)
+    try:
+        yield policy
+    finally:
+        linalg.set_solve_precision("highest")
 
 
 def losses_of(step: BlockStep, keys) -> np.ndarray:

@@ -14,10 +14,11 @@ profile of one flagship block.
 
     python -m zigp_tpu_torch.experiments.profile_step (--data PATH | --synthetic)
         [--config flagship|champion|scale] [--batch B] [--inner 100] [--blocks 3]
-        [--solve-precision highest] [--keep-trace DIR] [--out PATH.json] [--device cuda|cpu]
+        [--solve-precision highest|high|mixed] [--keep-trace DIR] [--out PATH.json] [--device cuda|cpu]
 
-``--solve-precision`` takes ``highest`` alone: ``high`` and ``mixed`` stop
-the run, "not ported", before any work.
+``--solve-precision`` sets the policy before the model is built
+(``measure.solve_precision``) and goes into the summary; the 3-pass
+products show as ``bf16x3_mm`` among the port's kernels.
 """
 
 from __future__ import annotations
@@ -45,19 +46,18 @@ def profile_step(
 ) -> dict:
     from ..utils import profiling, xprof
 
-    measure.refuse_precision(solve_precision)
     build_kw = build_kw or {}
-    built = measure.build_config(config, batch_override=batch, **build_kw)
-    step, model, opt = measure.prepare_step(*built, num_inner=num_inner)
-    b = measure.warm_up(step)  # the warm-up blocks and the capture: not in the trace
-
     logdir = keep_trace or tempfile.mkdtemp(prefix="zigp_trace_")
-    with profiling.trace(logdir):
-        t0 = time.perf_counter()
-        for k in range(num_blocks):
-            losses = step(measure.block_key(b + k))
-        last = measure.sync(losses)
-        wall = time.perf_counter() - t0
+    with measure.solve_precision(solve_precision) as policy:
+        built = measure.build_config(config, batch_override=batch, **build_kw)
+        step, model, opt = measure.prepare_step(*built, num_inner=num_inner)
+        b = measure.warm_up(step)  # the warm-up blocks and the capture: not in the trace
+        with profiling.trace(logdir):
+            t0 = time.perf_counter()
+            for k in range(num_blocks):
+                losses = step(measure.block_key(b + k))
+            last = measure.sync(losses)
+            wall = time.perf_counter() - t0
 
     steps = num_blocks * num_inner
     p = next(model.parameters())
@@ -65,7 +65,7 @@ def profile_step(
     summary.update(
         config=config,
         batch=built[2],
-        solve_precision="highest",
+        solve_precision=policy,
         data=measure.data_source(build_kw.get("data"), build_kw.get("synthetic", False), build_kw.get("split")),
         steps=steps,
         steps_per_sec=steps / wall,
@@ -97,8 +97,7 @@ def main(argv=None):
     ap.add_argument("--out", type=str, default=None)
     measure.add_data_args(ap)
     args = ap.parse_args(argv)
-    measure.refuse_precision(args.solve_precision)
-    profile_step(args.config, batch=args.batch, num_inner=args.inner, num_blocks=args.blocks,
+    return profile_step(args.config, batch=args.batch, num_inner=args.inner, num_blocks=args.blocks,
                  solve_precision=args.solve_precision, keep_trace=args.keep_trace, out=args.out,
                  build_kw=measure.build_kw_of(args))
 

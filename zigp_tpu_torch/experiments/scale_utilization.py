@@ -21,8 +21,14 @@ barred on these contractions, ``core.config``), from ``PEAK_F32`` by the
 name ``torch.cuda.get_device_name`` gives; for a card not in the table (and
 on the CPU) the shares are null.
 
+``--solve-precision highest|high|mixed`` sets the policy before the first
+model is built (``measure.solve_precision``) and goes into every row; the
+3-pass products are the ``bf16x3_mm`` kernel's, which ``*_counted`` does
+not see, as it does not see the port's other kernels.
+
     python -m zigp_tpu_torch.experiments.scale_utilization (--data PATH | --synthetic)
-        [--batches 4096,8192,16384,32768] [--inner 100] [--blocks 3] [--out PATH] [--device cuda|cpu]
+        [--batches 4096,8192,16384,32768] [--inner 100] [--blocks 3] [--solve-precision P] [--out PATH]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -53,14 +59,17 @@ def counted_step_flops(model, X, Y) -> float:
 
 def probe(batches=(4096, 8192, 16384, 32768), num_inner: int = 100, num_blocks: int = 3, solve_precision=None,
           log_fn=print, *, build_kw=None, split=None, grid=(105, 250), repeats: int = 3):
+    with measure.solve_precision(solve_precision) as policy:
+        return _probe(batches, num_inner, num_blocks, policy, log_fn, build_kw or {}, split, grid, repeats)
+
+
+def _probe(batches, num_inner, num_blocks, policy, log_fn, build_kw, split, grid, repeats):
     from ..core.config import resolve_device
     from ..training.scan import StagedBlocks
     from ..training import DataSet
     from .builders import build_onoff_pptr
     from .configs import KronGridConfig, OnOffPptrConfig
 
-    measure.refuse_precision(solve_precision)
-    build_kw = build_kw or {}
     device = resolve_device(build_kw.get("device"))
     dtype = build_kw.get("dtype", torch.float32)
     if split is None:
@@ -92,7 +101,7 @@ def probe(batches=(4096, 8192, 16384, 32768), num_inner: int = 100, num_blocks: 
             "batch": B,
             "grid": f"{grid[0]}x{grid[1]}",
             "sampler": "device",
-            "solve_precision": "highest",
+            "solve_precision": policy,
             "device": name,
             "peak_f32_flops": peak,
             "steps_per_sec": rate,
@@ -121,9 +130,9 @@ def main(argv=None):
     ap.add_argument("--solve-precision", type=str, default=None, choices=("highest", "high", "mixed"))
     measure.add_data_args(ap)
     args = ap.parse_args(argv)
-    measure.refuse_precision(args.solve_precision)
     kw = measure.build_kw_of(args)
-    rows = probe(tuple(int(b) for b in args.batches.split(",")), args.inner, args.blocks, build_kw=kw)
+    rows = probe(tuple(int(b) for b in args.batches.split(",")), args.inner, args.blocks, args.solve_precision,
+                 build_kw=kw)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"task": "scale_utilization", "grid": "105x250", "sampler": "device",

@@ -19,15 +19,29 @@ inducing grid is Z = ⊗_p Z_p; nothing of size (Π M_p)² is formed:
 Every per-GP input carries one leading batch dimension G: the on/off model
 stacks its f and g GPs there (G = 2), so each ``chol_inv`` call factors both
 GPs' grams at once. ``Xnew`` (B, D) is shared by the batch.
+
+The solve-replacing products are ``linalg.bdot``'s (the batch-scaled class
+of the precision policy, ``linalg.set_solve_precision``), as the JAX
+package's ``bdot`` and ``bulk_precision()`` einsums. The products it
+leaves at the TPU's default precision (``Aᵀ A`` of the dense covariance,
+the gram expansions) stay exact float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import linalg
+
+
+class KronConditionalState(NamedTuple):
+    """Precomputable per-step state shared by mean and variance
+    (``zigp_tpu/ops/conditionals.py:89-93``)."""
+
+    Ls: Tuple[torch.Tensor, ...]  # per-factor chol(Kmm_p)
+    alpha: torch.Tensor  # (⊗K_p⁻¹) q_mu, shape (M, 1)
 
 
 def conditional(
@@ -56,18 +70,18 @@ def conditional(
         fvar = kernel.Kdiag(Xnew) - torch.sum(torch.square(A), dim=0)  # (N,)
     if not whiten:
         A = linalg.tri_solve(Lm.transpose(-1, -2), A, lower=False)
-    fmean = A.transpose(-1, -2) @ f  # (N, L)
+    fmean = linalg.bdot(A.transpose(-1, -2), f)  # (N, L)
     fvar = fvar[None].expand(f.shape[1], *fvar.shape)  # (L, N, N) or (L, N)
     if q_sqrt is not None:
         if q_sqrt.ndim == 2:
             LTA = A[None] * q_sqrt.transpose(0, 1)[:, :, None]  # (L, M, N)
         elif q_sqrt.ndim == 3:
             Lq = torch.tril(q_sqrt.permute(2, 0, 1))  # (L, M, M)
-            LTA = Lq.transpose(-1, -2) @ A  # Lqᵀ A per latent
+            LTA = linalg.bdot(Lq.transpose(-1, -2), A)  # Lqᵀ A per latent
         else:
             raise ValueError(f"Bad q_sqrt ndim: {q_sqrt.ndim}")
         if full_cov:
-            fvar = fvar + LTA.transpose(-1, -2) @ LTA
+            fvar = fvar + linalg.bdot(LTA.transpose(-1, -2), LTA)
         else:
             fvar = fvar + torch.sum(torch.square(LTA), dim=1)
     fvar = fvar.permute(1, 2, 0) if full_cov else fvar.transpose(0, 1)
@@ -129,28 +143,28 @@ def kron_conditional(
         Knn = kd if Knn is None else Knn * kd
         Kmn_p = k.K(Z, xp, use_kernel=f)  # (G, M_p, B)
         Kmn_factors.append(Kmn_p)
-        V_factors.append(Li @ Kmn_p)
+        V_factors.append(linalg.bdot(Li, Kmn_p))
 
     if whiten:
         mu = _factored_contract(q_mu[..., 0], sizes, V_factors)
         proj = V_factors
     else:
         alpha = linalg.kron_linv_solve(Linvs, q_mu)  # (⊗K_p⁻¹) q_mu, (G, M, 1)
-        proj = [Li.transpose(-1, -2) @ V_p for Li, V_p in zip(Linvs, V_factors)]
+        proj = [linalg.bdot(Li.transpose(-1, -2), V_p) for Li, V_p in zip(Linvs, V_factors)]
         mu = _factored_contract(alpha[..., 0], sizes, Kmn_factors)
 
     if full_cov:
         if q_sqrt_factors is not None:
             c2 = None
             for C, P_p in zip(q_sqrt_factors, proj):
-                CtP = torch.tril(C).transpose(-1, -2) @ P_p  # (G, M_p, B)
-                t = CtP.transpose(-1, -2) @ CtP
+                CtP = linalg.bdot(torch.tril(C).transpose(-1, -2), P_p)  # (G, M_p, B)
+                t = linalg.bdot(CtP.transpose(-1, -2), CtP)
                 c2 = t if c2 is None else c2 * t
         else:
             c2 = _factored_contract_pair(torch.square(q_sqrt_diag[..., 0]), sizes, proj)
         c1 = None
         for V_p in V_factors:
-            t = V_p.transpose(-1, -2) @ V_p
+            t = linalg.bdot(V_p.transpose(-1, -2), V_p)
             c1 = t if c1 is None else c1 * t
         return mu[..., None], (Knn - c1 + c2)[..., None]
 
@@ -158,7 +172,7 @@ def kron_conditional(
         # S = ⊗ C_p C_pᵀ: diag(PᵀSP)[b] = Π_p ‖C_pᵀ P_p[:, b]‖²
         c2 = None
         for C, P_p in zip(q_sqrt_factors, proj):
-            t = torch.sum(torch.square(torch.tril(C).transpose(-1, -2) @ P_p), dim=-2)
+            t = torch.sum(torch.square(linalg.bdot(torch.tril(C).transpose(-1, -2), P_p)), dim=-2)
             c2 = t if c2 is None else c2 * t
     else:
         # diagonal S: c2[b] = Σ_m S[m] (Π_p P_p[i_p, b])²
@@ -178,14 +192,17 @@ def kron_conditional(
 
 def _factored_contract(w: torch.Tensor, sizes: Sequence[int], factors: Sequence[torch.Tensor]) -> torch.Tensor:
     """out[g, b] = Σ_{i₁..i_P} w[g, (i₁..i_P)] Π_p factors[p][g, i_p, b], one
-    factor at a time: w (G, M), factors[p] (G, M_p, B) -> (G, B)."""
+    factor at a time, each a ``bdot``: w (G, M), factors[p] (G, M_p, B) ->
+    (G, B). The first factor is one (B, M_1)·(M_1, M / M_1) product; each
+    later one a product batched over b, (1, M_p)·(M_p, rest)."""
     G = w.shape[0]
     B = factors[0].shape[-1]
     rest = w.numel() // (G * sizes[0])
-    t = factors[0].transpose(-1, -2) @ w.reshape(G, sizes[0], rest)  # (G, B, rest)
+    t = linalg.bdot(factors[0].transpose(-1, -2), w.reshape(G, sizes[0], rest))  # (G, B, rest)
     for p in range(1, len(sizes)):
         rest //= sizes[p]
-        t = torch.einsum("gbir,gib->gbr", t.reshape(G, B, sizes[p], rest), factors[p])
+        F = factors[p].transpose(-1, -2).unsqueeze(-2)  # (G, B, 1, M_p)
+        t = linalg.bdot(F, t.reshape(G, B, sizes[p], rest))  # (G, B, 1, rest)
     return t.reshape(G, B)
 
 
@@ -193,12 +210,16 @@ def _factored_contract_pair(w: torch.Tensor, sizes: Sequence[int], factors: Sequ
     """out[g, b, c] = Σ_{i₁..i_P} w[g, (i₁..i_P)] Π_p factors[p][g, i_p, b]·factors[p][g, i_p, c],
     the pairwise analog of ``_factored_contract``, one factor at a time:
     w (G, M), factors[p] (G, M_p, B) -> (G, B, B); (G, B, B, M / M_1) at the
-    peak."""
+    peak. Each three-operand step is the elementwise outer product of the
+    factor with itself, then one ``bdot`` over i_p."""
     G = w.shape[0]
     B = factors[0].shape[-1]
     rest = w.numel() // (G * sizes[0])
-    t = torch.einsum("gir,gib,gic->gbcr", w.reshape(G, sizes[0], rest), factors[0], factors[0])
+    outer = lambda F: F[..., :, None] * F[..., None, :]  # (G, M_p, B, B)
+    FF = outer(factors[0]).reshape(G, sizes[0], B * B)
+    t = linalg.bdot(FF.transpose(-1, -2), w.reshape(G, sizes[0], rest))  # (G, B·B, rest)
     for p in range(1, len(sizes)):
         rest //= sizes[p]
-        t = torch.einsum("gbcir,gib,gic->gbcr", t.reshape(G, B, B, sizes[p], rest), factors[p], factors[p])
+        FF = outer(factors[p]).reshape(G, sizes[p], B * B).transpose(-1, -2).unsqueeze(-2)  # (G, B·B, 1, M_p)
+        t = linalg.bdot(FF, t.reshape(G, B * B, sizes[p], rest))  # (G, B·B, 1, rest)
     return t.reshape(G, B, B)

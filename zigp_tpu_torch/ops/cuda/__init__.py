@@ -2,8 +2,11 @@
 first use (``_build``) and bound with ctypes: ``chol_inv`` (L and L⁻¹, one
 CTA a matrix to n = 238 and one thread-block cluster a matrix to 512),
 ``cholesky`` (L only, any number of columns per step), ``rbf_gram`` (the
-gram and its gradient) and
-``kron_matvec`` (the two-factor Kronecker matvec)."""
+gram and its gradient),
+``kron_matvec`` (the two-factor Kronecker matvec) and ``bf16x3`` (the 3-pass
+bf16 product of the solve-precision policy, the TPU's Precision.HIGH)."""
+
+from .bf16x3 import bf16x3_mm_cuda, bf16x3_mm_plain
 
 from .chol_inv import (
     chol_cuda,
@@ -38,4 +41,7 @@ __all__ = [
     "tri_inv_dc",
     "kron_mv_2_cuda",
     "kron_mv_2_plain",
+    # the 3-pass bf16 product (no Pallas kernel: XLA's Precision.HIGH dot)
+    "bf16x3_mm_cuda",
+    "bf16x3_mm_plain",
 ]

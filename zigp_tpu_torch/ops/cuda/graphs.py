@@ -27,6 +27,7 @@ COUNTER_ATTRS = ("launches_by_n", "launches_by_shape", "launches_by_instance", "
 
 def counted_wrappers() -> dict:
     """Every kernel wrapper that counts its launches, by name."""
+    from .bf16x3 import bf16x3_mm_cuda
     from .chol_inv import chol_cuda, chol_inv_blocked, chol_inv_cuda
     from .cholesky import batched_small_cholesky_cuda, small_cholesky_cuda
     from .kron_matvec import kron_mv_2_cuda
@@ -35,7 +36,8 @@ def counted_wrappers() -> dict:
     return {"rbf_gram": rbf_gram_cuda, "rbf_gram_bwd": rbf_gram_bwd_cuda, "chol_inv": chol_inv_cuda,
             "chol_inv_blocked": chol_inv_blocked,
             "chol": chol_cuda, "small_cholesky": small_cholesky_cuda,
-            "batched_small_cholesky": batched_small_cholesky_cuda, "kron_mv_2": kron_mv_2_cuda}
+            "batched_small_cholesky": batched_small_cholesky_cuda, "kron_mv_2": kron_mv_2_cuda,
+            "bf16x3_mm": bf16x3_mm_cuda}
 
 
 def snapshot() -> dict:

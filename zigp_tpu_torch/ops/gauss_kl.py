@@ -126,7 +126,7 @@ def gauss_kl_kron_full(
         mahalanobis = torch.sum(torch.square(alpha), dim=(-2, -1))
         trace = 1.0
         for Li, C in zip(Linvs, C_factors):
-            trace = trace * torch.sum(torch.square(Li @ torch.tril(C)), dim=(-2, -1))
+            trace = trace * torch.sum(torch.square(linalg.hdot(Li, torch.tril(C))), dim=(-2, -1))
         prior_logdet = linalg.kron_logdet_from_chols(Ls)
 
     # A diagonal entry of an unconstrained C_p crossing zero would make

@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from ..core.parameters import positive_param
+from . import linalg
 from .cuda.rbf_gram import rbf_gram
 
 _EXPANSION_MIN_DIM = 16
@@ -213,7 +214,7 @@ class LinearValues(NamedTuple):
     def K(self, X, X2: Optional[torch.Tensor] = None, *, use_kernel=False):
         X = _pick(X, self.active_dims)
         X2 = X if X2 is None else _pick(X2, self.active_dims)
-        return (X * self.variances[..., None, :]) @ X2.transpose(-1, -2)
+        return linalg.bdot(X * self.variances[..., None, :], X2.transpose(-1, -2))
 
     def Kdiag(self, X):
         X = _pick(X, self.active_dims)

@@ -3,9 +3,10 @@
 Counterpart of ``zigp_tpu/ops/linalg.py``: ``add_jitter``, the ``chol_inv``
 dispatch with its matmul-only backward, the factored Kronecker products and
 solves (against per-factor Cholesky factors or precomputed triangular
-inverses), and the diagonal and log-determinant pieces of the KL. The JAX package routes every solve-replacing product through
-``hdot``/``bdot`` to pin it at exact float32; here those are plain matmuls,
-exact in float32 because ``core.config`` turns TF32 off at import.
+inverses), the diagonal and log-determinant pieces of the KL, and the
+precision policy of the solve-replacing products (``set_solve_precision``,
+``hdot``, ``bdot``, ``bulk_precision``). Every other float32 product is
+exact float32: ``core.config`` turns TF32 off at import.
 
 Every function takes leading batch dimensions, which is how the on/off model
 runs its f and g GPs through one pass (the JAX package's ``vmap``).
@@ -17,7 +18,73 @@ from typing import Sequence
 
 import torch
 
+from .cuda.bf16x3 import bf16x3_mm
 from .cuda.chol_inv import BLOCKED_MAX_N, MAX_N, chol_inv_blocked_op, chol_inv_op
+
+# The precision of the solve-replacing products (``zigp_tpu/ops/linalg.py:
+# 56-118``), in two classes: the factor-space products (the chol_inv VJP,
+# the Kronecker inverse solves, the KL trace, natgrad's S-products) go
+# through ``hdot``; the batch-scaled projections and contractions of the
+# conditionals ((M_p, M_p) @ (M_p, B) and the factored contractions, the
+# products that grow with the batch) through ``bdot``. Each class is either
+# exact float32 or the 3-pass bf16 product of ``ops.cuda.bf16x3`` (the TPU's
+# Precision.HIGH).
+_POLICIES = {"highest": (False, False), "high": (True, True), "mixed": (False, True)}
+_POLICY = "highest"
+_SOLVE_3PASS, _BULK_3PASS = _POLICIES[_POLICY]
+
+
+def set_solve_precision(name: str) -> None:
+    """Set the precision of every solve-replacing product: "highest" (the
+    default: exact float32), "high" (the 3-pass bf16 product in both
+    classes, about 1e-5 relative) or "mixed" (``hdot`` exact, ``bdot`` and
+    the bulk contractions 3-pass).
+
+    Only float32 changes: a float64 product is a plain matmul under every
+    policy, as a float64 dot is exact on the TPU whatever its precision. On
+    a CUDA tensor the 3-pass product is the kernel ``csrc/bf16x3_mm.cu``,
+    on a CPU tensor its plain version.
+
+    When it is read: the JAX package reads the policy when a step is traced,
+    so a jitted step keeps what it traced. Here eager code reads it at each
+    call, and a captured CUDA graph (a training block, a serving chunk
+    graph) keeps the policy it captured: switch before building a model's
+    steps, as the command line does before any model is built."""
+    global _POLICY, _SOLVE_3PASS, _BULK_3PASS
+    if name not in _POLICIES:
+        raise ValueError(f"solve precision must be one of {sorted(_POLICIES)}, got {name!r}")
+    _POLICY = name
+    _SOLVE_3PASS, _BULK_3PASS = _POLICIES[name]
+
+
+def solve_precision() -> str:
+    """The policy in force ("highest", "high" or "mixed")."""
+    return _POLICY
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, three_pass: bool) -> torch.Tensor:
+    if three_pass and a.dtype == torch.float32 and b.dtype == torch.float32:
+        return bf16x3_mm(a, b)
+    return a @ b
+
+
+def hdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for a factor-space solve-replacing product: exact float32, or
+    3-pass under "high"."""
+    return _dot(a, b, _SOLVE_3PASS)
+
+
+def bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for a batch-scaled product of the conditionals: exact float32,
+    or 3-pass under "high" and "mixed"."""
+    return _dot(a, b, _BULK_3PASS)
+
+
+def bulk_precision() -> str:
+    """The bulk class's precision in force, "highest" or "high" (the JAX
+    package passes its ``jax.lax.Precision`` to its bulk einsums; the port's
+    bulk contractions are products through ``bdot``)."""
+    return "high" if _BULK_3PASS else "highest"
 
 
 def add_jitter(K: torch.Tensor, jitter: float, *, relative_f32: float = 2.0e-4) -> torch.Tensor:
@@ -90,14 +157,16 @@ def _phi_half_diag(X: torch.Tensor) -> torch.Tensor:
     return torch.tril(X) - 0.5 * torch.diag_embed(torch.diagonal(X, dim1=-2, dim2=-1))
 
 
-def chol_vjp(L: torch.Tensor, Linv: torch.Tensor, dL: torch.Tensor) -> torch.Tensor:
+def chol_vjp(L: torch.Tensor, Linv: torch.Tensor, dL: torch.Tensor, dot=torch.matmul) -> torch.Tensor:
     """The pullback of L = chol(K) (K read symmetrically, as the JAX
     package's Cholesky reads it) at cotangent ``dL``, by matmuls only with
     L⁻¹ in hand: K̄ = sym(L⁻ᵀ Φ(Lᵀ dL) L⁻¹), Φ the lower triangle with its
-    diagonal halved (Murray 2016)."""
+    diagonal halved (Murray 2016). ``dot`` takes the products: ``hdot`` in
+    ``chol_inv``'s backward, exact float32 in natgrad's pullback (XLA's
+    Cholesky VJP in the JAX package)."""
     mT = lambda A: A.transpose(-1, -2)
-    P = _phi_half_diag(mT(L) @ dL)
-    return 0.5 * (mT(Linv) @ (P + mT(P)) @ Linv)
+    P = _phi_half_diag(dot(mT(L), dL))
+    return 0.5 * dot(dot(mT(Linv), P + mT(P)), Linv)
 
 
 def fold_member_dim(x: torch.Tensor, in_dim, size: int) -> torch.Tensor:
@@ -112,7 +181,8 @@ class _CholInv(torch.autograd.Function):
     """(L, L⁻¹) = chol_inv(K) with the matmul-only backward of
     ``zigp_tpu/ops/linalg.py:177-211`` (reverse-mode Cholesky with L⁻¹ in
     hand), on every route: the forward's kernel, cluster kernel or library
-    call sees a detached K, and the backward needs no solve.
+    call sees a detached K, and the backward needs no solve. Its products
+    are ``hdot``'s, read when the backward runs.
 
     Under ``torch.func.vmap`` (the batched member stack,
     ``training.batched``) the ``vmap`` rule folds the member dim into the
@@ -134,8 +204,8 @@ class _CholInv(torch.autograd.Function):
         dL_tot = torch.zeros_like(L) if dL is None else dL
         if dLinv is not None:
             # pullback through L⁻¹ (lower-triangular dof only): −tril(L⁻ᵀ dLinv L⁻ᵀ)
-            dL_tot = dL_tot - torch.tril(mT(Linv) @ dLinv @ mT(Linv))
-        return chol_vjp(L, Linv, dL_tot)
+            dL_tot = dL_tot - torch.tril(hdot(hdot(mT(Linv), dLinv), mT(Linv)))
+        return chol_vjp(L, Linv, dL_tot, hdot)
 
     @staticmethod
     def vmap(info, in_dims, K):
@@ -199,15 +269,21 @@ def _columns(fn, x: torch.Tensor) -> torch.Tensor:
     return fn(x[:, None])[:, 0] if x.ndim == 1 else fn(x)
 
 
+def _apply_factor_hdots(mats: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """(⊗_p mats[p]) x with ``hdot`` products: mats[p] (..., M_p, M_p)."""
+    return _apply_factor_ops([(lambda X, A=A: hdot(A.unsqueeze(-3), X), A.shape[-1]) for A in mats], x)
+
+
 def kron_linv_lower(Linvs: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
-    """x = (⊗_p L_p)⁻¹ b given the triangular inverses L_p⁻¹: matmuls only."""
-    return _apply_factor_mats(Linvs, b)
+    """x = (⊗_p L_p)⁻¹ b given the triangular inverses L_p⁻¹: ``hdot``
+    products only."""
+    return _apply_factor_hdots(Linvs, b)
 
 
 def kron_linv_solve(Linvs: Sequence[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
     """x = (⊗_p K_p)⁻¹ b = (⊗ L_p⁻ᵀ)(⊗ L_p⁻¹) b given the triangular inverses."""
     half = kron_linv_lower(Linvs, b)
-    return _apply_factor_mats([Li.transpose(-1, -2) for Li in Linvs], half)
+    return _apply_factor_hdots([Li.transpose(-1, -2) for Li in Linvs], half)
 
 
 def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -231,10 +307,10 @@ def kron_dense(*mats: torch.Tensor) -> torch.Tensor:
 def kron_mv(mats: Sequence[torch.Tensor], x: torch.Tensor, *, precision=None) -> torch.Tensor:
     """y = (⊗_p mats[p]) x without materializing the Kronecker product.
 
-    ``precision`` is accepted for the JAX signature and has no torch
-    meaning: the JAX package passes ``jax.lax.Precision`` to pick the TPU's
-    bf16 or exact f32 products, and every float32 product of the port is
-    full float32 already (``core.config`` turns TF32 off at import)."""
+    ``precision`` is accepted for the JAX signature: the JAX package's
+    callers pass HIGHEST or leave the TPU's default, and the port's float32
+    products are exact float32 in both cases (``core.config`` turns TF32 off
+    at import; the ROADMAP's rule against reduced-precision products)."""
     return _columns(lambda X: _apply_factor_mats(mats, X), x)
 
 

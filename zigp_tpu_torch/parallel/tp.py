@@ -269,8 +269,12 @@ def tp_whitened_kron_predict_and_kl(
     W_s = q_mu.reshape(Ms, Mt)[rows]
     Ssq_s = (q_sqrt**2).reshape(Ms, Mt)[rows]
     Vs_rows = Vs[rows]
-    mu_part = torch.einsum("bj,jb->b", torch.einsum("ij,ib->bj", W_s, Vs_rows), Vt)
-    c2_part = torch.einsum("bj,jb->b", torch.einsum("ij,ib->bj", Ssq_s, Vs_rows**2), Vt**2)
+    # the bulk class of the precision policy (linalg.bdot), as the JAX
+    # package's bulk_precision() einsums: Σ_ij W[i, j] Vs[i, b] Vt[j, b] as
+    # (B, Ms/n)·(Ms/n, Mt), then a dot a row of B
+    contract = lambda W, P, Q: linalg.bdot(linalg.bdot(P.T, W).unsqueeze(-2), Q.T.unsqueeze(-1)).reshape(-1)
+    mu_part = contract(W_s, Vs_rows, Vt)
+    c2_part = contract(Ssq_s, Vs_rows**2, Vt**2)
     # whitened KL partial sums: ½(Σm² − M − Σlog s² + Σ s²)
     kl_part = 0.5 * (torch.sum(W_s**2) - torch.sum(torch.log(Ssq_s)) + torch.sum(Ssq_s))
     parts = mesh.all_reduce_model(torch.cat([mu_part, c2_part, kl_part.reshape(1)]))

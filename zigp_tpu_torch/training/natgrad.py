@@ -105,7 +105,7 @@ def natgrad_update_mean_kron(q_mu, C_factors, dL_dmu, lr, *, max_mean_step: floa
     the move in marginal σ; non-finite entries keep their previous values.
     q_mu, dL_dmu (..., M, 1), C_factors[p] (..., M_p, M_p)."""
     Cs = [torch.tril(C) for C in C_factors]
-    step = linalg._apply_factor_mats([C @ _mT(C) for C in Cs], dL_dmu)
+    step = linalg._apply_factor_mats([linalg.hdot(C, _mT(C)) for C in Cs], dL_dmu)
     scale = lr
     if kl_cap is not None:
         kl = 0.5 * lr * lr * _sum(dL_dmu * step)
