@@ -325,14 +325,18 @@ so any failure exits non-zero):
    (2, n, n)·(2, n, B) for n = 10, 32, 100, 105, 200, 250 and B = 1000,
    4000, 8192, 16384, with A transposed and with B given transposed at
    B = 8192, (2, n, n)ᵀ·(2, n, n), the backward's (2, n, 8192)·(2, 8192, n)
-   with k split over CTAs, the batch of dots of the factored contraction and
-   its backward's outer products; NaN in one row of A gives NaN in that row
-   alone, in the tiles, split or not, and in the dots. Then the
+   with k split over a cluster's CTAs, the batch of dots of the factored
+   contraction and its backward's outer products, and each copy route of
+   the tiles on both operands (a base one float off, a broadcast batch, a
+   (G, B) batch of views; the odd row pitch of n = 105 is above); NaN in one
+   row of A gives NaN in that row alone, in the tiles, split or not, and in
+   the dots. Then the
    flagship, the champion and the 105 × 250 grid at B = 8192 trained
-   graphed by ``precision_ab`` cut short (a warm-up block, the capture, 2
-   timed blocks of 50), "highest", "high" and "mixed" in turns, two passes:
+   graphed by ``precision_ab`` cut short (a warm-up block, the capture, 4
+   timed blocks of 25), "highest", "high" and "mixed" in turns, two passes:
    steps/s against "highest", ``bf16x3_mm``'s launches exactly the run's
-   steps × an eager step's (none under "highest"), "highest" after the
+   steps × an eager step's (none under "highest"; logged by instance and
+   copy route), "highest" after the
    switches the same bits as before them; each configuration's loss and
    gradients under "high" against CPU float64 within max(3 × the CPU "high"
    plain run's error, 1e-5); the F = 5 flagship stack under "mixed" with one
@@ -357,7 +361,8 @@ so any failure exits non-zero):
    ``rbf_gram`` and backward rows; phase 19's ``chol_inv.cu``, cluster-kernel,
    ``rbf_gram`` and backward rows; ``bf16x3_mm.cu`` at every (G, M, N, K)
    of phase 20's runs under "high" and "mixed", its stack and its serving,
-   with exact-float32 ``torch.matmul`` as the library call), then the
+   each row naming the instance and copy routes it timed, with
+   exact-float32 ``torch.matmul`` as the library call), then the
    card's name and power limit,
    then as the last line {"ok": true, "device": {...}}.
 
@@ -4591,8 +4596,8 @@ def api_rows(ci, rg, api: dict, card) -> list:
             + gram_rows(rg, {k: counts[k] for k in ("api train", "api serve")}, card))
 
 
-PREC_INNER = 50
-PREC_BLOCKS = 2  # timed blocks of each pass, after the warm-up block and the capture
+PREC_INNER = 25  # steps a block: the eager warm-up block and the capture cost half of 50's, the same steps timed
+PREC_BLOCKS = 4  # timed blocks of each pass, after the warm-up block and the capture
 PREC_POLICIES = ("highest", "high", "mixed")
 PREC_CONFIGS = {"flagship": None, "champion": None, "scale": 8192}  # measure's configurations, the grid at B = 8192
 PREC_SERVE_PASSES = 5
@@ -4646,6 +4651,12 @@ def bf16x3_gate_cases(gen):
         F = r(2, n, 8192)
         yield f"dots (2,8192,1,{n})x(2,8192,{n},1)", r(2, 8192, 1, n), F.transpose(-1, -2).unsqueeze(-1)
         yield f"short k (2,8192,1,1)x(2,8192,1,{n})", r(2, 8192, 1, 1), F.transpose(-1, -2).unsqueeze(-2)
+    # the tiles' copy routes on each operand: a base one float off, a broadcast batch, a (G, B) batch of views
+    yield "offset (2,250,250)[1:]x(2,250,8192)[1:]", r(2, 250, 251)[..., 1:], r(2, 250, 8193)[..., 1:]
+    yield "offset (2,250,8192)[1:]x(2,8192,250)T[1:]", r(2, 250, 8193)[..., 1:], r(2, 250, 8193)[..., 1:].mT
+    yield "broadcast (250,250)x(2,250,8192)", r(250, 250).expand(2, 250, 250), r(2, 250, 8192)
+    yield "broadcast (2,200,200)x(200,4000)", r(2, 200, 200), r(200, 4000).expand(2, 200, 4000)
+    yield "(G,B) views (4,3,200,200)x(4,3,200,1000)", r(4, 1, 200, 200).expand(4, 3, 200, 200), r(4, 3, 200, 1000)
 
 
 def phase_bf16x3_gate(bx) -> dict:
@@ -4723,6 +4734,15 @@ def policy_runs(policies, measure, precision_ab, configs, kw):
     return summary, runs
 
 
+def by_label(counts: dict) -> dict:
+    """``bf16x3_mm``'s launches by instance and copy route ({label:
+    launches}) from ``read_counts``'s by-instance keys (G, M, N, K, label)."""
+    out = {}
+    for (*_, label), n in sorted(counts.get("bf16x3_mm_by_instance", {}).items()):
+        out[label] = out.get(label, 0) + n
+    return out
+
+
 def eager_step_launches(model, X, Y, policy) -> int:
     """``bf16x3_mm`` launches of one eager loss and backward under ``policy``."""
     from zigp_tpu_torch.ops import linalg
@@ -4790,8 +4810,9 @@ def phase_precision(split, card) -> dict:
                 want = r["steps"] * per_step[c][r["policy"]]
                 got = r["counts"]["bf16x3_mm"]
                 log(f"precision {c} {r['policy']}: {r['steps_per_s']:.1f} steps/s, {r['steps']} steps, bf16x3_mm "
-                    f"launches {got} (expected {r['steps']} x {per_step[c][r['policy']]}), chol_inv "
-                    f"{r['counts']['chol_inv']}, cluster {r['counts']['chol_inv_blocked']}, loss {r['loss']!r}")
+                    f"launches {got} (expected {r['steps']} x {per_step[c][r['policy']]}; by instance "
+                    f"{by_label(r['counts'])}), chol_inv {r['counts']['chol_inv']}, cluster "
+                    f"{r['counts']['chol_inv_blocked']}, loss {r['loss']!r}")
                 if got != want:
                     raise AssertionError(f"precision {c} {r['policy']}: bf16x3_mm launches {got}, expected {want}")
             if losses["highest"][0] != losses["highest"][1]:
@@ -4842,14 +4863,18 @@ def phase_precision(split, card) -> dict:
             if not torch.equal(c[f], product(a[f], b[f])):
                 raise AssertionError(f"precision stack: member {f} of a {tuple(a.shape)} launch is not its own bits")
             own += 1
-    log(f"precision stack F={STACK_F} mixed: bf16x3_mm launches {stack_launches} for one loss and backward (one "
-        f"member alone {single}); every member's slice of every launch its own run's bits ({own} compared)")
-    if stack_launches != single or len(calls) != single:
-        raise AssertionError(f"precision stack: {stack_launches} launches, one member's {single}")
-    stack_counts = {"bf16x3_mm": stack_launches, "bf16x3_mm_by_shape": {}}
+    stack_counts = {"bf16x3_mm": stack_launches, "bf16x3_mm_by_shape": {}, "bf16x3_mm_by_instance": {}}
     for a, b, _ in calls:
         key = (int(np.prod(a.shape[:-2])), a.shape[-2], b.shape[-1], a.shape[-1])
         stack_counts["bf16x3_mm_by_shape"][key] = stack_counts["bf16x3_mm_by_shape"].get(key, 0) + 1
+        by = stack_counts["bf16x3_mm_by_instance"]
+        label = (*key, bx.plan_of(a, b).label)
+        by[label] = by.get(label, 0) + 1
+    log(f"precision stack F={STACK_F} mixed: bf16x3_mm launches {stack_launches} for one loss and backward (one "
+        f"member alone {single}; by instance {by_label(stack_counts)}); every member's slice of every launch its "
+        f"own run's bits ({own} compared)")
+    if stack_launches != single or len(calls) != single:
+        raise AssertionError(f"precision stack: {stack_launches} launches, one member's {single}")
     del calls
     walls_phase["stack"] = time.perf_counter() - t0
 
@@ -4905,34 +4930,53 @@ def phase_precision(split, card) -> dict:
 _BF16X3_TIMES = {}  # (G, M, N, K): the kernel's times at a shape, measured once
 
 
+def bf16x3_operands_like(bx, G, M, N, K, label):
+    """Seeded (G, M, K) and (G, K, N) operands in the first layout (each
+    contiguous, or given transposed) whose plan is ``label``, the instance
+    and copy routes a path launched at the shape; contiguous ones if none."""
+    layouts = [(False, False), (True, False), (False, True), (True, True)]
+    for ta, tb in layouts:
+        a = torch.randn(G, K, M, device=DEVICE).mT if ta else torch.randn(G, M, K, device=DEVICE)
+        b = torch.randn(G, N, K, device=DEVICE).mT if tb else torch.randn(G, K, N, device=DEVICE)
+        if bx.plan_of(a, b).label == label:
+            return a, b
+    return torch.randn(G, M, K, device=DEVICE), torch.randn(G, K, N, device=DEVICE)
+
+
 def bf16x3_rows(bx, prec: dict, card) -> list:
     """The kernels-line rows of ``bf16x3_mm`` at every (G, M, N, K) a
     phase-20 path launched, with the launches; ms and device ms of the
     kernel, the plain version's ms and exact-float32 ``torch.matmul``'s as
-    the library call, on contiguous operands of the shape."""
+    the library call, on operands of the shape in the layout of the path's
+    most frequent instance and copy routes there (``bf16x3_operands_like``).
+    A row names the instance and copy routes it timed (``plan_of``'s label)
+    and, under ``path_instances``, those the path launched at that shape."""
     rows = []
     for path, counts in prec["counts"].items():
         for (G, M, N, K), launches in sorted(counts["bf16x3_mm_by_shape"].items()):
+            on_path = {label: n for (*shape, label), n in counts.get("bf16x3_mm_by_instance", {}).items()
+                       if tuple(shape) == (G, M, N, K)}
             if (G, M, N, K) not in _BF16X3_TIMES:
-                a = torch.randn(G, M, K, device=DEVICE)
-                b = torch.randn(G, K, N, device=DEVICE)
+                a, b = bf16x3_operands_like(bx, G, M, N, K, max(on_path, key=on_path.get, default=""))
                 c = bx.bf16x3_mm_cuda(a, b)
                 err = (c - bx.bf16x3_mm_plain(a, b)).abs().max().item()
                 reps = 20
                 times = (cuda_ms(lambda: bx.bf16x3_mm_cuda(a, b), reps=reps),
                          graph_ms(lambda: bx.bf16x3_mm_cuda(a, b), reps=reps),
                          cuda_ms(lambda: bx.bf16x3_mm_plain(a, b), reps=reps),
-                         cuda_ms(lambda: torch.matmul(a, b), reps=reps), err)
+                         cuda_ms(lambda: torch.matmul(a, b), reps=reps), err, bx.plan_of(a, b))
                 _BF16X3_TIMES[(G, M, N, K)] = times
-            ms, device_ms, plain_ms, lib_ms, err = _BF16X3_TIMES[(G, M, N, K)]
+            ms, device_ms, plain_ms, lib_ms, err, p = _BF16X3_TIMES[(G, M, N, K)]
             b_ms, b_by = bf16x3_bound_ms(G, M, N, K)
-            name = f"bf16x3_mm G={G} M={M} N={N} K={K} ({path})"
+            timed = p.label + (f" S={p.splits}" if p.instance == "tiles" else "")
+            name = f"bf16x3_mm G={G} M={M} N={N} K={K} {timed} ({path})"
             log(f"time {name}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-                f"f32 {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}, max |kernel - plain| "
-                f"{err:.3e}; {card}")
+                f"f32 {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches} (by instance on the path "
+                f"{on_path}), max |kernel - plain| {err:.3e}; {card}")
             rows.append({"name": name, "route": "cuda", "source": BF16X3_SOURCE, "replaces": BF16X3_REPLACES,
-                         "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                         "instance": timed, "path_instances": on_path, "launches": launches, "max_abs_err": err,
+                         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms})
     if not rows:
         raise AssertionError("bf16x3_mm: not launched on phase 20's paths")
     return rows

@@ -1419,3 +1419,128 @@ def test_opcheck_of_the_bf16x3_op(cuda):
     a = torch.randn(2, 30, 17, device=cuda)
     torch.library.opcheck(bx.bf16x3_mm_op, (a, torch.randn(2, 17, 70, device=cuda)))
     torch.library.opcheck(bx.bf16x3_mm_op, (a.transpose(-1, -2), torch.randn(2, 30, 5, device=cuda)))
+
+
+# --- bf16x3_mm.cu's tile instance: its copy routes, its cluster's k ranges, its bits ---
+
+
+def _bf16x3_route_cases(cuda):
+    """(name, a, b) covering each copy route on each operand: TMA, cp.async
+    of 16, 8 and 4 bytes (a base one float off, an odd row pitch, a
+    broadcast batch, a (G, B) batch of views, neither dim of unit stride)."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    return [
+        ("tma both", r(2, 200, 200), r(2, 200, 4000)),
+        ("a offset by one float", r(2, 250, 251)[..., 1:], r(2, 250, 8192)),
+        ("b offset by one float", r(2, 250, 250), r(2, 250, 8193)[..., 1:]),
+        ("a odd pitch n = 105", r(2, 105, 105), r(2, 105, 8192)),
+        ("b odd pitch n = 105, k split", r(2, 105, 8192), r(2, 8192, 105)),
+        ("a transposed odd pitch", r(2, 105, 105).transpose(-1, -2), r(2, 105, 1000)),
+        ("a broadcast batch", r(250, 250).expand(2, 250, 250), r(2, 250, 1000)),
+        ("b broadcast batch", r(2, 200, 200), r(200, 1000).expand(2, 200, 1000)),
+        ("(G, B) batch of views", r(4, 1, 200, 200).expand(4, 3, 200, 200), r(4, 3, 200, 1000)),
+        ("a neither dim of unit stride", r(2, 64, 64, 2)[..., 0], r(2, 64, 300)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_bf16x3_copy_routes_match_the_split(cuda, case):
+    """Each route against the float64 value of the kernel's own three
+    products (2·K·2⁻²⁴·Σ|a||b|), the route the plan names, one launch a call
+    and one more in its instance's count."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    name, a, b = _bf16x3_route_cases(cuda)[case]
+    p = bx.plan_of(a, b)
+    G, M, N, K = int(np.prod(a.shape[:-2])), a.shape[-2], b.shape[-1], a.shape[-1]
+    key = (G, M, N, K, p.label)
+    before, by = bx.bf16x3_mm_cuda.launches, bx.bf16x3_mm_cuda.launches_by_instance[key]
+    c = bx.bf16x3_mm_cuda(a, b)
+    torch.cuda.synchronize()
+    assert bx.bf16x3_mm_cuda.launches == before + 1
+    assert bx.bf16x3_mm_cuda.launches_by_instance[key] == by + 1, (name, p.label)
+    split, bound = _split64(a, b)
+    assert torch.all((c.double() - split).abs() <= 2.0 * bound), name
+
+
+def test_bf16x3_routes_the_plan_names(cuda):
+    """The routes of the cases above are the ones the plan is meant to take:
+    every cp.async width, TMA on both operands, and each on A and on B."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    labels = {name: bx.plan_of(a, b).label for name, a, b in _bf16x3_route_cases(cuda)}
+    routes = {r for label in labels.values() for r in label.split()[1:]}
+    assert {"A:tma", "B:tma", "A:cp.async4", "B:cp.async4", "A:cp.async8", "A:cp.async16", "B:cp.async16"} <= routes
+
+
+@pytest.mark.parametrize("K", [1000, 4000, 8192])
+def test_bf16x3_long_k_cluster_matches_the_split(cuda, K):
+    """The long-k product, k cut into a cluster's ranges by K alone, against
+    the split's float64 value (2·K·2⁻²⁴·Σ|a||b|), at n = 250 and 105."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    g = torch.Generator(device=cuda).manual_seed(K)
+    for n in (250, 105):
+        a = torch.randn(2, n, K, generator=g, device=cuda)
+        b = torch.randn(2, n, K, generator=g, device=cuda).transpose(-1, -2)
+        p = bx.plan_of(a, b)
+        assert (p.splits, p.ks) == bx.k_ranges(K) and p.splits > 1
+        c = bx.bf16x3_mm_cuda(a, b)
+        split, bound = _split64(a, b)
+        assert torch.all((c.double() - split).abs() <= 2.0 * bound), (n, K)
+
+
+def test_bf16x3_same_bits_every_call_and_in_a_graph(cuda):
+    """No atomics: two calls give the same bits, and a graph replay the bits
+    of the eager call, in a plain tile and in a cluster's k ranges."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    pairs = [(torch.randn(2, 250, 250, generator=g, device=cuda), torch.randn(2, 250, 8192, generator=g, device=cuda)),
+             (torch.randn(2, 250, 8192, generator=g, device=cuda),
+              torch.randn(2, 250, 8192, generator=g, device=cuda).transpose(-1, -2))]
+    for a, b in pairs:
+        eager = bx.bf16x3_mm_cuda(a, b)
+        assert torch.equal(eager, bx.bf16x3_mm_cuda(a, b))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bx.bf16x3_mm_cuda(a, b)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = bx.bf16x3_mm_cuda(a, b)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_bf16x3_batch_member_keeps_its_bits(cuda):
+    """The k partition follows K alone: each member's slice of a batched call
+    is the bits of the call on that member alone, long k included."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for M, N, K in [(100, 1000, 100), (105, 105, 8192), (250, 250, 4000)]:
+        a = torch.randn(10, M, K, generator=g, device=cuda)
+        b = torch.randn(10, K, N, generator=g, device=cuda)
+        c = bx.bf16x3_mm_cuda(a, b)
+        for f in range(0, 10, 3):
+            assert torch.equal(c[f], bx.bf16x3_mm_cuda(a[f], b[f])), (M, N, K, f)
+
+
+@pytest.mark.parametrize("instance", ["dots", "short_k"])
+def test_bf16x3_counts_each_instance(cuda, instance):
+    """The warp-a-dot and thread-an-output instances count their launches
+    under their own names, one a call."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    a, b = {"dots": (torch.randn(64, 1, 250, device=cuda), torch.randn(64, 250, 1, device=cuda)),
+            "short_k": (torch.randn(64, 1, 1, device=cuda), torch.randn(64, 1, 250, device=cuda))}[instance]
+    key = (64, a.shape[-2], b.shape[-1], a.shape[-1], instance)
+    assert bx.plan_of(a, b).label == instance
+    before = bx.bf16x3_mm_cuda.launches_by_instance[key]
+    bx.bf16x3_mm_cuda(a, b)
+    torch.cuda.synchronize()
+    assert bx.bf16x3_mm_cuda.launches_by_instance[key] == before + 1

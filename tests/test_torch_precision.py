@@ -107,9 +107,9 @@ def test_plain_matches_the_split_oracle(G, M, K, N, ta, tb):
                                         (2, 10, 10, 1000), (16384, 1, 250, 1), (16384, 250, 1, 1),
                                         (16384, 1, 1, 250), (2, 6, 6, 96), (10, 100, 100, 1000), (3, 64, 64, 257)])
 def test_plan_covers_k_once(G, M, N, K):
-    """The kernel's plan: the instance by shape; a split's S ranges of ks
-    (a multiple of 32, at least 256) cover k with none empty, and make the
-    tiles at most about two a streaming multiprocessor."""
+    """The kernel's plan: the instance by shape; the tiles' S k ranges of ks
+    (a multiple of 32; S ≤ 8, the CTAs of one cluster) cover k with none
+    empty, and are cut by K alone, so the batch G does not change them."""
     p = bf16x3.plan(G, M, N, K)
     if M == N == 1:
         assert p.instance == "dots"
@@ -117,12 +117,11 @@ def test_plan_covers_k_once(G, M, N, K):
         assert p.instance == "short_k"
     else:
         assert p.instance == "tiles" and p.ks % bf16x3.CHUNK == 0 and p.splits * p.ks >= K
-        tiles = G * -(-M // 64) * -(-N // 64)
-        if p.splits > 1:
-            assert (p.splits - 1) * p.ks < K and p.ks >= bf16x3.SPLIT_MIN_K
-            assert tiles * (p.splits - 1) < 2 * bf16x3.SMS
-        else:
-            assert p.ks >= K and (tiles >= 2 * bf16x3.SMS or K < 2 * bf16x3.SPLIT_MIN_K)
+        assert 1 <= p.splits <= bf16x3.MAX_CLUSTER and p.grid[0] == p.splits
+        assert (p.splits - 1) * p.ks < K or p.splits == 1
+        assert p.splits == max(1, min(bf16x3.MAX_CLUSTER, K // bf16x3.RANGE_MIN_K))
+        one = bf16x3.plan(1, M, N, K)
+        assert (p.splits, p.ks) == (one.splits, one.ks)
 
 
 def test_nan_in_gives_nan_out():

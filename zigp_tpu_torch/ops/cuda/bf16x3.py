@@ -10,14 +10,17 @@ hi = bf16(x) and lo = bf16(x − hi), and C = hi·hi + (hi·lo + lo·hi) with
 float32 accumulation; lo·lo is dropped.
 
 - ``bf16x3_mm_cuda``: on CUDA float32 tensors one call of
-  ``csrc/bf16x3_mm.cu`` in the instance ``plan`` picks (``mma.sync`` bf16
-  tensor-core tiles, with k split over CTAs and the partials added in a
-  second, fixed-order pass where few tiles meet a long k; a warp a dot
-  where M = N = 1; a thread an output for a short k with a thin side), the
-  operands read through their strides (a transposed view is never copied;
-  a batch that cannot be walked with two strides is made contiguous
-  first); on CPU tensors ``bf16x3_mm_plain``. Anything else raises: there
-  is no fallback.
+  ``csrc/bf16x3_mm.cu`` in the instance and copy routes ``plan_of`` picks:
+  ``wgmma`` tiles of 128 × 128 (128 × 64 for the long-k products' few
+  tiles) fed by a ring of asynchronously staged float32 chunks (TMA where
+  the operand's rows are 16-byte aligned, cp.async elsewhere), split to bf16
+  in shared memory, with a long k cut into the CTAs of one cluster and
+  summed through distributed shared memory in a fixed order; a warp a dot
+  where M = N = 1; a thread an output for a short k with a thin side. The
+  operands are read through their strides (a transposed view is never
+  copied; a batch that cannot be walked with two strides is made
+  contiguous first); on CPU tensors ``bf16x3_mm_plain``. Anything else
+  raises: there is no fallback.
 - ``bf16x3_mm_plain``: the split by ``.to(torch.bfloat16).to(torch.float32)``
   and three float32 matmuls of the bf16-exact parts. Each product of two
   bf16 values is exact in float32, so it differs from the kernel only in
@@ -37,15 +40,24 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
-TILE = 64  # the tile instance's C tile
+TILE = 128  # the tile instance's C tile: TILE rows (two warpgroups of 64) by TILE, or TILE / 2 where k is cut
 CHUNK = 32  # k a staged chunk
-SMS = 132  # an H100's streaming multiprocessors
-SPLIT_MIN_K = 256  # k a split takes at least
+STAGES = 4  # staged chunks in flight
+SPLIT_BUFS = 3  # buffers of split chunks: two chunks' products in flight
+THREADS = 256  # a tile CTA's threads: two warpgroups
+MAX_CLUSTER = 8  # k ranges of a tile at most: the CTAs of one cluster
+RANGE_MIN_K = 256  # k a range takes at least
+MAX_GRID_Y = 65535  # the tiles' grid dim; past it a CTA walks tiles with that stride
+NARROW_TILES = 4  # 128 x 64 tiles of a member at most for the narrow tiles
+SMEM_LIMIT = 232_448  # shared memory a CTA may take on an H100
 INSTANCES = {"tiles": 0, "dots": 1, "short_k": 2}
+ROUTES = {0: "tma", 4: "cp.async16", 2: "cp.async8", 1: "cp.async4"}  # an operand's copy route by the C code
 
 _fn = None
 
@@ -60,16 +72,7 @@ def _kernel_fn():
             ctypes.c_void_p,  # A
             ctypes.c_void_p,  # B
             ctypes.c_void_p,  # C
-            ctypes.c_void_p,  # scratch for the split partials, or null
-            ctypes.c_int,  # G1, outer batch
-            ctypes.c_int,  # G2, inner batch
-            ctypes.c_int,  # M
-            ctypes.c_int,  # N
-            ctypes.c_int,  # K
-            *[ctypes.c_longlong] * 8,  # A's batch, row, k strides; B's batch, k, column strides
-            ctypes.c_int,  # instance
-            ctypes.c_int,  # S, the k ranges
-            ctypes.c_int,  # ks, k a range (a multiple of CHUNK)
+            ctypes.c_void_p,  # the 19 parameters, a host array of int64 (``Plan``'s and the operands')
             ctypes.c_void_p,  # cudaStream_t
         ]
         fn.restype = ctypes.c_int
@@ -94,31 +97,65 @@ def bf16x3_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Plan:
-    """One call of the kernel: the instance, and for the tile instance the
-    number of k ranges S and k a range (``ks``, a multiple of ``CHUNK``)."""
+    """One call of the kernel: the instance; for the tiles, the S k ranges of
+    ``ks`` each (S CTAs a cluster, summed in the order of the ranges), the
+    tile's columns (``tile_n``), the grid (S, tiles or ``MAX_GRID_Y``, 1),
+    each CTA's dynamic shared memory, and each operand's copy route ("tma",
+    "cp.async16", "cp.async8" or "cp.async4"; "" where ``plan`` was given no
+    operand)."""
 
     instance: str
     splits: int = 1
     ks: int = CHUNK
+    grid: tuple = (1, 1, 1)
+    smem: int = 0
+    a_route: str = ""
+    b_route: str = ""
+    tile_n: int = TILE
+
+    @property
+    def label(self) -> str:
+        """The instance as counted: "dots", "short_k" or "tiles A:<route> B:<route>"."""
+        return f"tiles A:{self.a_route} B:{self.b_route}" if self.instance == "tiles" else self.instance
 
 
-def plan(G: int, M: int, N: int, K: int) -> Plan:
+def k_ranges(K: int) -> tuple[int, int]:
+    """(S, ks): the tile instance's k cut into S ranges of ks (a multiple of
+    ``CHUNK``; the last one shorter), by K alone, so that a batch member's
+    result does not depend on the batch: S = clamp(K // ``RANGE_MIN_K``, 1,
+    ``MAX_CLUSTER``), none of them empty."""
+    S = max(1, min(MAX_CLUSTER, K // RANGE_MIN_K))
+    ks = max(CHUNK, -(-(-(-K // S)) // CHUNK) * CHUNK)
+    return max(1, -(-K // ks)), ks
+
+
+def smem_bytes() -> int:
+    """A tile CTA's dynamic shared memory, as ``csrc/bf16x3_mm.cu`` sizes
+    it: the ring of float32 stages (A's 128 × 32 and B's 32 × 128 chunk),
+    ``SPLIT_BUFS`` buffers of the split's bf16 hi and lo tiles, an mbarrier a
+    stage and 1024 bytes to align the swizzles."""
+    return STAGES * 2 * TILE * CHUNK * 4 + SPLIT_BUFS * 4 * TILE * CHUNK * 2 + STAGES * 8 + 1024
+
+
+def plan(G: int, M: int, N: int, K: int, a_route: str = "", b_route: str = "") -> Plan:
     """The instance for C (G, M, N) = A (G, M, K) B (G, K, N): "dots" for
     M = N = 1; "short_k" for K ≤ 16 with M or N below 16 (a tile would hold
-    a sliver); else "tiles", with k split into S ranges of at least
-    ``SPLIT_MIN_K`` where the G·⌈M/64⌉·⌈N/64⌉ tiles are fewer than two a
-    streaming multiprocessor, S up to the count that makes them two."""
+    a sliver); else "tiles", with k cut by ``k_ranges`` (a cluster of S CTAs
+    a tile) and the given copy routes, in C tiles of 128 × 128, or of
+    128 × 64 where k is cut and a member has at most ``NARROW_TILES`` of
+    them (the long-k products' few tiles: twice the streaming
+    multiprocessors busy, and at most 16 clusters of 8 at the batch of 2,
+    one wave on an H100). Both choices follow (M, N, K) alone, never the
+    batch G."""
     if M == 1 and N == 1:
         return Plan("dots")
     if K <= 16 and min(M, N) < 16:
         return Plan("short_k")
-    whole = max(CHUNK, -(-K // CHUNK) * CHUNK)
-    tiles = G * -(-M // TILE) * -(-N // TILE)
-    S = min(K // SPLIT_MIN_K, -(-2 * SMS // tiles))
-    if S <= 1:
-        return Plan("tiles", 1, whole)
-    ks = -(-(-(-K // S)) // CHUNK) * CHUNK
-    return Plan("tiles", -(-K // ks), ks)
+    S, ks = k_ranges(K)
+    narrow = S > 1 and -(-M // TILE) * -(-N // (TILE // 2)) <= NARROW_TILES
+    tile_n = TILE // 2 if narrow else TILE
+    tiles = G * -(-M // TILE) * -(-N // tile_n)
+    return Plan("tiles", S, ks, (S, min(tiles, MAX_GRID_Y), 1), smem_bytes(), a_route, b_route, tile_n)
 
 
 def _batch_levels(a: torch.Tensor, b: torch.Tensor):
@@ -137,57 +174,193 @@ def _batch_levels(a: torch.Tensor, b: torch.Tensor):
     return levels if len(levels) <= 2 else None
 
 
+def copy_width(ptr: int, rows: int, K: int, s_row: int, s_k: int, batch) -> int:
+    """The copy route of one operand, ``rows`` (A's M or B's N) by K with
+    those strides (elements) and ``batch`` [(size, stride), (size, stride)]
+    (outer, inner), at byte address ``ptr``, as the C code reads it: 0 for
+    TMA, else the floats of one cp.async copy (4, 2 or 1).
+
+    The contiguous dim is k, unless the rows have unit stride and k does
+    not. TMA where it can take the operand: unit stride along that dim, and
+    the base and the byte stride of every other dim longer than 1 nonzero
+    multiples of 16 (a (250, 250) factor's 1000-byte rows, a base one float
+    off, a broadcast batch: cp.async). Else cp.async of as many floats as
+    that alignment allows, along the contiguous dim (4 bytes a copy where
+    neither dim has unit stride)."""
+    mn = s_k != 1 and s_row == 1
+    if (s_row if mn else s_k) != 1:
+        return 1
+    other = K if mn else rows
+    s_other = s_k if mn else s_row
+    (G1, s1), (G2, s2) = batch
+    if rows >= 1 and K >= 1 and ptr % 16 == 0:
+        # the C code's tensor map: a dim of size 1 takes a stride made up of the ones inside it
+        st0 = 4 * s_other if other > 1 else 16
+        st1 = 4 * s2 if G2 > 1 else st0 * other
+        st2 = 4 * s1 if G1 > 1 else st1 * G2
+        if all(0 < s < 2**40 and s % 16 == 0 for s in (st0, st1, st2)):
+            return 0
+    strides = [4 * s_other] + [4 * s for n, s in batch if n > 1]
+    for w in (4, 2):
+        if ptr % (4 * w) == 0 and all(s % (4 * w) == 0 for s in strides):
+            return w
+    return 1
+
+
+def plan_of(a: torch.Tensor, b: torch.Tensor) -> Plan:
+    """``plan`` for a (..., M, K) and b (..., K, N) of one batch shape as
+    ``bf16x3_mm_cuda`` launches them: the batch as two levels (a batch that
+    has more is launched on contiguous copies), and for the tiles each
+    operand's copy route by ``copy_width`` from its strides and address.
+    The one place the instance and the routes are chosen."""
+    *_, M, K = a.shape
+    N = b.shape[-1]
+    levels = _batch_levels(a, b)
+    if levels is None:
+        return plan_of(a.contiguous(), b.contiguous())
+    levels = [(1, 0, 0)] * (2 - len(levels)) + levels
+    G = levels[0][0] * levels[1][0]
+    p = plan(G, M, N, K)
+    if p.instance != "tiles":
+        return p
+    wa = copy_width(a.data_ptr(), M, K, a.stride(-2), a.stride(-1), [(n, sa) for n, sa, _ in levels])
+    wb = copy_width(b.data_ptr(), N, K, b.stride(-1), b.stride(-2), [(n, sb) for n, _, sb in levels])
+    return plan(G, M, N, K, ROUTES[wa], ROUTES[wb])
+
+
+class Cta(NamedTuple):
+    """One CTA of the tile instance's grid: its cluster's tile (batch g,
+    rows m of C, columns n), its rank in the cluster and its k range, the C
+    rows it writes, and the ranks whose partial sums it adds for them, in
+    that order."""
+
+    g: int
+    m: range
+    n: range
+    rank: int
+    k: range
+    writes: range
+    sums: tuple
+
+
+def ctas(p: Plan, G: int, M: int, N: int, K: int):
+    """The CTAs of ``p``'s grid for C (G, M, N), in the order the kernel
+    derives them: blockIdx.y walks the tiles with a stride of the grid's y
+    (m fastest, then n, then the batch), blockIdx.x is the rank, whose k
+    range is [rank·ks, min(K, (rank + 1)·ks)); rank r writes rows
+    [r·⌈128/S⌉, (r + 1)·⌈128/S⌉) of the tile, each the sum of the S ranks'
+    partials in rank order."""
+    S, ks, tn_ = p.splits, p.ks, p.tile_n
+    tiles_m, tiles_n = -(-M // TILE), -(-N // tn_)
+    tiles = G * tiles_m * tiles_n
+    per = -(-TILE // S)
+    for y in range(p.grid[1]):
+        for tile in range(y, tiles, p.grid[1]):
+            tm, rest = tile % tiles_m, tile // tiles_m
+            tn, g = rest % tiles_n, rest // tiles_n
+            m0, n0 = tm * TILE, tn * tn_
+            for rank in range(p.grid[0]):
+                rb, re = rank * per, min(TILE, rank * per + per)
+                yield Cta(g, range(m0, min(M, m0 + TILE)), range(n0, min(N, n0 + tn_)), rank,
+                          range(rank * ks, min(K, rank * ks + ks)), range(m0 + rb, min(M, m0 + re)),
+                          tuple(range(S)))
+
+
+class _Call:
+    """What one (shapes, strides, alignments) signature needs at each call:
+    the output's shape, the counted key and plan, the C code's parameters;
+    or ``copy`` where the batch needs a contiguous copy first."""
+
+    __slots__ = ("copy", "shape", "key", "plan", "params", "out")
+
+    def __init__(self, a, b):
+        *batch, M, K = a.shape
+        N = b.shape[-1]
+        self.out = (*batch, M, N)
+        levels = _batch_levels(a, b)
+        self.copy = levels is None
+        self.params = None
+        if self.copy or 0 in self.out:
+            return
+        levels = [(1, 0, 0)] * (2 - len(levels)) + levels
+        (G1, sa1, sb1), (G2, sa2, sb2) = levels
+        if G1 * G2 >= 2**31:
+            raise ValueError(f"bf16x3_mm_cuda: a batch of {G1 * G2} is past the kernel's int")
+        self.shape = (G1 * G2, M, N, K)
+        widths = {v: k for k, v in ROUTES.items()}
+        p = self.plan = plan_of(a, b)
+        self.key = (*self.shape, p.label)
+        self.params = (ctypes.c_longlong * 19)(G1, G2, M, N, K, sa1, sa2, a.stride(-2), a.stride(-1), sb1, sb2,
+                                               b.stride(-2), b.stride(-1), INSTANCES[p.instance], p.splits, p.ks,
+                                               widths.get(p.a_route, 1), widths.get(p.b_route, 1), p.tile_n)
+
+
+_CALLS: dict = {}
+_raw_stream = None
+
+
+def _stream(index: int) -> int:
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
+
+
 def bf16x3_mm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """op(A)·op(B) of a (..., M, K) and b (..., K, N) of one batch shape in
     the 3-pass product, a contiguous (..., M, N). CUDA float32 tensors go to
-    one launch of the kernel (anything else on the card raises); CPU tensors
-    to ``bf16x3_mm_plain``. Each call adds one to
-    ``bf16x3_mm_cuda.launches`` and to ``launches_by_shape[(G, M, N, K)]``
-    (a split call is two kernels, the products and the fixed-order sum of
-    their partials, counted once)."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return bf16x3_mm_plain(a, b)
-    who = "bf16x3_mm_cuda"
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"{who}: both operands on one CUDA device, got {a.device} and {b.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
+    one launch of the kernel in ``plan_of``'s instance and copy routes
+    (anything else on the card raises); CPU tensors to ``bf16x3_mm_plain``.
+    Each call adds one to ``bf16x3_mm_cuda.launches``, to
+    ``launches_by_shape[(G, M, N, K)]`` and to ``launches_by_instance[(G,
+    M, N, K, label)]`` (``Plan.label``: the instance and, for the tiles,
+    the operands' routes). What a call needs besides its pointers is worked
+    out once for each signature of shapes, strides and alignments, so a
+    call costs the host little more than the launch."""
+    if not (a.is_cuda and b.is_cuda and a.dtype == torch.float32 and b.dtype == torch.float32
+            and a.get_device() == b.get_device()):
+        if a.device.type == "cpu" and b.device.type == "cpu":
+            return bf16x3_mm_plain(a, b)
+        who = "bf16x3_mm_cuda"
+        if a.device.type != "cuda" or b.device != a.device:
+            raise ValueError(f"{who}: both operands on one CUDA device, got {a.device} and {b.device}")
         raise TypeError(f"{who}: the kernel takes float32, got {a.dtype} and {b.dtype}")
-    if a.ndim < 2 or b.ndim != a.ndim or a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
-        raise ValueError(f"{who}: expected (..., M, K) and (..., K, N) of one batch shape, got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
-    *batch, M, K = a.shape
-    N = b.shape[-1]
-    if max(M, N, K) >= 2**31:
-        raise ValueError(f"{who}: M, N and K must be below 2**31, got {(M, N, K)}")
-    c = torch.empty(*batch, M, N, dtype=a.dtype, device=a.device)
-    if c.numel() == 0:
+    sig = (a.shape, b.shape, a.stride(), b.stride(), a.data_ptr() & 15, b.data_ptr() & 15)
+    call = _CALLS.get(sig)
+    if call is None:
+        who = "bf16x3_mm_cuda"
+        if a.ndim < 2 or b.ndim != a.ndim or a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+            raise ValueError(f"{who}: expected (..., M, K) and (..., K, N) of one batch shape, got "
+                             f"{tuple(a.shape)} and {tuple(b.shape)}")
+        if max(a.shape[-2], b.shape[-1], a.shape[-1]) >= 2**31:
+            raise ValueError(f"{who}: M, N and K must be below 2**31, got {(a.shape[-2], b.shape[-1], a.shape[-1])}")
+        if len(_CALLS) >= 4096:  # a bound on the signatures kept
+            _CALLS.clear()
+        call = _CALLS[sig] = _Call(a, b)
+    if call.copy:  # a batch no two strides walk: one copy of each operand
+        return bf16x3_mm_cuda(a.contiguous(), b.contiguous())
+    c = a.new_empty(call.out)
+    if call.params is None:  # an empty C
         return c
-    levels = _batch_levels(a, b)
-    if levels is None:  # a batch no two strides walk: one copy of each operand
-        a, b = a.contiguous(), b.contiguous()
-        levels = _batch_levels(a, b)
-    levels = [(1, 0, 0)] * (2 - len(levels)) + levels
-    (G1, sa1, sb1), (G2, sa2, sb2) = levels
-    if G1 * G2 >= 2**31:
-        raise ValueError(f"{who}: a batch of {G1 * G2} is past the kernel's int")
-    p = plan(G1 * G2, M, N, K)
-    scratch = torch.empty(p.splits * c.numel(), dtype=c.dtype, device=c.device) if p.splits > 1 else None
-    fn = _kernel_fn()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), None if scratch is None else scratch.data_ptr(), G1, G2, M,
-                 N, K, sa1, sa2, a.stride(-2), a.stride(-1), sb1, sb2, b.stride(-2), b.stride(-1),
-                 INSTANCES[p.instance], p.splits, p.ks, stream)
+    index = a.get_device()
+    fn = _fn or _kernel_fn()
+    if index == torch.cuda.current_device():
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), ctypes.addressof(call.params), _stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), ctypes.addressof(call.params), _stream(index))
     if err != 0:
-        raise RuntimeError(f"{who}: bf16x3_mm kernel launch failed: cudaError {err} (G={G1 * G2}, M={M}, N={N}, K={K}, "
-                           f"{p})")
+        raise RuntimeError(f"bf16x3_mm_cuda: kernel launch failed: cudaError {err} (shape {call.shape}, {call.plan})")
     bf16x3_mm_cuda.launches += 1
-    bf16x3_mm_cuda.launches_by_shape[(G1 * G2, M, N, K)] += 1
+    bf16x3_mm_cuda.launches_by_shape[call.shape] += 1
+    bf16x3_mm_cuda.launches_by_instance[call.key] += 1
     return c
 
 
 bf16x3_mm_cuda.launches = 0
 bf16x3_mm_cuda.launches_by_shape = Counter()
+bf16x3_mm_cuda.launches_by_instance = Counter()
 
 
 @torch.library.custom_op("zigp_tpu_torch::bf16x3_mm", mutates_args=(), schema="(Tensor a, Tensor b) -> Tensor")
