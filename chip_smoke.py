@@ -4637,13 +4637,18 @@ def bf16x3_gate_cases(gen):
     chol_inv VJP, the KL trace), the backward's (2, n, B)·(2, B, n) (k split
     over CTAs), the batch of dots of the factored contraction's later
     factor, (2·B, 1, n)·(2·B, n, 1) with the factor read through its
-    strides, and its backward's outer products (2·B, 1, 1)·(2·B, 1, n) (a
-    thread an output)."""
+    strides, and its backward's K = 1 outer products (the short-k instance)
+    at every B as the path lays them out: dF = dC·tᵀ, (2, B, 1, 1)·(2, B, 1,
+    n) with t contiguous along n, and dt = Fᵀ·dC, (2, B, n, 1)·(2, B, 1, 1)
+    with Fᵀ a view of the (2, n, B) factor (stride B along m, 1 along the
+    batch); at B = 8192 also the factor as the long B operand."""
     r = lambda *shape: torch.randn(*shape, generator=gen, device=DEVICE)
     for n in PREC_GATE_NS:
         A = r(2, n, n)
         for B in PREC_GATE_BS:
             yield f"(2,{n},{n})x(2,{n},{B})", A, r(2, n, B)
+            yield f"short k n-major (2,{B},1,1)x(2,{B},1,{n})", r(2, B, 1, 1), r(2, B, n, 1).mT
+            yield f"short k batch-major (2,{B},{n},1)x(2,{B},1,1)", r(2, n, B).mT.unsqueeze(-1), r(2, B, 1, 1)
         yield f"(2,{n},{n})T x(2,{n},8192)", r(2, n, n).transpose(-1, -2), r(2, n, 8192)
         yield f"(2,{n},{n})x(2,8192,{n})T", A, r(2, 8192, n).transpose(-1, -2)
         yield f"(2,{n},{n})T x(2,{n},{n})", r(2, n, n).transpose(-1, -2), r(2, n, n)
@@ -4668,11 +4673,13 @@ def phase_bf16x3_gate(bx) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(20)
     worst = {"split": 0.0, "exact": 0.0}
     for name, a, b in bf16x3_gate_cases(gen):
-        before = bx.bf16x3_mm_cuda.launches
+        key = (int(np.prod(a.shape[:-2])), a.shape[-2], b.shape[-1], a.shape[-1], bx.plan_of(a, b).label)
+        before, by = bx.bf16x3_mm_cuda.launches, bx.bf16x3_mm_cuda.launches_by_instance[key]
         c = bx.bf16x3_mm_cuda(a, b)
         torch.cuda.synchronize()
-        if bx.bf16x3_mm_cuda.launches != before + 1:
-            raise AssertionError(f"bf16x3 {name}: {bx.bf16x3_mm_cuda.launches - before} launches")
+        if bx.bf16x3_mm_cuda.launches != before + 1 or bx.bf16x3_mm_cuda.launches_by_instance[key] != by + 1:
+            raise AssertionError(f"bf16x3 {name}: {bx.bf16x3_mm_cuda.launches - before} launches, "
+                                 f"{bx.bf16x3_mm_cuda.launches_by_instance[key] - by} under {key[-1]}")
         plain = bx.bf16x3_mm_plain(a, b)
         split, bound = bf16x3_split64(a, b)
         share = float(((c.double() - split).abs() / (PREC_SPLIT_C * bound).clamp_min(1e-300)).max())
@@ -4680,23 +4687,26 @@ def phase_bf16x3_gate(bx) -> dict:
         e_k, e_p = rel(c.cpu(), exact.cpu()), rel(plain.cpu(), exact.cpu())
         tol = max(3.0 * e_p, 1e-5)
         worst["split"], worst["exact"] = max(worst["split"], share), max(worst["exact"], e_k / tol)
-        log(f"gate bf16x3 {name}: largest share of {PREC_SPLIT_C:g}·K·2^-24·Σ|a||b| against the split's float64 "
+        log(f"gate bf16x3 {name} [{key[-1]}]: largest share of {PREC_SPLIT_C:g}·K·2^-24·Σ|a||b| against the split's float64 "
             f"{share:.3f}; vs float64 {e_k:.3e} (plain {e_p:.3e}, tol {tol:.3e}); max |kernel - plain| "
             f"{(c - plain).abs().max().item():.3e}")
         if c.shape != exact.shape or not share <= 1.0 or not e_k <= tol:
             raise AssertionError(f"bf16x3 {name}: split share {share:.3f}, error {e_k:.3e} > {tol:.3e}")
-    for name, (a, b) in {"tiles": (torch.randn(2, 100, 100, device=DEVICE), torch.randn(2, 100, 1000, device=DEVICE)),
-                         "split k": (torch.randn(2, 100, 8192, device=DEVICE), torch.randn(2, 8192, 100, device=DEVICE)),
-                         "dots": (torch.randn(6, 1, 250, device=DEVICE), torch.randn(6, 250, 1, device=DEVICE))}.items():
-        a[1, a.shape[1] // 2, 7] = float("nan")
+    rn = lambda *shape: torch.randn(*shape, device=DEVICE)
+    for name, (a, b) in {"tiles": (rn(2, 100, 100), rn(2, 100, 1000)), "split k": (rn(2, 100, 8192), rn(2, 8192, 100)),
+                         "dots": (rn(6, 1, 250), rn(6, 250, 1)), "short k n-major": (rn(6, 1, 1), rn(6, 250, 1).mT),
+                         "short k batch-major": (rn(250, 6).T.unsqueeze(-1), rn(6, 1, 1))}.items():
+        mid = a.shape[1] // 2
+        a[1, mid, min(7, a.shape[2] - 1)] = float("nan")
+        label = bx.plan_of(a, b).label
         c = bx.bf16x3_mm_cuda(a, b)
-        row = c[1, a.shape[1] // 2]
-        rest = torch.cat([c[0].flatten(), c[1, : a.shape[1] // 2].flatten(), c[2:].flatten()])
+        row = c[1, mid]
+        rest = torch.cat([c[0].flatten(), c[1, :mid].flatten(), c[1, mid + 1:].flatten(), c[2:].flatten()])
         if not torch.isnan(row).all() or not torch.isfinite(rest).all():
-            raise AssertionError(f"bf16x3 NaN ({name}): the row NaN {bool(torch.isnan(row).all())}, the rest finite "
-                                 f"{bool(torch.isfinite(rest).all())}")
+            raise AssertionError(f"bf16x3 NaN ({name}, {label}): the row NaN {bool(torch.isnan(row).all())}, the rest "
+                                 f"finite {bool(torch.isfinite(rest).all())}")
     log(f"gate bf16x3: every case within bound (largest shares {worst}); NaN in one row of A gives NaN in that row "
-        "of C alone, in the tiles, with k split and in the dots")
+        "of C alone, in the tiles, with k split, in the dots and in the short k's two layouts")
     return worst
 
 
@@ -4932,25 +4942,34 @@ _BF16X3_TIMES = {}  # (G, M, N, K): the kernel's times at a shape, measured once
 
 def bf16x3_operands_like(bx, G, M, N, K, label):
     """Seeded (G, M, K) and (G, K, N) operands in the first layout (each
-    contiguous, or given transposed) whose plan is ``label``, the instance
-    and copy routes a path launched at the shape; contiguous ones if none."""
-    layouts = [(False, False), (True, False), (False, True), (True, True)]
-    for ta, tb in layouts:
-        a = torch.randn(G, K, M, device=DEVICE).mT if ta else torch.randn(G, M, K, device=DEVICE)
-        b = torch.randn(G, N, K, device=DEVICE).mT if tb else torch.randn(G, K, N, device=DEVICE)
+    contiguous, or given transposed; or one of them with unit stride along
+    the batch, a (2, G / 2) batch as the path's (2, B) where G is even) whose
+    plan is ``label``, the instance, copy routes or short-k layout a path
+    launched at the shape; contiguous ones if none."""
+    rn = lambda *shape: torch.randn(*shape, device=DEVICE)
+    G1 = 2 if G % 2 == 0 else 1
+    along_batch = lambda rows, cols: rn(G1, rows, cols, G // G1).permute(0, 3, 1, 2)  # (G1, G / G1, rows, cols)
+    layouts = [lambda: (rn(G, M, K), rn(G, K, N)), lambda: (rn(G, K, M).mT, rn(G, K, N)),
+               lambda: (rn(G, M, K), rn(G, N, K).mT), lambda: (rn(G, K, M).mT, rn(G, N, K).mT),
+               lambda: (along_batch(M, K), rn(G1, G // G1, K, N)), lambda: (rn(G1, G // G1, M, K), along_batch(K, N))]
+    for make in layouts:
+        a, b = make()
         if bx.plan_of(a, b).label == label:
             return a, b
-    return torch.randn(G, M, K, device=DEVICE), torch.randn(G, K, N, device=DEVICE)
+    return rn(G, M, K), rn(G, K, N)
 
 
 def bf16x3_rows(bx, prec: dict, card) -> list:
     """The kernels-line rows of ``bf16x3_mm`` at every (G, M, N, K) a
     phase-20 path launched, with the launches; ms and device ms of the
-    kernel, the plain version's ms and exact-float32 ``torch.matmul``'s as
-    the library call, on operands of the shape in the layout of the path's
-    most frequent instance and copy routes there (``bf16x3_operands_like``).
-    A row names the instance and copy routes it timed (``plan_of``'s label)
-    and, under ``path_instances``, those the path launched at that shape."""
+    kernel, the plain version's ms and exact-float32 ``torch.matmul``'s
+    (``matmul_ms``), on operands of the shape in the layout of the path's
+    most frequent instance and copy routes or short-k layout there
+    (``bf16x3_operands_like``). The library call is ``torch.matmul``, or
+    for K = 1 the broadcast ``torch.mul(a, b)``, the one call that forms
+    the outer product (``mul_ms``, device ``mul_device_ms``). A row names
+    the instance and layout it timed (``plan_of``'s label) and, under
+    ``path_instances``, those the path launched at that shape."""
     rows = []
     for path, counts in prec["counts"].items():
         for (G, M, N, K), launches in sorted(counts["bf16x3_mm_by_shape"].items()):
@@ -4961,22 +4980,26 @@ def bf16x3_rows(bx, prec: dict, card) -> list:
                 c = bx.bf16x3_mm_cuda(a, b)
                 err = (c - bx.bf16x3_mm_plain(a, b)).abs().max().item()
                 reps = 20
+                mul = ((cuda_ms(lambda: torch.mul(a, b), reps=reps), graph_ms(lambda: torch.mul(a, b), reps=reps))
+                       if K == 1 else (None, None))
                 times = (cuda_ms(lambda: bx.bf16x3_mm_cuda(a, b), reps=reps),
                          graph_ms(lambda: bx.bf16x3_mm_cuda(a, b), reps=reps),
                          cuda_ms(lambda: bx.bf16x3_mm_plain(a, b), reps=reps),
-                         cuda_ms(lambda: torch.matmul(a, b), reps=reps), err, bx.plan_of(a, b))
+                         cuda_ms(lambda: torch.matmul(a, b), reps=reps), mul, err, bx.plan_of(a, b))
                 _BF16X3_TIMES[(G, M, N, K)] = times
-            ms, device_ms, plain_ms, lib_ms, err, p = _BF16X3_TIMES[(G, M, N, K)]
+            ms, device_ms, plain_ms, matmul_ms, (mul_ms, mul_device_ms), err, p = _BF16X3_TIMES[(G, M, N, K)]
             b_ms, b_by = bf16x3_bound_ms(G, M, N, K)
             timed = p.label + (f" S={p.splits}" if p.instance == "tiles" else "")
             name = f"bf16x3_mm G={G} M={M} N={N} K={K} {timed} ({path})"
+            mul_note = "" if mul_ms is None else f", torch.mul {mul_ms:.4f} ms (device {mul_device_ms:.4f})"
             log(f"time {name}: kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-                f"f32 {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launches {launches} (by instance on the path "
-                f"{on_path}), max |kernel - plain| {err:.3e}; {card}")
+                f"f32 {matmul_ms:.4f} ms{mul_note}, bound {b_ms:.6f} ms ({b_by}), launches {launches} (by instance on "
+                f"the path {on_path}), max |kernel - plain| {err:.3e}; {card}")
             rows.append({"name": name, "route": "cuda", "source": BF16X3_SOURCE, "replaces": BF16X3_REPLACES,
                          "instance": timed, "path_instances": on_path, "launches": launches, "max_abs_err": err,
                          "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": lib_ms})
+                         "library_ms": matmul_ms if mul_ms is None else mul_ms, "matmul_ms": matmul_ms,
+                         "mul_ms": mul_ms, "mul_device_ms": mul_device_ms})
     if not rows:
         raise AssertionError("bf16x3_mm: not launched on phase 20's paths")
     return rows

@@ -1499,7 +1499,9 @@ def test_bf16x3_same_bits_every_call_and_in_a_graph(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     pairs = [(torch.randn(2, 250, 250, generator=g, device=cuda), torch.randn(2, 250, 8192, generator=g, device=cuda)),
              (torch.randn(2, 250, 8192, generator=g, device=cuda),
-              torch.randn(2, 250, 8192, generator=g, device=cuda).transpose(-1, -2))]
+              torch.randn(2, 250, 8192, generator=g, device=cuda).transpose(-1, -2)),
+             _bf16x3_short_k_operands(cuda, "n-major", 8192, 250, g),
+             _bf16x3_short_k_operands(cuda, "batch-major", 8192, 250, g)]
     for a, b in pairs:
         eager = bx.bf16x3_mm_cuda(a, b)
         assert torch.equal(eager, bx.bf16x3_mm_cuda(a, b))
@@ -1530,17 +1532,116 @@ def test_bf16x3_batch_member_keeps_its_bits(cuda):
             assert torch.equal(c[f], bx.bf16x3_mm_cuda(a[f], b[f])), (M, N, K, f)
 
 
-@pytest.mark.parametrize("instance", ["dots", "short_k"])
+@pytest.mark.parametrize("instance", ["dots", "short_k n-major st16", "short_k n-major st4",
+                                      "short_k batch-major st16", "short_k batch-major st4"])
 def test_bf16x3_counts_each_instance(cuda, instance):
-    """The warp-a-dot and thread-an-output instances count their launches
-    under their own names, one a call."""
+    """The warp-a-dot instance and the short-k instance in each of the
+    path's two layouts, with and without 16-byte stores, count their
+    launches under their own labels, one a call."""
     from zigp_tpu_torch.ops.cuda import bf16x3 as bx
 
     a, b = {"dots": (torch.randn(64, 1, 250, device=cuda), torch.randn(64, 250, 1, device=cuda)),
-            "short_k": (torch.randn(64, 1, 1, device=cuda), torch.randn(64, 1, 250, device=cuda))}[instance]
+            "short_k n-major st16": (torch.randn(64, 1, 1, device=cuda), torch.randn(64, 1, 200, device=cuda)),
+            "short_k n-major st4": (torch.randn(64, 1, 1, device=cuda), torch.randn(64, 1, 250, device=cuda)),
+            "short_k batch-major st16": (torch.randn(200, 64, device=cuda).T.unsqueeze(-1),
+                                         torch.randn(64, 1, 1, device=cuda)),
+            "short_k batch-major st4": (torch.randn(250, 64, device=cuda).T.unsqueeze(-1),
+                                        torch.randn(64, 1, 1, device=cuda))}[instance]
     key = (64, a.shape[-2], b.shape[-1], a.shape[-1], instance)
     assert bx.plan_of(a, b).label == instance
     before = bx.bf16x3_mm_cuda.launches_by_instance[key]
     bx.bf16x3_mm_cuda(a, b)
     torch.cuda.synchronize()
     assert bx.bf16x3_mm_cuda.launches_by_instance[key] == before + 1
+
+
+# --- bf16x3_mm.cu's short-k instance in the layouts of the factored contraction's backward ---
+
+
+def _bf16x3_short_k_operands(cuda, layout, B, n, g):
+    """(a, b) of a K = 1 product of the path at B rows (a (2, B) batch) and
+    the later factor's n: dF = dC·tᵀ with t contiguous along n ("n-major"),
+    dt = Fᵀ·dC with Fᵀ a view of the (2, n, B) factor ("batch-major"), the
+    factor as the long B operand ("batch-major B"), a contiguous (2, B, n, 1)
+    ("m-major"), the factor's rows two floats apart ("strided")."""
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    return {"n-major": lambda: (r(2, B, 1, 1), r(2, B, n, 1).mT),
+            "batch-major": lambda: (r(2, n, B).mT.unsqueeze(-1), r(2, B, 1, 1)),
+            "batch-major B": lambda: (r(2, B, 1, 1), r(2, n, B).mT.unsqueeze(-2)),
+            "m-major": lambda: (r(2, B, n, 1), r(2, B, 1, 1)),
+            "strided": lambda: (r(2, B, 1, 1), r(2, B, n, 2)[..., 0].unsqueeze(-2))}[layout]()
+
+
+@pytest.mark.parametrize("B, n", [(8192, 250), (4000, 200), (1000, 100)])
+@pytest.mark.parametrize("layout", ["n-major", "batch-major", "batch-major B", "m-major", "strided"])
+def test_bf16x3_short_k_matches_the_split(cuda, layout, B, n):
+    """The short-k instance at the grid's, the champion's and the flagship's
+    K = 1 products in each layout, within 2·K·2⁻²⁴·Σ|a||b| of the float64
+    value of its split, one launch a call counted under the plan's label."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    a, b = _bf16x3_short_k_operands(cuda, layout, B, n, torch.Generator(device=cuda).manual_seed(n))
+    p = bx.plan_of(a, b)
+    assert p.instance == "short_k" and p.layout == layout.split()[0]
+    key = (2 * B, a.shape[-2], b.shape[-1], 1, p.label)
+    before, by = bx.bf16x3_mm_cuda.launches, bx.bf16x3_mm_cuda.launches_by_instance[key]
+    c = bx.bf16x3_mm_cuda(a, b)
+    torch.cuda.synchronize()
+    assert bx.bf16x3_mm_cuda.launches == before + 1 and bx.bf16x3_mm_cuda.launches_by_instance[key] == by + 1
+    split, bound = _split64(a, b)
+    assert torch.all((c.double() - split).abs() <= 2.0 * bound)
+
+
+@pytest.mark.parametrize("M, N, K", [(15, 70, 16), (70, 15, 7), (3, 2501, 2), (2000, 4, 5), (10, 1000, 10),
+                                     (10, 0, 3), (4, 6, 0)])
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "along the batch"])
+def test_bf16x3_short_k_generic_shapes_match_the_split(cuda, M, N, K, layout):
+    """K up to 16, a thin side up to 15 on either side, long sides past one
+    tile with N % 4 ≠ 0, K = 0 and an empty C, each operand contiguous,
+    given transposed or with unit stride along the batch."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    g = torch.Generator(device=cuda).manual_seed(M * N + K)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    G = 40
+    a, b = {"contiguous": lambda: (r(G, M, K), r(G, K, N)),
+            "transposed": lambda: (r(G, K, M).mT, r(G, N, K).mT),
+            "along the batch": lambda: (r(M, K, G).permute(2, 0, 1), r(K, N, G).permute(2, 0, 1))}[layout]()
+    assert bx.plan_of(a, b).instance == "short_k"
+    c = bx.bf16x3_mm_cuda(a, b)
+    split, bound = _split64(a, b)
+    assert c.shape == (G, M, N) and torch.all((c.double() - split).abs() <= 2.0 * bound)
+
+
+@pytest.mark.parametrize("layout", ["n-major", "batch-major", "batch-major B", "m-major"])
+def test_bf16x3_short_k_carries_nan(cuda, layout):
+    """A NaN in one row of A makes that row of C NaN and leaves the rest
+    finite, in each layout of the short-k instance."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    a, b = _bf16x3_short_k_operands(cuda, layout, 1000, 200, torch.Generator(device=cuda).manual_seed(3))
+    row = a.shape[-2] // 2
+    a[1, 7, row, 0] = float("nan")
+    c = bx.bf16x3_mm_cuda(a, b)
+    assert torch.isnan(c[1, 7, row]).all()
+    c[1, 7, row] = 0.0
+    assert torch.isfinite(c).all()
+
+
+@pytest.mark.parametrize("layout", ["n-major", "batch-major", "batch-major B"])
+def test_bf16x3_short_k_member_keeps_its_bits(cuda, layout):
+    """The F = 5 stack's folded launch of a K = 1 product: each member's
+    slice is the bits of the member launched alone (a tiling of its own:
+    the tiling changes no bit)."""
+    from zigp_tpu_torch.ops.cuda import bf16x3 as bx
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    F = torch.randn(5, 2, 100, 1000, generator=g, device=cuda)  # each member's (2, n, B) factor
+    dc = torch.randn(5, 2, 1000, 1, 1, generator=g, device=cuda)
+    t = torch.randn(5, 2, 1000, 100, 1, generator=g, device=cuda)
+    a, b = {"n-major": (dc, t.mT), "batch-major": (F.mT.unsqueeze(-1), dc),
+            "batch-major B": (dc, F.mT.unsqueeze(-2))}[layout]
+    assert bx.plan_of(a, b).layout == layout.split()[0]
+    c = bx.bf16x3_mm_cuda(a, b)
+    for f in range(5):
+        assert torch.equal(c[f], bx.bf16x3_mm_cuda(a[f], b[f])), f

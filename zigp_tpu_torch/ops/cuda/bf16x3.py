@@ -16,7 +16,10 @@ float32 accumulation; lo·lo is dropped.
   the operand's rows are 16-byte aligned, cp.async elsewhere), split to bf16
   in shared memory, with a long k cut into the CTAs of one cluster and
   summed through distributed shared memory in a fixed order; a warp a dot
-  where M = N = 1; a thread an output for a short k with a thin side. The
+  where M = N = 1; for a short k with a thin side, CTAs of a few batch
+  members by a span of the long side whose warps stream, the long operand
+  read along its unit stride (the long side, or the batch through a
+  transposing block a warp) and C written by rows. The
   operands are read through their strides (a transposed view is never
   copied; a batch that cannot be walked with two strides is made
   contiguous first); on CPU tensors ``bf16x3_mm_plain``. Anything else
@@ -58,6 +61,11 @@ NARROW_TILES = 4  # 128 x 64 tiles of a member at most for the narrow tiles
 SMEM_LIMIT = 232_448  # shared memory a CTA may take on an H100
 INSTANCES = {"tiles": 0, "dots": 1, "short_k": 2}
 ROUTES = {0: "tma", 4: "cp.async16", 2: "cp.async8", 1: "cp.async4"}  # an operand's copy route by the C code
+SK_THREADS = 256  # a short-k CTA's threads
+SK_PITCH = 33  # floats a row of a short-k warp's staged block (batch-major), odd
+SK_MEMBERS = (32, 16, 8, 4, 2, 1)  # batch members a short-k CTA may take, the most first (32 along the batch)
+SK_MIN_CTAS = 4 * 132  # short-k CTAs wanted at most: four an SM of an H100 (fewer where C is small)
+SK_MAX_K, SK_MAX_THIN = 16, 15  # the short-k instance's k and thin side at most
 
 _fn = None
 
@@ -72,7 +80,7 @@ def _kernel_fn():
             ctypes.c_void_p,  # A
             ctypes.c_void_p,  # B
             ctypes.c_void_p,  # C
-            ctypes.c_void_p,  # the 19 parameters, a host array of int64 (``Plan``'s and the operands')
+            ctypes.c_void_p,  # the 23 parameters, a host array of int64 (``Plan``'s and the operands')
             ctypes.c_void_p,  # cudaStream_t
         ]
         fn.restype = ctypes.c_int
@@ -97,12 +105,18 @@ def bf16x3_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Plan:
-    """One call of the kernel: the instance; for the tiles, the S k ranges of
-    ``ks`` each (S CTAs a cluster, summed in the order of the ranges), the
-    tile's columns (``tile_n``), the grid (S, tiles or ``MAX_GRID_Y``, 1),
-    each CTA's dynamic shared memory, and each operand's copy route ("tma",
-    "cp.async16", "cp.async8" or "cp.async4"; "" where ``plan`` was given no
-    operand)."""
+    """One call of the kernel: the instance; the grid and each CTA's dynamic
+    shared memory. For the tiles, the S k ranges of ``ks`` each (S CTAs a
+    cluster, summed in the order of the ranges), the tile's columns
+    (``tile_n``), the grid (S, tiles or ``MAX_GRID_Y``, 1), and each
+    operand's copy route ("tma", "cp.async16", "cp.async8" or "cp.async4";
+    "" where ``plan`` was given no operand). For a short k, the thin side
+    ("m" or "n"), the long operand's layout ("n-major" or "m-major": unit
+    stride along the long side; "batch-major": along the inner batch level,
+    with a thin side of 1; "strided": neither), the batch members and the
+    span of the long side a CTA (the grid (tiles, 1, 1), the span fastest),
+    and the bytes of the stores that write C (16, or 4 where the rows are
+    not 16-byte aligned)."""
 
     instance: str
     splits: int = 1
@@ -112,11 +126,25 @@ class Plan:
     a_route: str = ""
     b_route: str = ""
     tile_n: int = TILE
+    thin: str = ""
+    layout: str = ""
+    members: int = 0
+    span: int = 0
+    store: int = 0
+
+    @property
+    def sk_map(self) -> int:
+        """The short-k kernel's mapping: 2 lanes along the batch (batch-major),
+        1 lanes along the long side 16 bytes a lane, 0 4 bytes a lane."""
+        return 2 if self.layout == "batch-major" else int(self.store == 16)
 
     @property
     def label(self) -> str:
-        """The instance as counted: "dots", "short_k" or "tiles A:<route> B:<route>"."""
-        return f"tiles A:{self.a_route} B:{self.b_route}" if self.instance == "tiles" else self.instance
+        """The instance as counted: "dots", "short_k <layout> st<store>" or
+        "tiles A:<route> B:<route>"."""
+        if self.instance == "tiles":
+            return f"tiles A:{self.a_route} B:{self.b_route}"
+        return f"short_k {self.layout} st{self.store}" if self.instance == "short_k" else self.instance
 
 
 def k_ranges(K: int) -> tuple[int, int]:
@@ -137,20 +165,58 @@ def smem_bytes() -> int:
     return STAGES * 2 * TILE * CHUNK * 4 + SPLIT_BUFS * 4 * TILE * CHUNK * 2 + STAGES * 8 + 1024
 
 
-def plan(G: int, M: int, N: int, K: int, a_route: str = "", b_route: str = "") -> Plan:
+def short_k_plan(G: int, M: int, N: int, K: int, layout: str = "strided", aligned: bool = False) -> Plan:
+    """The short-k instance for C (G, M, N) with the long operand in
+    ``layout``: the thin side T = M where M ≤ N, else N. Batch-major, CTAs
+    of 32 members (a lane each) by whole rows of the long side L. Else
+    CTAs of the most members (``SK_MEMBERS``) by whole rows of L that
+    still give the CTAs wanted: the fewer of ``SK_MIN_CTAS`` and the more
+    of a thread's share of the outputs (4 where a lane takes 16 bytes, else
+    1) and a warp's of the (member, t) pairs (so that few warps walk
+    several); failing that, the span of L halved (multiples of a warp's
+    width, 32 or 128 l's) until some do, else one member. 16-byte stores
+    where C's rows start on 16 bytes: L % 4 == 0 for the batch-major
+    layout; for the others where ``aligned`` (the long operand's rows on 16
+    bytes with unit stride along L, L % 4 == 0, and a thin M or T = 1:
+    ``plan_of`` reads it). Only the speed follows the tiling, never a bit
+    of C."""
+    thin = "m" if M <= N else "n"
+    T, L = (M, N) if thin == "m" else (N, M)
+    batch_major = layout == "batch-major"
+    store = 16 if (L % 4 == 0 if batch_major else aligned) else 4
+    width = 32 * (4 if store == 16 and not batch_major else 1)  # l's a warp covers
+    outputs, pairs = -(-G * T * L // (SK_THREADS * width // 32)), -(-G * T // (SK_THREADS // 32))
+    want = max(1, min(SK_MIN_CTAS, max(outputs, pairs)))
+    members, span = (SK_MEMBERS[0], L) if batch_major else (None, L)
+    while members is None:
+        members = next((m for m in SK_MEMBERS if -(-G // m) * -(-L // span) >= want), None)
+        if members is None and span <= width:
+            members = SK_MEMBERS[-1]
+        elif members is None:
+            span = max(width, span // 2 // width * width)
+    tiles = -(-G // members) * -(-L // span)
+    smem = members * 8 * (1 + T * K) + (SK_THREADS // 32 * 32 * SK_PITCH * 4 if batch_major else 0)
+    return Plan("short_k", grid=(min(max(tiles, 1), 2**31 - 1), 1, 1), smem=smem, thin=thin, layout=layout,
+                members=members, span=span, store=store)
+
+
+def plan(G: int, M: int, N: int, K: int, a_route: str = "", b_route: str = "", layout: str = "strided",
+         aligned: bool = False) -> Plan:
     """The instance for C (G, M, N) = A (G, M, K) B (G, K, N): "dots" for
     M = N = 1; "short_k" for K ≤ 16 with M or N below 16 (a tile would hold
-    a sliver); else "tiles", with k cut by ``k_ranges`` (a cluster of S CTAs
-    a tile) and the given copy routes, in C tiles of 128 × 128, or of
+    a sliver), tiled by ``short_k_plan`` for the long operand's ``layout``
+    and ``aligned``; else "tiles", with k cut by ``k_ranges`` (a cluster of
+    S CTAs a tile) and the given copy routes, in C tiles of 128 × 128, or of
     128 × 64 where k is cut and a member has at most ``NARROW_TILES`` of
     them (the long-k products' few tiles: twice the streaming
     multiprocessors busy, and at most 16 clusters of 8 at the batch of 2,
-    one wave on an H100). Both choices follow (M, N, K) alone, never the
-    batch G."""
+    one wave on an H100). The instance and the k partition follow (M, N,
+    K) alone, never the batch G; the short-k tiling follows G, but no bit
+    of C does."""
     if M == 1 and N == 1:
         return Plan("dots")
-    if K <= 16 and min(M, N) < 16:
-        return Plan("short_k")
+    if K <= SK_MAX_K and min(M, N) <= SK_MAX_THIN:
+        return short_k_plan(G, M, N, K, layout, aligned)
     S, ks = k_ranges(K)
     narrow = S > 1 and -(-M // TILE) * -(-N // (TILE // 2)) <= NARROW_TILES
     tile_n = TILE // 2 if narrow else TILE
@@ -210,9 +276,12 @@ def copy_width(ptr: int, rows: int, K: int, s_row: int, s_k: int, batch) -> int:
 def plan_of(a: torch.Tensor, b: torch.Tensor) -> Plan:
     """``plan`` for a (..., M, K) and b (..., K, N) of one batch shape as
     ``bf16x3_mm_cuda`` launches them: the batch as two levels (a batch that
-    has more is launched on contiguous copies), and for the tiles each
-    operand's copy route by ``copy_width`` from its strides and address.
-    The one place the instance and the routes are chosen."""
+    has more is launched on contiguous copies); for the tiles each operand's
+    copy route by ``copy_width`` from its strides and address; for a short k
+    the long operand's layout by its strides (unit stride along the long
+    side, else along the inner batch level where the thin side is 1, else
+    "strided") and whether its rows start on 16 bytes. The one place the
+    instance, the routes and the layout are chosen."""
     *_, M, K = a.shape
     N = b.shape[-1]
     levels = _batch_levels(a, b)
@@ -221,6 +290,18 @@ def plan_of(a: torch.Tensor, b: torch.Tensor) -> Plan:
     levels = [(1, 0, 0)] * (2 - len(levels)) + levels
     G = levels[0][0] * levels[1][0]
     p = plan(G, M, N, K)
+    if p.instance == "short_k":
+        thin_m = p.thin == "m"
+        y, s_l, s_k = (b, b.stride(-1), b.stride(-2)) if thin_m else (a, a.stride(-2), a.stride(-1))
+        batch = [(n, sb if thin_m else sa) for n, sa, sb in levels]
+        T, L = (M, N) if thin_m else (N, M)
+        if s_l == 1:
+            layout = "n-major" if thin_m else "m-major"
+        else:
+            layout = "batch-major" if T == 1 and batch[1][0] > 1 and batch[1][1] == 1 else "strided"
+        aligned = (s_l == 1 and L % 4 == 0 and (thin_m or T == 1) and y.data_ptr() % 16 == 0
+                   and all(s % 4 == 0 for n, s in batch if n > 1) and (K <= 1 or s_k % 4 == 0))
+        return plan(G, M, N, K, layout=layout, aligned=aligned)
     if p.instance != "tiles":
         return p
     wa = copy_width(a.data_ptr(), M, K, a.stride(-2), a.stride(-1), [(n, sa) for n, sa, _ in levels])
@@ -266,6 +347,46 @@ def ctas(p: Plan, G: int, M: int, N: int, K: int):
                           tuple(range(S)))
 
 
+class SkRun(NamedTuple):
+    """A run of C a short-k CTA stores: ``n`` elements from element ``c``
+    of C (contiguous) ``step`` apart, by stores of ``store`` bytes."""
+
+    c: int
+    n: int
+    step: int
+    store: int
+
+
+class SkCta(NamedTuple):
+    """One CTA of the short-k instance's grid: its batch members, its span
+    of the long side and the runs of C it stores."""
+
+    g: range
+    l: range
+    runs: tuple
+
+
+def short_k_ctas(p: Plan, G: int, M: int, N: int):
+    """The CTAs of the short-k plan ``p`` for C (G, M, N), in the kernel's
+    order (tile = member group · spans + span), with the runs each stores:
+    a (member, t) pair's outputs over the span (a thin M's row of C, or a
+    thin N's column, T apart), or, batch-major, each member's row of a
+    32-wide chunk of the span."""
+    T, L = (M, N) if p.thin == "m" else (N, M)
+    spans = -(-L // p.span)
+    for tile in range(-(-G // p.members) * spans):
+        group, sp = divmod(tile, spans)
+        g0, l0 = group * p.members, sp * p.span
+        gs, ls = range(g0, min(G, g0 + p.members)), range(l0, min(L, l0 + p.span))
+        if p.sk_map == 2:
+            runs = [SkRun(g * L + lc, min(32, ls.stop - lc), 1, p.store) for lc in range(l0, ls.stop, 32) for g in gs]
+        elif p.thin == "m":
+            runs = [SkRun((g * T + t) * L + l0, len(ls), 1, p.store) for g in gs for t in range(T)]
+        else:
+            runs = [SkRun((g * L + l0) * T + t, len(ls), T, p.store) for g in gs for t in range(T)]
+        yield SkCta(gs, ls, tuple(runs))
+
+
 class _Call:
     """What one (shapes, strides, alignments) signature needs at each call:
     the output's shape, the counted key and plan, the C code's parameters;
@@ -290,9 +411,10 @@ class _Call:
         widths = {v: k for k, v in ROUTES.items()}
         p = self.plan = plan_of(a, b)
         self.key = (*self.shape, p.label)
-        self.params = (ctypes.c_longlong * 19)(G1, G2, M, N, K, sa1, sa2, a.stride(-2), a.stride(-1), sb1, sb2,
+        self.params = (ctypes.c_longlong * 23)(G1, G2, M, N, K, sa1, sa2, a.stride(-2), a.stride(-1), sb1, sb2,
                                                b.stride(-2), b.stride(-1), INSTANCES[p.instance], p.splits, p.ks,
-                                               widths.get(p.a_route, 1), widths.get(p.b_route, 1), p.tile_n)
+                                               widths.get(p.a_route, 1), widths.get(p.b_route, 1), p.tile_n,
+                                               int(p.thin == "n"), p.sk_map, p.members, p.span)
 
 
 _CALLS: dict = {}

@@ -79,9 +79,38 @@
 //   factored contraction's later factors): one warp a dot, each lane
 //   splitting its operands and summing the three products with FMAs in two
 //   float32 accumulators, then a butterfly over the warp;
-// - a short k with a thin side (K <= 16 and M or N below 16: the outer
-//   products of the factored contraction's backward, K = 1, batched over
-//   the B rows), one thread an output, the same FMAs.
+// - a short k with a thin side (K <= 16 and T = min(M, N) below 16: the
+//   outer products of the factored contraction's backward, K = 1, batched
+//   over the B rows; the flagship's factor-10 products, K = 10): each
+//   output by the same FMAs in the same order, k ascending, so that it
+//   keeps its bits whatever the tiling. Memory bound (a byte read or
+//   written for every 3 to 6 operations); the faults of the
+//   thread-an-output kernel it replaces, and what this one does:
+//   1. Index arithmetic. That kernel took each output's (g, m, n) from a
+//      flat 64-bit index and the batch level from g: six 64-bit divisions a
+//      4-byte result. Here a CTA takes `members` consecutive batch members
+//      by a span of the long side L (whole rows, or spans cut where the
+//      batch is too small to fill the SMs); it derives its tile once and
+//      each member's (g1, g2) once, in 32-bit arithmetic, and its warps
+//      walk the tile with fixed strides.
+//   2. The thin operand. Split once per (member, t, k) into shared memory,
+//      behind the tile's one barrier, not again for each of the L outputs
+//      it multiplies.
+//   3. Reads. The long operand is read along its unit stride: lanes along
+//      L (16 bytes a lane where its rows are aligned), or, where that
+//      stride is along the batch (the factor Ft of the backward, stride B
+//      along m), a lane a member (128-byte rows of 32 members), staged in a
+//      block of the warp's own, rows padded to 33 floats against bank
+//      conflicts, and written by rows of C.
+//   4. Stores. Coalesced, by rows of C: 16-byte stores where the rows are
+//      aligned (L % 4 == 0), 4-byte ones otherwise. No barrier stands
+//      between a warp's reads and its stores, so a wave of CTAs streams
+//      (reads and writes overlap) instead of reading all, then writing all
+//      (a block barrier there held the first design at 52 % of its bound),
+//      and a lane issues every load of a pass before its first product.
+//      Splitting the thin values in each warp's registers instead, with no
+//      barrier at all, measured slower at the champion's and the
+//      flagship's shapes (experiments/bf16x3_short_k.py).
 // blockIdx walks the batch (with a stride past the grid's limit), and the
 // batch may have two levels with strides of their own, so a broadcast or a
 // (G, B) batch of views needs no copy.
@@ -115,6 +144,14 @@ constexpr int kCPitch = kTile + 4;                      // floats a row of the s
 constexpr int kSmemBytes = kStages * kStageBytes + kSplitBufs * kSplitBytes + kStages * 8 + 1024;
 constexpr int kMaxGridY = 65535;
 constexpr int kDotWarps = 8;                            // warps of a dot-kernel CTA
+constexpr int kSkThreads = 256;                         // threads of a short-k CTA
+constexpr int kSkPitch = 33;                            // floats a row of a short-k warp's staged block (odd)
+constexpr int kSkMaxK = 16;                             // k of the short-k instance at most
+constexpr int kSkMaxThin = 15;                          // its thin side at most
+// a short-k CTA's shared memory at most: 32 members' offsets and thin splits (the warps' staged blocks of the
+// batch-major mapping, T = 1, take less than the thin splits of T = 15 do)
+constexpr int kSkSmemMax = 32 * 8 + 32 * kSkMaxThin * kSkMaxK * 8;
+static_assert(32 * 8 + 32 * kSkMaxK * 8 + kSkThreads / 32 * 32 * kSkPitch * 4 <= kSkSmemMax, "the staged blocks");
 static_assert(kTile * kCPitch * 4 <= kStages * kStageBytes, "the staged C tile lies over the ring");
 static_assert(kSmemBytes <= 232448, "227 KB a CTA");
 
@@ -602,29 +639,169 @@ __global__ void __launch_bounds__(kDotWarps * 32) bf16x3_dot_kernel(Operand A, O
   if (lane == 0) C[g] = hh + x;
 }
 
-// One thread an output: a short k (the outer products of the backward).
-__global__ void bf16x3_short_k_kernel(Operand A, Operand B, float* __restrict__ C, int G1, int G2, int M, int N,
-                                      int K) {
-  const long long mn = static_cast<long long>(M) * N;
-  const long long total = static_cast<long long>(G1) * G2 * mn;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long g = i / mn;
-    const int m = static_cast<int>((i % mn) / N), n = static_cast<int>(i % N);
-    const float* a = batch_base(A, g / G2, g % G2) + m * A.sr;
-    const float* b = batch_base(B, g / G2, g % G2) + n * B.sr;
-    float hh = 0.0f, x = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      __nv_bfloat16 ah, al, bh, bl;
-      split(__ldg(a + k * A.sk), ah, al);
-      split(__ldg(b + k * B.sk), bh, bl);
-      const float ahf = __bfloat162float(ah), alf = __bfloat162float(al);
-      const float bhf = __bfloat162float(bh), blf = __bfloat162float(bl);
-      hh = fmaf(ahf, bhf, hh);
-      x = fmaf(ahf, blf, x);
-      x = fmaf(alf, bhf, x);
+// --- the short-k instance ---
+
+// The tiling of the (batch x long side) plane, as the wrapper's plan chose it: T the thin side, L the long one;
+// a CTA takes `members` members by `span` of L (tiles = ceil(batch / members) * spans, the span fastest).
+struct ShortK {
+  long long batch, tiles;
+  int G2, T, L, K, members, span, spans;
+};
+
+__device__ __forceinline__ float bf16_hi(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// hh += a_hi b_hi; x += a_hi b_lo, then a_lo b_hi, for the long value v and the thin one split (th, tl): the FMAs of
+// the other instances. C = A B: with a thin N the long operand is A and the thin one B, else the other way round.
+template <bool kThinN>
+__device__ __forceinline__ void short_k_fma(float v, float th, float tl, float& hh, float& x) {
+  const float vh = bf16_hi(v), vl = bf16_hi(v - vh);
+  if (kThinN) {  // a = the long value, b = the thin one
+    hh = fmaf(vh, th, hh);
+    x = fmaf(vh, tl, x);
+    x = fmaf(vl, th, x);
+  } else {  // a = the thin value, b = the long one
+    hh = fmaf(th, vh, hh);
+    x = fmaf(th, vl, x);
+    x = fmaf(tl, vh, x);
+  }
+}
+
+// C (batch, M, N) for K <= 16 with a thin side: kThinN (T = N, the long side L = M) or not (T = M, L = N); kK1:
+// K == 1. A CTA splits its members' thin values once into shared memory ([member][t][k], hi then lo, after each
+// member's batch offset into the long operand), then its warps stream, with no barrier between their reads and their
+// stores; each lane issues all loads of a pass (every k) before its first product (k ascending in every output).
+// kMap 0: lanes along L, a warp a (member, t) pair (8 / pairs warps a pair where there are fewer than 8), 8 l's a
+// lane a pass (2 where K > 1), each output stored where it is computed; 1: the same, 2 x 4 consecutive l's a lane (4
+// where K > 1), 16-byte loads and stores; 2 (T = 1, 32 members, the long operand's unit stride along the batch): a
+// warp a chunk of 32 l's of every member, a lane a member (128-byte rows read), staged in the warp's own block (rows
+// of kSkPitch floats, odd: no bank conflict) and written by rows of C (16-byte stores where L % 4 == 0).
+template <bool kThinN, int kMap, bool kK1>
+__global__ void __launch_bounds__(kSkThreads) bf16x3_short_k_kernel(Operand A, Operand B, float* __restrict__ C,
+                                                                    ShortK p) {
+  extern __shared__ float4 sk_smem[];
+  constexpr int kKs = kK1 ? 1 : kSkMaxK;  // k's loaded ahead, each guarded by k < K
+  constexpr int kWarps = kSkThreads / 32;
+  const int T = p.T, K = kK1 ? 1 : p.K, tk = T * K;
+  long long* y_off = reinterpret_cast<long long*>(sk_smem);
+  float* x_hi = reinterpret_cast<float*>(y_off + p.members);
+  float* x_lo = x_hi + p.members * tk;
+  const Operand X = kThinN ? B : A;  // the thin operand: its rows are the thin side
+  const Operand Y = kThinN ? A : B;  // the long one
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int group = static_cast<int>(tile / p.spans);
+    const int g0 = group * p.members, nm = min(p.members, static_cast<int>(p.batch - g0));
+    const int l0 = static_cast<int>(tile - static_cast<long long>(group) * p.spans) * p.span;
+    const int l1 = min(p.L, l0 + p.span);
+    __syncthreads();  // every warp is done with the previous tile's thin values
+    // each member's batch level once (its offset into the long operand); the thin operand split once per
+    // (member, t, k)
+    const int per = max(tk, 1);  // K = 0: no thin value (every output 0), the offsets all the same
+    for (int i = t; i < nm * per; i += kSkThreads) {
+      const int gl = i / per, r = i - gl * per, g = g0 + gl, g1 = g / p.G2, g2 = g - g1 * p.G2;
+      if (r == 0) y_off[gl] = g1 * Y.s1 + g2 * Y.s2;
+      if (tk > 0) {
+        const int tt = r / K, k = r - tt * K;
+        const float v = __ldg(X.p + g1 * X.s1 + g2 * X.s2 + tt * X.sr + k * X.sk), hi = bf16_hi(v);
+        x_hi[i] = hi;
+        x_lo[i] = bf16_hi(v - hi);
+      }
     }
-    C[i] = hh + x;
+    __syncthreads();
+    if constexpr (kMap < 2) {
+      constexpr int kV = kMap == 1 ? 4 : 1;                                  // l's a load
+      constexpr int kU = kK1 ? (kMap == 1 ? 2 : 8) : (kMap == 1 ? 1 : 2);  // loads a lane a pass and a k
+      const int pairs = nm * T, W = max(1, kWarps / pairs), step = kV * 32 * W;
+      for (int q = warp / W; q < pairs; q += kWarps / W) {
+        const int gl = q / T, tt = q - gl * T;
+        const float* y = Y.p + y_off[gl];
+        const float *xh = x_hi + gl * tk + tt * K, *xl = x_lo + gl * tk + tt * K;
+        // C's element (g, t, l): ((g T + t) L + l) for a thin M, ((g L + l) T + t) for a thin N
+        float* c = C + (kThinN ? static_cast<long long>(g0 + gl) * p.L * T + tt
+                               : (static_cast<long long>(g0 + gl) * T + tt) * p.L);
+        for (int l = l0 + kV * (lane + 32 * (warp % W)); l < l1; l += kU * step) {
+          float v[kKs][kU][kV];  // every load of the pass issued before the first product
+#pragma unroll
+          for (int k = 0; k < kKs; ++k) {
+            if (!kK1 && k >= K) break;
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int lu = l + u * step;
+              if constexpr (kV == 4) {
+                const float4 f = lu < l1 ? __ldg(reinterpret_cast<const float4*>(y + lu + k * Y.sk))
+                                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                v[k][u][0] = f.x, v[k][u][1] = f.y, v[k][u][2] = f.z, v[k][u][3] = f.w;
+              } else {
+                v[k][u][0] = lu < l1 ? __ldg(y + lu * Y.sr + k * Y.sk) : 0.0f;
+              }
+            }
+          }
+          float hh[kU][kV] = {}, x[kU][kV] = {};
+#pragma unroll
+          for (int k = 0; k < kKs; ++k) {
+            if (!kK1 && k >= K) break;
+#pragma unroll
+            for (int u = 0; u < kU; ++u)
+#pragma unroll
+              for (int j = 0; j < kV; ++j) short_k_fma<kThinN>(v[k][u][j], xh[k], xl[k], hh[u][j], x[u][j]);
+          }
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            const int lu = l + u * step;
+            if (lu >= l1) continue;
+            if constexpr (kV == 4) {
+              *reinterpret_cast<float4*>(c + lu) = make_float4(hh[u][0] + x[u][0], hh[u][1] + x[u][1],
+                                                               hh[u][2] + x[u][2], hh[u][3] + x[u][3]);
+            } else {
+              c[kThinN ? static_cast<long long>(lu) * T : lu] = hh[u][0] + x[u][0];
+            }
+          }
+        }
+      }
+    } else {
+      float* blk = x_lo + p.members * tk + warp * 32 * kSkPitch;  // this warp's staged block, a row a member
+      const bool live = lane < nm;
+      const float* y = Y.p + y_off[live ? lane : 0];
+      const float *xh = x_hi + (live ? lane : 0) * K, *xl = x_lo + (live ? lane : 0) * K;
+      for (int lc = l0 + 32 * warp; lc < l1; lc += 32 * kWarps) {
+        const int nlc = min(32, l1 - lc);
+        constexpr int kR = kK1 ? 8 : 2;  // l's a group: 8 or 32 floats loaded ahead
+#pragma unroll
+        for (int rb = 0; rb < 32; rb += kR) {
+          float v[kKs][kR];
+#pragma unroll
+          for (int k = 0; k < kKs; ++k) {
+            if (!kK1 && k >= K) break;
+#pragma unroll
+            for (int u = 0; u < kR; ++u)
+              v[k][u] = live && rb + u < nlc ? __ldg(y + (lc + rb + u) * Y.sr + k * Y.sk) : 0.0f;
+          }
+          float hh[kR] = {}, x[kR] = {};
+#pragma unroll
+          for (int k = 0; k < kKs; ++k) {
+            if (!kK1 && k >= K) break;
+#pragma unroll
+            for (int u = 0; u < kR; ++u) short_k_fma<kThinN>(v[k][u], xh[k], xl[k], hh[u], x[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kR; ++u) blk[lane * kSkPitch + rb + u] = hh[u] + x[u];
+        }
+        __syncwarp();
+        float* c = C + static_cast<long long>(g0) * p.L + lc;  // member m's row at c + m L
+        if ((p.L & 3) == 0) {  // C's rows start on 16 bytes
+          const int j = 4 * (lane % 8);
+          for (int m = lane / 8; m < nm; m += 4) {
+            const float* b = blk + m * kSkPitch + j;
+            if (j < nlc)
+              *reinterpret_cast<float4*>(c + static_cast<long long>(m) * p.L + j) = make_float4(b[0], b[1], b[2], b[3]);
+          }
+        } else {
+          for (int m = 0; m < nm; ++m)
+            if (lane < nlc) c[static_cast<long long>(m) * p.L + lane] = blk[m * kSkPitch + lane];
+        }
+        __syncwarp();  // the block is read before the next chunk writes it
+      }
+    }
   }
 }
 
@@ -709,14 +886,35 @@ cudaError_t launch_tiles(const CUtensorMap& ma, const CUtensorMap& mb, const Ope
   return cudaLaunchKernelEx(&cfg, kernel, ma, mb, a, b, c, G2, M, N, K, ks, tiles_m, tiles_n, tiles);
 }
 
+template <bool kThinN, int kMap, bool kK1>
+cudaError_t launch_short_k(const Operand& a, const Operand& b, float* c, const ShortK& p, int smem,
+                           cudaStream_t stream) {
+  static unsigned ready = 0;  // devices whose function attribute is set: once, at the first (eager) call
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto kernel = bf16x3_short_k_kernel<kThinN, kMap, kK1>;
+  if (dev >= 32 || !(ready & (1u << dev))) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSkSmemMax);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) ready |= 1u << dev;
+  }
+  const unsigned grid = static_cast<unsigned>(p.tiles < 0x7fffffffLL ? p.tiles : 0x7fffffffLL);
+  kernel<<<grid, kSkThreads, smem, stream>>>(a, b, c, p);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // C (G1 * G2, M, N), contiguous, = op(A) op(B) with A's element (g1, g2, m, k) at A + g1 sA1 + g2 sA2 + m sAm +
 // k sAk and B's (g1, g2, k, n) at B + g1 sB1 + g2 sB2 + k sBk + n sBn (strides in elements; a batch stride may be
 // 0). `params` (host memory, read before the launch): G1, G2, M, N, K, sA1, sA2, sAm, sAk, sB1, sB2, sBk, sBn,
-// instance (0: the tiles, 1: a warp a dot, M = N = 1; 2: a thread an output), S (the tiles' k ranges, a cluster
-// of S CTAs, 1..8), ks (k a range, a multiple of 32; S * ks >= K > (S - 1) * ks), A's and B's copy routes (0: TMA,
-// else floats a cp.async copy: 1, 2 or 4), the tiles' columns (128 or 64). Launches on `stream` without
+// instance (0: the tiles, 1: a warp a dot, M = N = 1; 2: a short k), S (the tiles' k ranges, a cluster of S CTAs,
+// 1..8), ks (k a range, a multiple of 32; S * ks >= K > (S - 1) * ks), A's and B's copy routes (0: TMA, else floats
+// a cp.async copy: 1, 2 or 4), the tiles' columns (128 or 64); the short k's thin side (0: M, 1: N; at most 15, K at
+// most 16), its mapping (0: lanes along the long side; 1: the same by 16 bytes, where the long operand has unit
+// stride along it and every row base of it and of C is 16-byte aligned; 2: lanes along the batch, T = 1, 32
+// members), members a CTA (a power of two to 32), the span of the long side a CTA. Launches on `stream` without
 // synchronising and returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue, nothing launched, for
 // parameters the kernel cannot take or a tensor map the driver refuses). The caller has made the tensors' device
 // current.
@@ -734,16 +932,37 @@ extern "C" int zigp_bf16x3_mm_f32(const void* A, const void* B, void* C, const l
             static_cast<int>(params[17])};
   auto* c = static_cast<float*>(C);
   auto s = static_cast<cudaStream_t>(stream);
-  const long long total = batch * M * N;
   if (instance == 1) {
     if (M != 1 || N != 1) return static_cast<int>(cudaErrorInvalidValue);
     const long long blocks = (batch + kDotWarps - 1) / kDotWarps;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     bf16x3_dot_kernel<<<static_cast<unsigned>(blocks), kDotWarps * 32, 0, s>>>(a, b, c, G1, G2, K);
   } else if (instance == 2) {
-    const long long blocks = (total + 255) / 256;
-    bf16x3_short_k_kernel<<<static_cast<unsigned>(blocks < 132LL * 32 ? blocks : 132LL * 32), 256, 0, s>>>(
-        a, b, c, G1, G2, M, N, K);
+    const int thin_n = static_cast<int>(params[19]), map = static_cast<int>(params[20]);
+    const int members = static_cast<int>(params[21]), span = static_cast<int>(params[22]);
+    const int T = thin_n ? N : M, L = thin_n ? M : N;
+    const Operand& y = thin_n ? a : b;  // the long operand
+    // the 16-byte route: 4 consecutive l's on unit stride, every base of the long operand's and of C's rows aligned
+    const bool aligned = y.sr == 1 && ((reinterpret_cast<uintptr_t>(y.p) | reinterpret_cast<uintptr_t>(c)) & 15) == 0 &&
+                         (G1 == 1 || y.s1 % 4 == 0) && (G2 == 1 || y.s2 % 4 == 0) && (K <= 1 || y.sk % 4 == 0) &&
+                         L % 4 == 0 && span % 4 == 0 && (!thin_n || T == 1);
+    if ((thin_n != 0 && thin_n != 1) || map < 0 || map > 2 || K > kSkMaxK || T > kSkMaxThin ||
+        batch > 0x7fffffffLL || members < 1 || members > 32 || (members & (members - 1)) || span < 1 || span > L ||
+        (map == 1 && !aligned) || (map == 2 && (T != 1 || members != 32)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int spans = (L + span - 1) / span;
+    const ShortK p{batch, (batch + members - 1) / members * spans, G2, T, L, K, members, span, spans};
+    const int smem = members * 8 * (1 + T * K) + (map == 2 ? kSkThreads / 32 * 32 * kSkPitch * 4 : 0);
+    using Launch = cudaError_t (*)(const Operand&, const Operand&, float*, const ShortK&, int, cudaStream_t);
+    static const Launch launches[2][3][2] = {
+        {{launch_short_k<false, 0, false>, launch_short_k<false, 0, true>},
+         {launch_short_k<false, 1, false>, launch_short_k<false, 1, true>},
+         {launch_short_k<false, 2, false>, launch_short_k<false, 2, true>}},
+        {{launch_short_k<true, 0, false>, launch_short_k<true, 0, true>},
+         {launch_short_k<true, 1, false>, launch_short_k<true, 1, true>},
+         {launch_short_k<true, 2, false>, launch_short_k<true, 2, true>}}};
+    const cudaError_t err = launches[thin_n][map][K == 1](a, b, c, p, smem, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else if (instance == 0) {
     if (S < 1 || S > kMaxCluster || ks < kChunk || ks % kChunk != 0 || static_cast<long long>(S) * ks < K ||
         (S > 1 && static_cast<long long>(S - 1) * ks >= K))
