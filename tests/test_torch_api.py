@@ -280,6 +280,8 @@ EXCEPTIONS = {
     "training/batched:unstack_pytree": "renamed unstack_model",
     "training:stack_pytrees": "renamed stack_models",
     "training:unstack_pytree": "renamed unstack_model",
+    "utils/profiling:StepTimer": "removed: no path of the port used it; its tools time through experiments.measure",
+    "utils/profiling:time_fn": "removed: no path of the port used it; its tools time through experiments.measure",
     "utils/xprof:Plane": "an XSpace protobuf plane; the port reads torch-profiler Chrome traces",
     "utils/xprof:find_xplane_files": "XSpace files are the TPU profiler's; the port reads Chrome traces",
     "utils/xprof:load_xspace": "XSpace files are the TPU profiler's; the port reads Chrome traces",

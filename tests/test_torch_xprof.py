@@ -1,5 +1,5 @@
 """The port's trace reader (``utils/xprof.py``) and profiling helpers
-(``utils/profiling.py``), on the CPU.
+(``utils/profiling.trace``), on the CPU.
 
 The JAX package's reader decodes XSpace protobuf; the port's reads the
 Chrome-trace JSON ``torch.profiler`` writes, so there is no JAX output to
@@ -14,8 +14,7 @@ hold it against. Held here:
   on a handmade trace and on a real ``torch.profiler`` trace of a small
   model written by ``profiling.trace``;
 - ``op_category`` on kernel names of the kinds a card's trace holds;
-- ``profile_predict.summarize``'s aggregation is xprof's (the same records);
-- ``time_fn`` and ``StepTimer``.
+- ``profile_predict.summarize``'s aggregation is xprof's (the same records).
 """
 
 import json
@@ -116,6 +115,19 @@ def test_cpu_operators_are_counted_by_self_time(tmp_path):
     assert s["total_us"] == 113.0 and s["by_category"]["gemm"] == 40.0
 
 
+def test_the_program_spans_are_not_cpu_operators(tmp_path):
+    """A ``zigp.*`` span around operators adds no self time of its own and
+    takes none from them."""
+    events = [_x("aten::linear", "cpu_op", 100.0, 10.0), _x("aten::addmm", "cpu_op", 60.0, 20.0)]
+    spans = [_x("zigp.train.block", "cpu_op", 200.0, 0.0), _x("zigp.train.replay", "cpu_op", 120.0, 5.0)]
+    (tmp_path / "plain").mkdir()
+    (tmp_path / "spans").mkdir()
+    plain = xprof.summarize_trace(_write(tmp_path / "plain", events))
+    s = xprof.summarize_trace(_write(tmp_path / "spans", events + spans))
+    assert s["by_op"] == plain["by_op"] == {"aten::addmm": 60.0, "aten::linear": 40.0}
+    assert s["total_us"] == 100.0
+
+
 def test_a_real_cpu_trace_of_a_model_step(tmp_path):
     model = torch.nn.Sequential(torch.nn.Linear(32, 64), torch.nn.Tanh(), torch.nn.Linear(64, 1))
     x = torch.randn(128, 32)
@@ -153,13 +165,3 @@ def test_profile_predict_summarize_uses_the_same_aggregation():
     assert [r["name"] for r in s["top"]] == ["chol_inv_kernel", "gemm_kernel"] and s["top"][0]["calls"] == 3
     assert s["annotations"] == [{"name": "Optimizer.step#Adam.step", "device_ms": 0.09, "calls": 1}]
 
-
-def test_time_fn_and_step_timer():
-    calls = []
-    sec, out = profiling.time_fn(lambda a: calls.append(a) or a + 1, 1, warmup=2, iters=5)
-    assert out == 2 and len(calls) == 7 and sec >= 0
-    timer = profiling.StepTimer()
-    assert timer.tick(torch.zeros(1)) == 0.0
-    time.sleep(0.01)
-    rate = timer.tick()
-    assert timer.steps == 1 and 0 < rate < 200

@@ -58,6 +58,7 @@ from ..training import (
 )
 from ..utils import metrics
 from ..utils.logging import MetricLogger
+from ..utils.profiling import span
 from .builders import (
     binarize_targets,
     build_classifier_pptr,
@@ -350,14 +351,17 @@ def predict_batched(
     storage (``model.to``) makes the next call capture again. What the
     function runs is fixed at the capture: to predict with another code path
     (a flag, a patched route), use another model object. A failed capture
-    raises."""
+    raises. Under a recording ``torch.profiler`` the call is the span
+    ``zigp.serve.call`` and its parts are spans of their own
+    (``utils.profiling``)."""
     device = resolve_device(device)
     N = X.shape[0]
     if N == 0:
         return {}
     on_card = device.type == "cuda"
-    with torch.inference_mode():
-        Xd = torch.as_tensor(np.asarray(X), dtype=dtype).to(device)
+    with span("serve.call"), torch.inference_mode():
+        with span("serve.rows_in"):
+            Xd = torch.as_tensor(np.asarray(X), dtype=dtype).to(device)
         cached = None
         if on_card:
             owner, key = _owner_and_key(predict_fn, batch, Xd, dtype, device)
@@ -383,43 +387,47 @@ def predict_batched(
 
         joined = lambda d, names: torch.cat([d[k] for k in names], dim=-1)
         first_end = 0
-        if cached is None:
-            n = stage(0)
-            if on_card:
-                from ..ops.cuda.graphs import on_side_stream
+        out = names = None
+        if cached is not None:
+            names, widths = cached.names, cached.widths
+            out = torch.empty((N, cached.static.shape[-1]), dtype=cached.static.dtype, device=device)
+        elif on_card:
+            with span("serve.capture"):
+                from ..ops.cuda.graphs import CountedGraph, on_side_stream
 
+                n = stage(0)
                 first = on_side_stream(fields)
-            else:
-                first = fields()
-            names = list(first)
-            widths = [first[k].shape[-1] for k in names]
-            head = joined(first, names)
-            out = torch.empty((N, head.shape[-1]), dtype=head.dtype, device=device)
-            out[:n].copy_(head[:n])
-            first_end = batch
-            del first, head
-            if on_card:
-                from ..ops.cuda.graphs import CountedGraph
-
+                names = list(first)
+                widths = [first[k].shape[-1] for k in names]
+                head = joined(first, names)
+                out = torch.empty((N, head.shape[-1]), dtype=head.dtype, device=device)
+                out[:n].copy_(head[:n])
+                first_end = batch
+                del first, head
                 graph = CountedGraph()
                 with graph.capture():
                     static = joined(fields(), names)
                 cached = graphs[key] = ChunkGraph(graph, chunk, static, names, widths, _storage(owner))
-        else:
-            names, widths = cached.names, cached.widths
-            out = torch.empty((N, cached.static.shape[-1]), dtype=cached.static.dtype, device=device)
-        if cached is not None:
-            def run():
-                cached.graph.replay()
-                return cached.static
-        else:
-            run = lambda: joined(fields(), names)
-        for start in range(first_end, N, batch):
-            n = stage(start)
-            out[start : start + n].copy_(run()[:n])
-        host = out.cpu().numpy()
-    cols = np.cumsum([0] + widths)
-    return {k: host[:, cols[i] : cols[i + 1]] for i, k in enumerate(names)}
+
+        with span("serve.chunks"):
+            for start in range(first_end, N, batch):
+                with span("serve.chunk"):
+                    n = stage(start)
+                    if cached is not None:
+                        cached.graph.replay()
+                        res = cached.static
+                    else:  # no graph: every chunk eager, the result sized by the first
+                        first = fields()
+                        names = names or list(first)
+                        widths = [first[k].shape[-1] for k in names]
+                        res = joined(first, names)
+                        if out is None:
+                            out = torch.empty((N, res.shape[-1]), dtype=res.dtype, device=device)
+                    out[start : start + n].copy_(res[:n])
+        with span("serve.fields_out"):
+            host = out.cpu().numpy()
+            cols = np.cumsum([0] + widths)
+            return {k: host[:, cols[i] : cols[i + 1]] for i, k in enumerate(names)}
 
 
 # --- the experiment runners ---------------------------------------------------

@@ -37,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .loop import FitResult, block_for_interrupt, make_train_step, save_final
 
 # Eager steps before a capture (real steps of the run): at least one block.
@@ -325,7 +326,11 @@ def fit_scanned(
     losses every rank reads are summed over the data group, so every rank
     takes the same branches; rank 0 alone writes the checkpoints and the
     metrics. Under gloo the blocks run eagerly (its collectives cannot be
-    captured); under NCCL a block is one replay, its all-reduces inside."""
+    captured); under NCCL a block is one replay, its all-reduces inside.
+
+    Under a recording ``torch.profiler`` each block is the span
+    ``zigp.train.block`` and its parts are spans of their own
+    (``utils.profiling``); none is opened inside a captured body."""
     if sampler not in ("host", "device"):
         raise ValueError(f"fit_scanned: unknown sampler {sampler!r}")
     if mesh is None and mesh_tp:
@@ -380,7 +385,8 @@ def fit_scanned(
     hist = metric_logger is not None and hist_every
 
     if ckpt_manager is not None and _agree(mesh, ckpt_manager.latest_step() is None):
-        ckpt_manager.save_at(start_step, model, optimizer)
+        with span("train.checkpoint"):
+            ckpt_manager.save_at(start_step, model, optimizer)
 
     # ceil: never train fewer steps than asked (the JAX package's rule)
     num_blocks = max(1, -(-num_iter // num_inner))
@@ -393,88 +399,105 @@ def fit_scanned(
     block_losses = None
     try:
         for b in range(num_blocks):
-            restored_this_block = False
-            in_block = True
-            blocks.fill(start_step // num_inner + b)
-            block_losses = runner()
-            all_losses.append(block_losses)
-            prev_steps = steps_done
-            steps_done += num_inner
-            in_block = False
-            capture = runner.wants_capture and b + 1 < num_blocks  # only for blocks to come
-            if b == 0 or capture:
-                float(block_losses[-1])  # waits: the first block and the capture are not timed
-                if capture:
-                    log_fn(f"step {steps_done:>8d}  block graph of {num_inner} steps: {runner.capture().graph.describe()}")
-                t_start = time.perf_counter()
-                timed_steps = 0
-            else:
-                timed_steps += num_inner
-
-            is_log = log_every_blocks and b % log_every_blocks == 0
-            ckpt_due = ckpt_manager is not None and ckpt_manager.crossed(prev_steps, steps_done)
-            # The host waits on the card only where it needs the value: at
-            # log points and checkpoint boundaries (never checkpoint
-            # unverified state). NaN recovery rides on those syncs.
-            if is_log or ckpt_due:
-                last = float(block_losses[-1])
-                if not np.isfinite(last):
-                    log_fn(f"step {steps_done:>8d}  NON-FINITE loss")
-                    if ckpt_manager is not None and recover_on_nan:
-                        restored = ckpt_manager.restore_latest(model, optimizer)
-                        if restored is not None:
-                            restored_this_block = True
-                            log_fn(f"restored from checkpoint at step {restored[2]}")
-                    continue
-                if ckpt_due:
-                    ckpt_manager.save_at(steps_done, model, optimizer)
-                if is_log:
-                    losses.append(last)
-                    log_fn(f"step {steps_done:>8d}  loss {last:.6f}")
-                    if metric_logger is not None:
-                        scalars = {"loss": last, "elbo": -last}
-                        if kl_fn is not None:
-                            with torch.no_grad():
-                                kl = float(kl_fn())
-                            scalars["kl"] = kl
-                            scalars["var_exp"] = kl - last  # elbo = var_exp - kl
-                        metric_logger.log(steps_done, scalars=scalars)
-            if hist and (prev_steps // hist_every) != (steps_done // hist_every):
-                if sampler == "device":
-                    bx, by = data.next_batch(batch_size)
-                    hX = torch.as_tensor(bx[blocks.rows], dtype=p0.dtype).to(p0.device)
-                    hY = torch.as_tensor(by[blocks.rows], dtype=p0.dtype).to(p0.device)
+            with span("train.block"):
+                restored_this_block = False
+                in_block = True
+                with span("train.fill"):
+                    blocks.fill(start_step // num_inner + b)
+                with span("train.replay" if runner.graphed is not None else "train.eager"):
+                    block_losses = runner()
+                all_losses.append(block_losses)
+                prev_steps = steps_done
+                steps_done += num_inner
+                in_block = False
+                capture = runner.wants_capture and b + 1 < num_blocks  # only for blocks to come
+                if b == 0 or capture:
+                    with span("train.sync"):
+                        float(block_losses[-1])  # waits: the first block and the capture are not timed
+                    if capture:
+                        with span("train.capture"):
+                            described = runner.capture().graph.describe()
+                        log_fn(f"step {steps_done:>8d}  block graph of {num_inner} steps: {described}")
+                    t_start = time.perf_counter()
+                    timed_steps = 0
                 else:
-                    hX, hY = blocks.Xs[-1], blocks.Ys[-1]
-                grads = _all_grads(model, loss, hX, hY)
-                if mesh is not None:  # this rank's share, summed over the data group
-                    for g in grads.values():
-                        mesh.all_reduce_data(g)
-                metric_logger.log_param_tree(steps_done, model, prefix="param")
-                metric_logger.log_param_tree(steps_done, grads, prefix="grad")
-            if callback is not None and callback_every and (prev_steps // callback_every) != (steps_done // callback_every):
-                callback(steps_done, model)
+                    timed_steps += num_inner
+
+                is_log = log_every_blocks and b % log_every_blocks == 0
+                ckpt_due = ckpt_manager is not None and ckpt_manager.crossed(prev_steps, steps_done)
+                # The host waits on the card only where it needs the value: at
+                # log points and checkpoint boundaries (never checkpoint
+                # unverified state). NaN recovery rides on those syncs.
+                if is_log or ckpt_due:
+                    with span("train.sync"):
+                        last = float(block_losses[-1])
+                    if not np.isfinite(last):
+                        log_fn(f"step {steps_done:>8d}  NON-FINITE loss")
+                        if ckpt_manager is not None and recover_on_nan:
+                            with span("train.checkpoint"):
+                                restored = ckpt_manager.restore_latest(model, optimizer)
+                            if restored is not None:
+                                restored_this_block = True
+                                log_fn(f"restored from checkpoint at step {restored[2]}")
+                        continue
+                    if ckpt_due:
+                        with span("train.checkpoint"):
+                            ckpt_manager.save_at(steps_done, model, optimizer)
+                    if is_log:
+                        with span("train.log"):
+                            losses.append(last)
+                            log_fn(f"step {steps_done:>8d}  loss {last:.6f}")
+                            if metric_logger is not None:
+                                scalars = {"loss": last, "elbo": -last}
+                                if kl_fn is not None:
+                                    with torch.no_grad():
+                                        kl = float(kl_fn())
+                                    scalars["kl"] = kl
+                                    scalars["var_exp"] = kl - last  # elbo = var_exp - kl
+                                metric_logger.log(steps_done, scalars=scalars)
+                if hist and (prev_steps // hist_every) != (steps_done // hist_every):
+                    with span("train.log"):
+                        if sampler == "device":
+                            bx, by = data.next_batch(batch_size)
+                            hX = torch.as_tensor(bx[blocks.rows], dtype=p0.dtype).to(p0.device)
+                            hY = torch.as_tensor(by[blocks.rows], dtype=p0.dtype).to(p0.device)
+                        else:
+                            hX, hY = blocks.Xs[-1], blocks.Ys[-1]
+                        grads = _all_grads(model, loss, hX, hY)
+                        if mesh is not None:  # this rank's share, summed over the data group
+                            for g in grads.values():
+                                mesh.all_reduce_data(g)
+                        metric_logger.log_param_tree(steps_done, model, prefix="param")
+                        metric_logger.log_param_tree(steps_done, grads, prefix="grad")
+                if callback is not None and callback_every and (prev_steps // callback_every) != (steps_done // callback_every):
+                    with span("train.callback"):
+                        callback(steps_done, model)
     except KeyboardInterrupt as ki:
         # The reference's Ctrl-C breaks the loop and saves, so a manual stop
         # is resumable; the result says so, so multi-run callers abort.
         block_for_interrupt(model, log_fn, ki, mid_step=in_block)
         log_fn(f"interrupted at step {steps_done} — checkpointing for resume")
         if ckpt_manager is not None:
-            last = float(block_losses[-1]) if steps_done > start_step else 0.0
+            with span("train.sync"):
+                last = float(block_losses[-1]) if steps_done > start_step else 0.0
             if np.isfinite(last):
-                ckpt_manager.save_at(steps_done, model, optimizer)
+                with span("train.checkpoint"):
+                    ckpt_manager.save_at(steps_done, model, optimizer)
             else:
                 log_fn("interrupt state is non-finite — not checkpointed")
         elapsed = max(time.perf_counter() - t_start, 1e-12)
+        with span("train.sync"):
+            step_losses = torch.cat(all_losses).cpu() if all_losses else None
         return FitResult(
             model=model,
             optimizer=optimizer,
             losses=losses,
             steps_per_sec=timed_steps / elapsed if timed_steps else 0.0,
             interrupted=True,
-            step_losses=torch.cat(all_losses).cpu() if all_losses else None,
+            step_losses=step_losses,
         )
-    step_losses = torch.cat(all_losses).cpu()  # waits for the device
+    with span("train.sync"):
+        step_losses = torch.cat(all_losses).cpu()  # waits for the device
     elapsed = max(time.perf_counter() - t_start, 1e-12)
     # One final check closes the silent-NaN window: with no log points and
     # no checkpoints nothing above read a loss.
@@ -484,7 +507,8 @@ def fit_scanned(
             f"fit_scanned finished at step {steps_done} with a non-finite loss ({final_loss}); the trained "
             "state is unusable. Enable checkpointing (ckpt_manager) to get NaN recovery mid-run."
         )
-    save_final(ckpt_manager, steps_done, restored_this_block, model, optimizer, log_fn, mesh=mesh)
+    with span("train.checkpoint"):
+        save_final(ckpt_manager, steps_done, restored_this_block, model, optimizer, log_fn, mesh=mesh)
     return FitResult(
         model=model,
         optimizer=optimizer,

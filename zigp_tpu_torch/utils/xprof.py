@@ -11,7 +11,9 @@ span kernels that are counted on their own, so they are reported apart and
 never summed, as the JAX reader keeps control and async events apart. A
 trace with no device events (a CPU run) is summarised by its operators'
 self time (each ``cpu_op``'s duration less its nested operators'), which
-counts every busy microsecond of a thread once.
+counts every busy microsecond of a thread once; the program's own spans
+(``profiling.span``, ``cpu_op`` events named ``zigp.*``) enclose operators
+and are left out.
 
 One aggregation serves both sources: ``summarize_events`` over
 (name, category, µs, calls) records, fed by ``trace_records`` (a trace
@@ -30,7 +32,7 @@ import os
 from collections import defaultdict
 from typing import Dict, Iterable, List, NamedTuple
 
-from .profiling import TRACE_SUFFIX
+from .profiling import SPAN_PREFIX, TRACE_SUFFIX
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OVERLAPPING_CATS = ("gpu_user_annotation",)
@@ -91,10 +93,10 @@ def op_category(name: str) -> str:
 
 def _self_times(events: List[dict]) -> Iterable[Record]:
     """Each ``cpu_op``'s self time: its duration less its direct children's
-    on the same thread."""
+    on the same thread; the program's spans left out."""
     by_thread = defaultdict(list)
     for e in events:
-        if e.get("cat") == "cpu_op":
+        if e.get("cat") == "cpu_op" and not str(e.get("name", "")).startswith(SPAN_PREFIX):
             by_thread[(e.get("pid"), e.get("tid"))].append(e)
     for evs in by_thread.values():
         evs.sort(key=lambda e: (float(e["ts"]), -float(e.get("dur", 0.0))))
