@@ -1645,3 +1645,95 @@ def test_bf16x3_short_k_member_keeps_its_bits(cuda, layout):
     c = bx.bf16x3_mm_cuda(a, b)
     for f in range(5):
         assert torch.equal(c[f], bx.bf16x3_mm_cuda(a[f], b[f])), f
+
+
+
+# --- the exact float32 product of the batch-reducing shapes with k split (ops/split_k.py) ---
+
+
+def _split_operands(cuda, name, g):
+    """(a, b) of a batch-reducing product as the path lays it out: the grid's
+    dw = K_mn,s·dt (the (2, 105, B) factor by a contiguous (2, B, 250)) and
+    dL_p⁻¹ = dV·K_mn,pᵀ with dV contiguous or m-contiguous, at B = 8192; the
+    champion's at B = 4000."""
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    B = 8192
+    return {"grid dw": lambda: (r(2, 105, B), r(2, B, 250)),
+            "grid dLinv 250": lambda: (r(2, 250, B), r(2, 250, B).mT),
+            "grid dLinv 250 m-contiguous": lambda: (r(2, B, 250).mT, r(2, 250, B).mT),
+            "grid dLinv 105": lambda: (r(2, 105, B), r(2, 105, B).mT),
+            "grid dLinv 105 m-contiguous": lambda: (r(2, B, 105).mT, r(2, 105, B).mT),
+            "champion dw": lambda: (r(2, 32, 4000), r(2, 4000, 200)),
+            "champion dLinv 200": lambda: (r(2, 200, 4000), r(2, 200, 4000).mT)}[name]()
+
+
+SPLIT_CASES = ["grid dw", "grid dLinv 250", "grid dLinv 250 m-contiguous", "grid dLinv 105",
+               "grid dLinv 105 m-contiguous", "champion dw", "champion dLinv 200"]
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_k_matches_float64_with_the_same_bits_twice(cuda, name):
+    """The split product at the grid's and the champion's products, in the
+    path's layouts, within (K // S + S)·2⁻²⁴·Σ|a||b| of float64, and the same
+    bits on a second call."""
+    from zigp_tpu_torch.ops import split_k as sk
+
+    a, b = _split_operands(cuda, name, torch.Generator(device=cuda).manual_seed(len(name)))
+    c = sk.split_k_mm(a, b)
+    K = a.shape[-1]
+    exact = a.double() @ b.double()
+    bound = (K // sk.SPLITS + sk.SPLITS) * 2.0**-24 * (a.double().abs() @ b.double().abs())
+    assert c.shape == exact.shape and torch.all((c.double() - exact).abs() <= bound), name
+    assert torch.equal(c, sk.split_k_mm(a, b)), name
+
+
+def test_bdot_highest_forward_bits_and_split_backward(cuda, monkeypatch):
+    """Under "highest", ``bdot`` on CUDA float32 tensors that need a gradient:
+    the forward is the bits of ``a @ b``; the backward splits dL⁻¹ = dV·K_mnᵀ
+    (within its float64 bound) and leaves dK_mn = L⁻ᵀ·dV to ``torch.matmul``
+    (its bits)."""
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.ops import split_k as sk
+
+    calls = []
+    split = sk.split_k_mm
+    monkeypatch.setattr(sk, "split_k_mm", lambda a, b: calls.append(tuple(a.shape)) or split(a, b))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    Li = torch.randn(2, 250, 250, generator=g, device=cuda).requires_grad_()
+    Kmn = torch.randn(2, 250, 8192, generator=g, device=cuda).requires_grad_()
+    dV = torch.randn(2, 250, 8192, generator=g, device=cuda)
+    V = linalg.bdot(Li, Kmn)
+    assert torch.equal(V, Li.detach() @ Kmn.detach())
+    V.backward(dV)
+    torch.cuda.synchronize()
+    assert calls == [(2, 250, 8192)]
+    exact = dV.double() @ Kmn.detach().double().mT
+    bound = (8192 // sk.SPLITS + sk.SPLITS) * 2.0**-24 * (dV.double().abs() @ Kmn.detach().double().abs().mT)
+    assert torch.all((Li.grad.double() - exact).abs() <= bound)
+    assert torch.equal(Kmn.grad, Li.detach().mT @ dV)
+
+
+def test_split_k_backward_in_a_graph_replay(cuda):
+    """A step whose backward splits the grid's dL⁻¹ product, captured in a
+    ``CountedGraph``: each replay gives the eager step's gradient bits."""
+    from zigp_tpu_torch.ops import linalg
+    from zigp_tpu_torch.ops.cuda.graphs import CountedGraph, on_side_stream
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    Li = torch.randn(2, 105, 105, generator=g, device=cuda).requires_grad_()
+    Kmn = torch.randn(2, 105, 8192, generator=g, device=cuda)
+
+    def step():
+        Li.grad = None
+        torch.sum(torch.square(linalg.bdot(Li, Kmn))).backward()
+        return Li.grad
+
+    on_side_stream(step)
+    eager = step().clone()
+    graph = CountedGraph()
+    with graph.capture():
+        out = step()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)

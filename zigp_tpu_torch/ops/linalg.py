@@ -18,6 +18,7 @@ from typing import Sequence
 
 import torch
 
+from . import split_k
 from .cuda.bf16x3 import bf16x3_mm
 from .cuda.chol_inv import BLOCKED_MAX_N, MAX_N, chol_inv_blocked_op, chol_inv_op
 
@@ -76,8 +77,25 @@ def hdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b for a batch-scaled product of the conditionals: exact float32,
-    or 3-pass under "high" and "mixed"."""
-    return _dot(a, b, _BULK_3PASS)
+    or 3-pass under "high" and "mixed".
+
+    Exact float32 on CUDA tensors that need a gradient, where the backward
+    has a product that contracts the batch into a C of few tiles
+    (``split_k.backward_reduces``), is ``a @ b`` itself whose backward
+    computes those products with k split into ranges
+    (``split_k.split_k_mm``); anything else (no gradient, no such product,
+    the CPU, float64) is the plain ``a @ b``."""
+    if _BULK_3PASS:
+        return _dot(a, b, True)
+    if (_on_card(a) and a.dtype == torch.float32 and b.dtype == torch.float32 and a.ndim >= 2 and b.ndim >= 2
+            and (a.requires_grad or b.requires_grad) and torch.is_grad_enabled()
+            and split_k.backward_reduces(a.shape[-2], a.shape[-1], b.shape[-1])):
+        return split_k.matmul(a, b)
+    return a @ b
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
 
 
 def bulk_precision() -> str:
